@@ -1,0 +1,668 @@
+"""SELL-slab layouts as torch containers: the host builders of
+`tpu_spmv.formats.sell`, ported to NumPy plus tensors.
+
+The arrays are identical, array for array, to the JAX package's
+`SellSlabs` / `RankedSlabs` on the same matrix (tests hold them equal),
+so a kernel of either package can be checked against the other on one
+layout. Each container adds one derived field, `chunk_ptr`
+((num_chunks+1,) int32): the sub-tile range [chunk_ptr[c],
+chunk_ptr[c+1]) of chunk c. A GPU thread that owns a row walks its own
+chunk's sub-tiles with it and writes its row total directly, so the
+per-sub-tile partials and their segment-sum epilogue do not exist in
+the port. The all-pad tail (sentinel chunk id num_chunks) lies past
+chunk_ptr[num_chunks] and is never read.
+
+Layout recap (see the reference module for the design): 128 rows form
+a chunk (one row per lane), a chunk's nonzeros are stored slot-major as
+(k, 128) slabs, and 8 slots form a sub-tile. Padding slots carry val 0
+and an in-range column, so they are inert.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from tpu_spmv.formats.csr import CSRMatrix
+
+LANES = 128
+SUBLANES = 8
+# Must equal tpu_spmv/kernels/pallas_sell.py:_UNROLL_BUDGET: pad_up_tile
+# picks the ranked layout's tile (and so its tail padding) from it, and
+# the layouts of the two packages must stay identical.
+_UNROLL_BUDGET = 6144
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _uniform_subtiles_per_chunk(sub_chunk, num_chunks: int) -> int:
+    """q if every chunk owns exactly q sub-tiles (the all-pad tail uses
+    sentinel ids and is excluded), else 0."""
+    sc = np.asarray(sub_chunk)
+    real = sc[sc < num_chunks]
+    if real.size == 0 or real.size % max(num_chunks, 1):
+        return 0
+    q = real.size // num_chunks
+    expect = np.repeat(np.arange(num_chunks), q)
+    return q if np.array_equal(real, expect) else 0
+
+
+def _chunk_ptr(sub_chunk: np.ndarray, num_chunks: int) -> np.ndarray:
+    """Sub-tile range per chunk from the sorted owner ids; the sentinel
+    tail (id num_chunks) starts at chunk_ptr[num_chunks] and is left
+    out."""
+    return np.searchsorted(
+        np.asarray(sub_chunk), np.arange(num_chunks + 1), side="left"
+    ).astype(np.int32)
+
+
+def _aligned_slots(mat: CSRMatrix, gap: int = LANES, cap_factor: float = 2.0):
+    """Cluster-aligned slot assignment per 128-row chunk (see
+    tpu_spmv.formats.sell._aligned_slots for the design). Returns
+    (slots, kc): per-nonzero slot index and per-chunk slab height."""
+    from tpu_spmv.reorder import native
+
+    if native.available():
+        return native.aligned_slots(
+            mat.indptr, mat.indices, gap=gap, cap_factor=cap_factor,
+            lanes=LANES,
+        )
+
+    m = mat.m
+    num_chunks = max(_round_up(m, LANES) // LANES, 1)
+    indptr = mat.indptr.astype(np.int64)
+    cols = mat.indices.astype(np.int64)
+    rows = np.repeat(np.arange(m, dtype=np.int64), mat.row_lengths)
+    d = cols - rows
+    ordinal = np.arange(mat.nnz, dtype=np.int64) - np.repeat(
+        indptr[:-1], mat.row_lengths
+    )
+    slots = ordinal.copy()
+    kc = np.zeros(num_chunks, dtype=np.int64)
+
+    for c in range(num_chunks):
+        r0 = c * LANES
+        r1 = min(r0 + LANES, m)
+        e0, e1 = int(indptr[r0]), int(indptr[r1])
+        if e0 == e1:
+            kc[c] = 1
+            continue
+        dloc = d[e0:e1]
+        maxlen = int((indptr[r0 + 1 : r1 + 1] - indptr[r0:r1]).max())
+        order = np.argsort(dloc, kind="stable")
+        ds = dloc[order]
+        # Clusters split at gaps > gap, then into 64-column bins so each
+        # slot's column span stays <= 64.
+        newc = np.empty(ds.shape[0], dtype=bool)
+        newc[0] = True
+        np.greater(ds[1:] - ds[:-1], gap, out=newc[1:])
+        coarse = np.cumsum(newc) - 1
+        cmin = np.zeros(int(coarse[-1]) + 1, dtype=dloc.dtype)
+        cmin[coarse[newc]] = ds[newc]
+        bins = (ds - cmin[coarse]) >> 6
+        newc |= np.concatenate(([False], bins[1:] != bins[:-1]))
+        cluster_of_sorted = np.cumsum(newc) - 1
+        ncl = int(cluster_of_sorted[-1]) + 1
+        cluster = np.empty(ds.shape[0], dtype=np.int64)
+        cluster[order] = cluster_of_sorted
+        # Per-row, per-cluster ordinal (columns ascend within a row).
+        rloc = rows[e0:e1] - r0
+        key = rloc * ncl + cluster
+        change = np.empty(key.shape[0], dtype=bool)
+        change[0] = True
+        np.not_equal(key[1:], key[:-1], out=change[1:])
+        seg_start = np.maximum.accumulate(
+            np.where(change, np.arange(key.shape[0]), 0)
+        )
+        within = np.arange(key.shape[0]) - seg_start
+        width = np.zeros(ncl, dtype=np.int64)
+        np.maximum.at(width, cluster, within)
+        width += 1
+        total = int(width.sum())
+        if total > max(cap_factor * maxlen, maxlen + SUBLANES):
+            kc[c] = maxlen  # ordinal fallback for this chunk
+            continue
+        base = np.zeros(ncl, dtype=np.int64)
+        np.cumsum(width[:-1], out=base[1:])
+        slots[e0:e1] = base[cluster] + within
+        kc[c] = total
+    return slots, kc
+
+
+def pick_tile_k(total_k: int, cap: int = 2048) -> int:
+    """Largest tile <= cap that divides total_k (a divisor scan when no
+    standard tile divides)."""
+    for t in (cap, 2048, 1024, 512):
+        if t <= cap and total_k % t == 0:
+            return t
+    for t in range(min(cap, total_k), SUBLANES - 1, -SUBLANES):
+        if total_k % t == 0:
+            return t
+    return SUBLANES
+
+
+def pad_up_tile(total_k: int, cap: int, rank_nb: int, group_code: int) -> int:
+    """The reference's tile choice for a rank-windowed layout, padding
+    total_k up (kept so the padding, and so the arrays, match)."""
+    npairs_eff = max((rank_nb + 1) // 2, 1)
+    if group_code:
+        G_eff = group_code >> 32
+        inner = max((2 * npairs_eff * G_eff) // 8, 1)
+    else:
+        inner = 2 * npairs_eff
+    for cand in (8192, 4096, 2048, 1024):
+        if cand > cap:
+            continue
+        subs = cand // SUBLANES
+        pad = -total_k % cand
+        if subs * inner <= _UNROLL_BUDGET and pad <= 0.06 * total_k:
+            return cand
+    return pick_tile_k(total_k, cap)
+
+
+def _binned_slots(mat: CSRMatrix, bin_blocks: int):
+    """Column-binned slot assignment for scattered matrices (see
+    tpu_spmv.formats.sell._binned_slots). Within every 8-slot sub-tile
+    the bin spread keeps packed window deltas <= 255 blocks. Returns
+    (slots, kc) like _aligned_slots."""
+    if bin_blocks < 1 or (bin_blocks & (bin_blocks - 1)):
+        raise ValueError("bin_blocks must be a power of two >= 1")
+    m = mat.m
+    nnz = mat.nnz
+    num_chunks = max(_round_up(m, LANES) // LANES, 1)
+    shift = 7 + int(bin_blocks).bit_length() - 1
+    nbins = (max(mat.n - 1, 0) >> shift) + 1
+    if nnz == 0:
+        return np.zeros(0, np.int64), np.ones(num_chunks, np.int64)
+
+    from tpu_spmv.reorder import native
+
+    if native.available():
+        return native.binned_slots(mat.indptr, mat.indices, bin_blocks)
+
+    lens = mat.row_lengths.astype(np.int64)
+    rows = np.repeat(np.arange(m, dtype=np.int64), lens)
+    chunks = rows >> 7
+    bins = mat.indices.astype(np.int64) >> shift
+
+    change = np.empty(nnz, dtype=bool)
+    change[0] = True
+    change[1:] = (rows[1:] != rows[:-1]) | (bins[1:] != bins[:-1])
+    seg_start = np.maximum.accumulate(np.where(change, np.arange(nnz), 0))
+    within = np.arange(nnz) - seg_start
+
+    wkey = chunks * nbins + bins
+    uk, inv = np.unique(wkey, return_inverse=True)
+    width = np.zeros(uk.shape[0], dtype=np.int64)
+    np.maximum.at(width, inv, within + 1)
+    cums = np.cumsum(width)
+    gchunk = uk // nbins
+    first = np.empty(uk.shape[0], dtype=bool)
+    first[0] = True
+    np.not_equal(gchunk[1:], gchunk[:-1], out=first[1:])
+    chunk_start = np.maximum.accumulate(
+        np.where(first, cums - width, 0)
+    )
+    base = cums - width - chunk_start
+    kc = np.zeros(num_chunks, dtype=np.int64)
+    np.add.at(kc, gchunk, width)
+
+    slots = base[inv] + within
+
+    # Packed-delta guard: offending chunks get empty slots inserted so
+    # an oversized bin jump starts a fresh sub-tile.
+    gbin = uk - gchunk * nbins
+    kc_off = np.zeros(num_chunks + 1, dtype=np.int64)
+    np.cumsum(kc, out=kc_off[1:])
+    slot_bin = np.repeat(gbin, width)
+    limit_bins = max((255 - (bin_blocks - 1)) // bin_blocks, 0)
+
+    chunk_lo = np.full(num_chunks, np.iinfo(np.int64).max)
+    chunk_hi = np.full(num_chunks, -1)
+    np.minimum.at(chunk_lo, gchunk, gbin)
+    np.maximum.at(chunk_hi, gchunk, gbin)
+    suspects = np.flatnonzero(chunk_hi - chunk_lo > limit_bins)
+
+    bad = np.zeros(num_chunks, dtype=bool)
+    for c in suspects:
+        sb = slot_bin[kc_off[c] : kc_off[c + 1]]
+        k8 = (sb.shape[0] // 8) * 8
+        if k8:
+            g = sb[:k8].reshape(-1, 8)
+            if int((g[:, 7] - g[:, 0]).max()) > limit_bins:
+                bad[c] = True
+        tail = sb[k8:]
+        if tail.size and int(tail[-1] - tail[0]) > limit_bins:
+            bad[c] = True
+    if bad.any():
+        remap = {}
+        for c in np.flatnonzero(bad):
+            sb = slot_bin[kc_off[c] : kc_off[c + 1]]
+            new_idx = np.empty(sb.shape[0], dtype=np.int64)
+            pos = 0
+            start_bin = int(sb[0])
+            for i in range(sb.shape[0]):
+                if pos % 8 == 0:
+                    start_bin = int(sb[i])
+                elif int(sb[i]) - start_bin > limit_bins:
+                    pos = _round_up(pos, 8)
+                    start_bin = int(sb[i])
+                new_idx[i] = pos
+                pos += 1
+            remap[c] = new_idx
+            kc[c] = pos
+        for c, new_idx in remap.items():
+            sel = chunks == c
+            slots[sel] = new_idx[slots[sel]]
+
+    kc = np.maximum(kc, 1)
+    return slots, kc
+
+
+def group_windows(sub_base, hi_units, rank_nb0: int):
+    """Greedily merge sublanes whose gather windows always coincide
+    (tpu_spmv.formats.sell.group_windows without the shared-plan path,
+    which only the distributed layer uses).
+
+    Returns (sub_base_grouped, grp_b0, group_code): sub_base rewritten
+    to each sublane's group minimum, grp_b0 the sub-tile-major (S*G,)
+    absolute base per group, and group_code = G<<32 plus 4 bits of
+    group id per sublane.
+    """
+    S = sub_base.shape[0]
+    target = 1 if rank_nb0 == 1 else 2 * max((rank_nb0 + 1) // 2, 1)
+    med = np.median(sub_base - sub_base.min(axis=1, keepdims=True), axis=0)
+    order = np.argsort(med, kind="stable")
+    members = [[int(order[0])]]
+    glo = sub_base[:, order[0]].copy()
+    ghi = hi_units[:, order[0]].copy()
+    for r in order[1:]:
+        nlo = np.minimum(glo, sub_base[:, r])
+        nhi = np.maximum(ghi, hi_units[:, r])
+        if int((nhi - nlo).max()) < target:
+            members[-1].append(int(r))
+            glo, ghi = nlo, nhi
+        else:
+            members.append([int(r)])
+            glo = sub_base[:, r].copy()
+            ghi = hi_units[:, r].copy()
+    G = len(members)
+    gb = np.empty_like(sub_base)
+    gmat = np.empty((G, S), np.int64)
+    group_code = G << 32
+    for gi, mem in enumerate(members):
+        gmin = sub_base[:, mem].min(axis=1)
+        gmat[gi] = gmin
+        for r in mem:
+            gb[:, r] = gmin
+            group_code |= gi << (4 * r)
+    return gb, gmat.T.reshape(-1).astype(np.int32), group_code
+
+
+def to_tensor(a, dtype=None) -> torch.Tensor:
+    """Host array (anything np.asarray reads) -> CPU tensor. bf16, which
+    torch.from_numpy rejects in its ml_dtypes form, crosses as its uint16
+    bits, and uint32 as its int32 view (the kernels decode the bits)."""
+    a = np.ascontiguousarray(np.asarray(a))
+    if not a.flags.writeable:  # e.g. a view of a JAX array
+        a = a.copy()
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a)
+    return t if dtype is None else t.to(dtype)
+
+
+class TensorLayout:
+    """Mixin for layout dataclasses: the tensor fields move, count and
+    clone together; every other field is static metadata."""
+
+    def tensors(self) -> dict:
+        return {
+            f.name: getattr(self, f.name)
+            for f in dataclasses.fields(self)
+            if isinstance(getattr(self, f.name), torch.Tensor)
+        }
+
+    def to(self, device):
+        return dataclasses.replace(
+            self, **{k: v.to(device) for k, v in self.tensors().items()}
+        )
+
+    def clone(self):
+        """Copy with distinct storage (the cold-regime timing rotates
+        such copies so the operator cannot stay in L2)."""
+        return dataclasses.replace(
+            self, **{k: v.clone() for k, v in self.tensors().items()}
+        )
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes the layout's tensors hold on their device."""
+        return sum(
+            t.numel() * t.element_size() for t in self.tensors().values()
+        )
+
+
+@dataclasses.dataclass
+class SellSlabs(TensorLayout):
+    """SELL slabs with absolute int32 columns (the plain gather kernel)."""
+
+    vals: torch.Tensor  # (total_k, 128) float32
+    cols: torch.Tensor  # (total_k, 128) int32 absolute column ids
+    sub_b0: torch.Tensor  # (S,) int32 first x block per sub-tile
+    sub_nb: torch.Tensor  # (S,) int32 x blocks per sub-tile
+    sub_chunk: torch.Tensor  # (S,) int32 owning chunk (sorted)
+    chunk_ptr: torch.Tensor  # (num_chunks+1,) int32 sub-tile range per chunk
+    m: int
+    n: int
+    nnz: int
+    num_chunks: int
+    max_nb: int
+    chunk_q: int = 0
+
+    @property
+    def num_subtiles(self) -> int:
+        return int(self.sub_b0.shape[0])
+
+    @property
+    def hbm_bytes(self) -> int:
+        """The reference's per-SpMV traffic formula (slabs, x, y and the
+        partials it writes and reads), kept for like-for-like rates."""
+        return (
+            self.vals.numel() * 4
+            + self.cols.numel() * 4
+            + 4 * (self.n + self.m)
+            + self.num_subtiles * LANES * 4
+        )
+
+    @classmethod
+    def from_csr(
+        cls, mat: CSRMatrix, tile_k: int = 2048, align: bool = False,
+        bin_blocks: int = 0,
+    ) -> "SellSlabs":
+        host = cls._host_build(mat, tile_k, align, bin_blocks)
+        sub_nb = host["sub_nb"]
+        return cls(
+            vals=to_tensor(host["vals"]),
+            cols=to_tensor(host["cols"].astype(np.int32)),
+            sub_b0=to_tensor(host["sub_b0"].astype(np.int32)),
+            sub_nb=to_tensor(sub_nb.astype(np.int32)),
+            sub_chunk=to_tensor(host["sub_chunk"].astype(np.int32)),
+            chunk_ptr=to_tensor(
+                _chunk_ptr(host["sub_chunk"], host["num_chunks"])
+            ),
+            m=host["m"],
+            n=host["n"],
+            nnz=mat.nnz,
+            num_chunks=host["num_chunks"],
+            max_nb=int(sub_nb.max()) if len(sub_nb) else 1,
+            chunk_q=host["chunk_q"],
+        )
+
+    @staticmethod
+    def _host_build(
+        mat: CSRMatrix, tile_k: int, align: bool, bin_blocks: int,
+    ) -> dict:
+        """NumPy half of from_csr, shared with RankedSlabs."""
+        if tile_k % SUBLANES:
+            raise ValueError(
+                f"tile_k must be a multiple of {SUBLANES}, got {tile_k}"
+            )
+        m, n = mat.shape
+        num_chunks = max(_round_up(m, LANES) // LANES, 1)
+
+        rows = np.repeat(np.arange(m, dtype=np.int64), mat.row_lengths)
+        if bin_blocks:
+            ranks, kc_raw = _binned_slots(mat, bin_blocks)
+        elif align:
+            ranks, kc_raw = _aligned_slots(mat)
+        else:
+            lens = np.zeros(num_chunks * LANES, dtype=np.int64)
+            lens[:m] = mat.row_lengths
+            kc_raw = lens.reshape(num_chunks, LANES).max(axis=1)
+            ranks = np.arange(mat.nnz, dtype=np.int64) - np.repeat(
+                mat.indptr[:-1].astype(np.int64), mat.row_lengths
+            )
+
+        # Slab height per chunk, quantized to 8 slots, at least one
+        # sub-tile per chunk.
+        kc = np.maximum(
+            (kc_raw + SUBLANES - 1) // SUBLANES * SUBLANES, SUBLANES
+        )
+        koff = np.zeros(num_chunks + 1, dtype=np.int64)
+        np.cumsum(kc, out=koff[1:])
+        total_k = _round_up(int(koff[-1]), min(tile_k, 512))
+
+        vals = np.zeros((total_k, LANES), dtype=np.float32)
+        cols = np.full((total_k, LANES), -1, dtype=np.int32)
+
+        from tpu_spmv.reorder import native
+
+        if not align and not bin_blocks and native.available():
+            dest_k, dest_l = native.sell_targets(mat.indptr, koff, LANES)
+        else:
+            dest_k = koff[rows // LANES] + ranks
+            dest_l = rows % LANES
+        vals[dest_k, dest_l] = mat.data
+        cols[dest_k, dest_l] = mat.indices
+
+        # Per-sub-tile x block range [b0, b0+nb) over the real entries.
+        num_subtiles = total_k // SUBLANES
+        sub_of = dest_k // SUBLANES
+        sub_min = np.full(num_subtiles, np.iinfo(np.int32).max, np.int64)
+        np.minimum.at(sub_min, sub_of, mat.indices)
+        sub_min[sub_min == np.iinfo(np.int32).max] = 0  # all-pad sub-tiles
+        sub_b0 = sub_min // LANES
+        sub_bmax = np.zeros(num_subtiles, np.int64)
+        np.maximum.at(sub_bmax, sub_of, mat.indices)
+        sub_bmax //= LANES
+        sub_nb = np.maximum(sub_bmax - sub_b0 + 1, 1)
+
+        # Padding slots point at the sub-tile's first block (in range);
+        # val 0 keeps them inert.
+        pad_fill = np.broadcast_to(
+            (sub_b0 * LANES).repeat(SUBLANES)[:, None], (total_k, LANES)
+        )
+        np.copyto(cols, pad_fill, where=(cols == -1))
+
+        sub_chunk = np.full(num_subtiles, num_chunks, dtype=np.int64)
+        real = int(koff[-1]) // SUBLANES
+        sub_chunk[:real] = np.repeat(
+            np.arange(num_chunks, dtype=np.int64), kc // SUBLANES
+        )
+
+        return dict(
+            vals=vals, cols=cols, sub_b0=sub_b0, sub_nb=sub_nb,
+            sub_chunk=sub_chunk, m=m, n=n, num_chunks=num_chunks,
+            chunk_q=_uniform_subtiles_per_chunk(sub_chunk, num_chunks),
+            dest_k=dest_k,
+        )
+
+
+@dataclasses.dataclass
+class RankedSlabs(TensorLayout):
+    """Rank-windowed SELL layout: per-sublane gather windows.
+
+    The column of slot (sub-tile s, sublane r, lane l) is
+    128 * base(s, r) + lcols[8s + r, l], where base(s, r) is
+    sub_b0[s] + byte r of (sub_dlo | sub_dhi) (sublanes 0-3 in dlo, 4-7
+    in dhi, read as unsigned), or grp_b0[s*G + groups[r]] when the
+    layout is grouped (group_code != 0).
+    """
+
+    vals: torch.Tensor  # (total_k, 128) float32 or bfloat16
+    lcols: torch.Tensor  # (total_k, 128) uint8, int16 or int32
+    sub_b0: torch.Tensor  # (S,) int32
+    sub_dlo: torch.Tensor  # (S,) int32 view of uint32 packed deltas
+    sub_dhi: torch.Tensor  # (S,) int32 view of uint32 packed deltas
+    sub_chunk: torch.Tensor  # (S,) int32
+    tile_b0: torch.Tensor  # (T,) int32 (windowed variant's metadata)
+    grp_b0: torch.Tensor  # (S*G,) int32, empty when ungrouped
+    chunk_ptr: torch.Tensor  # (num_chunks+1,) int32
+    m: int
+    n: int
+    nnz: int
+    num_chunks: int
+    rank_nb: int
+    chunk_q: int = 0
+    win_w: int = 0
+    tile_k: int = 2048
+    group_code: int = 0
+
+    @property
+    def groups(self) -> tuple:
+        """Sublane -> group map decoded from group_code."""
+        return tuple((self.group_code >> (4 * r)) & 15 for r in range(SUBLANES))
+
+    @property
+    def num_groups(self) -> int:
+        return self.group_code >> 32
+
+    @property
+    def num_subtiles(self) -> int:
+        return int(self.sub_b0.shape[0])
+
+    @property
+    def hbm_bytes(self) -> int:
+        """The reference's per-SpMV traffic formula (see SellSlabs)."""
+        return (
+            self.vals.numel() * self.vals.element_size()
+            + self.lcols.numel() * self.lcols.element_size()
+            + 4 * (self.n + self.m)
+            + self.num_subtiles * LANES * 4
+        )
+
+    @classmethod
+    def from_csr(
+        cls, mat: CSRMatrix, tile_k: int = 2048, align: bool = True,
+        bin_blocks: int = 0, allow_groups: bool = True, val_dtype=None,
+    ) -> "RankedSlabs":
+        """val_dtype: value storage, torch.float32 (default) or
+        torch.bfloat16 (the kernels widen to f32 on load, so only the
+        storage is rounded). Raises ValueError when a sub-tile's window
+        bases span more than the 256-block packed-delta range."""
+        host = SellSlabs._host_build(mat, tile_k, align, bin_blocks)
+        cols = host["cols"]
+        vals = host["vals"]
+        dest_k = host.pop("dest_k")
+        total_k = cols.shape[0]
+        S = total_k // SUBLANES
+
+        # Per-(sub-tile, sublane) window base over the real entries.
+        SENT = np.iinfo(np.int32).max
+        units_e = mat.indices.astype(np.int64) >> 7
+        flat_lo = np.full(total_k, SENT, np.int64)
+        np.minimum.at(flat_lo, dest_k, units_e)
+        flat_hi = np.full(total_k, -1, np.int64)
+        np.maximum.at(flat_hi, dest_k, units_e)
+        sub_base = flat_lo.reshape(S, SUBLANES)
+        empty = sub_base == SENT
+        tile_min = sub_base.min(axis=1)
+        tile_min[tile_min == SENT] = 0
+        sub_base = np.where(empty, tile_min[:, None], sub_base)
+
+        group_code = 0
+        grp_b0 = np.zeros(0, np.int32)
+        if allow_groups and S:
+            hi_units = flat_hi.reshape(S, SUBLANES)
+            hi_units = np.where(hi_units < 0, sub_base, hi_units)
+            rank_nb0 = int((hi_units - sub_base).max()) + 1
+            sub_base, grp_b0, group_code = group_windows(
+                sub_base, hi_units, rank_nb0
+            )
+
+        # Local columns; padding slots point at the window's first entry.
+        real3 = (vals != 0.0).reshape(S, SUBLANES, LANES)
+        c3 = cols.reshape(S, SUBLANES, LANES)
+        c3 -= (sub_base[:, :, None] << 7).astype(cols.dtype)
+        np.copyto(c3, 0, where=~real3)
+        lcols = cols
+        rank_nb = (int(lcols.max()) >> 7) + 1 if S else 1
+        if S and int(lcols.min()) < 0:
+            raise ValueError("window base exceeds its own entries")
+        lmax = int(lcols.max()) if lcols.size else 0
+        lcols = lcols.astype(
+            np.uint8 if lmax < 2**8
+            else np.int16 if lmax < 2**15
+            else np.int32
+        )
+
+        sub_b0 = sub_base.min(axis=1)
+        deltas = sub_base - sub_b0[:, None]
+        if deltas.size and deltas.max() > 255:
+            raise ValueError(
+                "sub-tile block span exceeds the packed-delta range (256 "
+                "blocks); use the plain SellSlabs kernel for this matrix"
+            )
+        deltas = deltas.astype(np.uint32)
+        sub_dlo = np.zeros(S, dtype=np.uint32)
+        sub_dhi = np.zeros(S, dtype=np.uint32)
+        for r in range(4):
+            sub_dlo |= deltas[:, r] << (8 * r)
+            sub_dhi |= deltas[:, r + 4] << (8 * r)
+
+        tile_eff = pad_up_tile(total_k, tile_k, rank_nb, group_code)
+        pad_k = -total_k % tile_eff
+        if pad_k:
+            pad_s = pad_k // SUBLANES
+            vals = np.concatenate([vals, np.zeros((pad_k, LANES), vals.dtype)])
+            lcols = np.concatenate(
+                [lcols, np.zeros((pad_k, LANES), lcols.dtype)]
+            )
+            sub_base = np.concatenate([
+                sub_base,
+                np.broadcast_to(sub_base[-1], (pad_s, SUBLANES)).copy(),
+            ])
+            sub_b0 = np.concatenate(
+                [sub_b0, np.full(pad_s, sub_b0[-1], sub_b0.dtype)]
+            )
+            sub_dlo = np.concatenate([sub_dlo, np.zeros(pad_s, sub_dlo.dtype)])
+            sub_dhi = np.concatenate([sub_dhi, np.zeros(pad_s, sub_dhi.dtype)])
+            host["sub_chunk"] = np.concatenate([
+                host["sub_chunk"],
+                np.full(pad_s, host["num_chunks"], host["sub_chunk"].dtype),
+            ])
+            if group_code:
+                grp_b0 = np.concatenate(
+                    [grp_b0, np.zeros(pad_s * (group_code >> 32), grp_b0.dtype)]
+                )
+            S += pad_s
+            total_k += pad_k
+
+        subs_per_tile = tile_eff // SUBLANES
+        T = S // subs_per_tile
+        base_t = sub_base.reshape(T, subs_per_tile * SUBLANES)
+        tile_b0 = base_t.min(axis=1)
+        reads_nb = 2 * max((rank_nb + 1) // 2, 1)
+        win_w = (
+            int((base_t.max(axis=1) - tile_b0).max()) + reads_nb if T else 2
+        )
+        win_w = _round_up(max(win_w, SUBLANES), SUBLANES)
+
+        return cls(
+            vals=to_tensor(vals, val_dtype or torch.float32),
+            lcols=to_tensor(lcols),
+            sub_b0=to_tensor(sub_b0.astype(np.int32)),
+            sub_dlo=to_tensor(sub_dlo),
+            sub_dhi=to_tensor(sub_dhi),
+            sub_chunk=to_tensor(host["sub_chunk"].astype(np.int32)),
+            tile_b0=to_tensor(tile_b0.astype(np.int32)),
+            grp_b0=to_tensor(grp_b0.astype(np.int32)),
+            chunk_ptr=to_tensor(
+                _chunk_ptr(host["sub_chunk"], host["num_chunks"])
+            ),
+            m=host["m"],
+            n=host["n"],
+            nnz=mat.nnz,
+            num_chunks=host["num_chunks"],
+            rank_nb=rank_nb,
+            chunk_q=host["chunk_q"],
+            win_w=win_w,
+            tile_k=tile_eff,
+            group_code=group_code,
+        )
