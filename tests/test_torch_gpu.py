@@ -11,7 +11,8 @@ Tolerances: kernel and plain version both sum in f32, in different
 orders and with or without fused multiply-add, so they agree to
 1e-5 * max(1, max |y|), not bit for bit. Against the serial CSR oracle
 the bar is the suite's: Number Wrong 0 at the magnitude-aware 0.01 and
-RelL2 <= 1e-6 (bf16 layouts against the bf16-rounded operator).
+RelL2 <= 1e-6 (bf16 layouts against the bf16-rounded operator; SpMM
+column by column).
 """
 
 import numpy as np
@@ -26,10 +27,15 @@ from tpu_spmv.reorder.rcm import rcm
 from tpu_spmv_torch.bench.harness import bench_spmv, bench_spmv_cold, validate
 from tpu_spmv_torch.formats.convert import rounded
 from tpu_spmv_torch.formats.dia import DiaSlabs
+from tpu_spmv_torch.formats.packed import PackedRanked
 from tpu_spmv_torch.formats.sell import RankedSlabs, SellSlabs
 from tpu_spmv_torch.kernels.dia import spmv_dia, spmv_dia_reference
+from tpu_spmv_torch.kernels.packed import spmv_packed, spmv_packed_reference
 from tpu_spmv_torch.kernels.sell import (
     spmv_ranked, spmv_ranked_reference, spmv_sell, spmv_sell_reference,
+)
+from tpu_spmv_torch.kernels.spmm import (
+    spmm_packed, spmm_packed_reference, spmm_ranked, spmm_ranked_reference,
 )
 
 pytestmark = pytest.mark.gpu
@@ -46,19 +52,24 @@ def _rcm(mat):
     return mat.permuted(rcm(mat.indptr, mat.indices))
 
 
-def _run(kernel, plain, layout, mat, oracle, dev):
+def _run(kernel, plain, layout, mat, oracle, dev, batch=None):
     lay = layout.to(dev)
-    x = np.random.default_rng(3).standard_normal(mat.n).astype(np.float32)
+    shape = (mat.n,) if batch is None else (mat.n, batch)
+    x = np.random.default_rng(3).standard_normal(shape).astype(np.float32)
     xt = torch.from_numpy(x).to(dev)
     before = kernel.launches
     yk = kernel(lay, xt)
     yp = plain(lay, xt)
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
+    assert yk.shape == yp.shape == (mat.m, *shape[1:])
     scale = max(1.0, float(yp.abs().max()))
     assert float((yk - yp).abs().max()) <= 1e-5 * scale
-    wrong, rel = validate(yk.cpu().numpy(), oracle.matvec(x))
-    assert wrong == 0 and rel <= 1e-6, (wrong, rel)
+    y = yk.cpu().numpy().reshape(mat.m, -1)
+    xs = x.reshape(mat.n, -1)
+    for b in range(xs.shape[1]):
+        wrong, rel = validate(y[:, b], oracle.matvec(xs[:, b]))
+        assert wrong == 0 and rel <= 1e-6, (b, wrong, rel)
 
 
 @pytest.mark.parametrize("mat", [laplacian_2d(70), variable_stencil(53)],
@@ -101,6 +112,43 @@ def test_sell_kernel_matches_plain(cuda, bins):
     _run(spmv_sell, spmv_sell_reference, lay, mat, mat, cuda)
 
 
+_PACKED = {
+    "banded_grouped": (lambda: _rcm(random_banded(3000, 90, 11, seed=1)), {}),
+    "banded_delta": (lambda: _rcm(random_banded(3000, 90, 11, seed=1)),
+                     dict(allow_groups=False)),
+    "banded_bf16": (lambda: _rcm(random_banded(3000, 90, 11, seed=1)),
+                    dict(val_dtype=torch.bfloat16)),
+    "general_binned_w4": (lambda: _rcm(random_general(2500, 6, seed=2)),
+                          dict(bin_blocks=4)),
+    "lap2d_u8_delta": (lambda: _rcm(laplacian_2d(60)),
+                       dict(allow_groups=False)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_PACKED))
+def test_packed_kernel_matches_plain(cuda, case):
+    make, kw = _PACKED[case]
+    mat = make()
+    lay = PackedRanked.from_csr(mat, **kw)
+    oracle = rounded(mat) if kw.get("val_dtype") else mat
+    _run(spmv_packed, spmv_packed_reference, lay, mat, oracle, cuda)
+
+
+@pytest.mark.parametrize("batch", [1, 5, 8, 13])
+@pytest.mark.parametrize("case", ["banded_grouped", "banded_bf16",
+                                  "general_binned_w4", "lap2d_u8_delta"])
+def test_spmm_kernels_match_plain(cuda, case, batch):
+    """Both SpMM kernels on the same matrix; B = 13 takes two column
+    tiles, the second one partial."""
+    make, kw = _PACKED[case]
+    mat = make()
+    oracle = rounded(mat) if kw.get("val_dtype") else mat
+    _run(spmm_packed, spmm_packed_reference, PackedRanked.from_csr(mat, **kw),
+         mat, oracle, cuda, batch)
+    _run(spmm_ranked, spmm_ranked_reference, RankedSlabs.from_csr(mat, **kw),
+         mat, oracle, cuda, batch)
+
+
 def test_wrapper_refuses_bad_operands(cuda):
     mat = laplacian_2d(20)
     lay = DiaSlabs.from_csr(mat).to(cuda)
@@ -108,6 +156,13 @@ def test_wrapper_refuses_bad_operands(cuda):
         spmv_dia(lay, torch.zeros(mat.n, dtype=torch.float64, device=cuda))
     with pytest.raises(ValueError):
         spmv_dia(DiaSlabs.from_csr(mat), torch.zeros(mat.n, device=cuda))
+    packed = PackedRanked.from_csr(mat).to(cuda)
+    with pytest.raises(ValueError):
+        spmm_packed(packed, torch.zeros(mat.n, device=cuda))  # not (n, B)
+    with pytest.raises(ValueError):
+        spmm_packed(packed, torch.zeros(4, mat.n, device=cuda).t())
+    with pytest.raises(ValueError):
+        spmv_packed(packed, torch.zeros(mat.n, 1, device=cuda))
 
 
 def test_timing_on_card(cuda):

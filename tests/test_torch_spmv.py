@@ -88,8 +88,45 @@ def test_planner_choices():
     assert not gpu_plan(general, assume_rcm=True).needs_rcm
 
 
+def test_planner_packed_choice(monkeypatch):
+    """Packed is taken exactly when its sub-tiles, weighted by the
+    measured packed-to-ranked time per sub-tile, undercut ranked's; the
+    sample-based counts equal the layouts' own on a small matrix."""
+    from tpu_spmv_torch.formats.packed import PackedRanked
+    from tpu_spmv_torch.formats.sell import RankedSlabs
+    from tpu_spmv_torch.tune import plan
+
+    mat = make("banded_1k")
+    s_ali = int(RankedSlabs.from_csr(mat).chunk_ptr[-1])
+    s_pk = -(-int(PackedRanked.from_csr(mat).chunk_koff[-1]) // 8)
+    assert (s_ali, s_pk) == (23, 20)
+    monkeypatch.setattr(plan, "PACKED_OVER_RANKED", 0.99 * s_ali / s_pk)
+    p = gpu_plan(mat)
+    assert p.kernel == "packed" and p.bin_blocks == 0
+    monkeypatch.setattr(plan, "PACKED_OVER_RANKED", 1.01 * s_ali / s_pk)
+    assert gpu_plan(mat).kernel == "ranked"
+    assert gpu_plan(make("lap2d_32")).kernel == "dia"  # DIA stays first
+
+
+def test_plan_sampling_matches_reference():
+    """The port's chunk sampler equals tpu_spmv.tune.model's, whose
+    module loads JAX when the sampler runs."""
+    from tpu_spmv.tune.model import _sample_chunks, _subtiles_from_kc
+    from tpu_spmv_torch.formats.sell import _aligned_slots
+    from tpu_spmv_torch.tune.plan import sample_chunks, subtile_counts
+
+    mat = make("banded_100k")
+    for cap in (256, 64):
+        ours, scale = sample_chunks(mat, cap)
+        ref, ref_scale = _sample_chunks(mat, cap)
+        assert scale == ref_scale and ours.shape == ref.shape
+        for f in ("indptr", "indices", "data"):
+            assert np.array_equal(getattr(ours, f), getattr(ref, f))
+        kc = _aligned_slots(ours)[1]
+        assert subtile_counts(kc)[0] == _subtiles_from_kc(kc)
+
+
 @pytest.mark.parametrize("args,item", [
-    (["--kernel", "packed"], "A4"),
     (["--kernel", "striped"], "A10"),
     (["--kernel", "segsum"], "A5"),
     (["--kernel", "bcoo"], "A5"),

@@ -8,16 +8,19 @@ jax. Host code that touches no device is reused from `tpu_spmv` as it is
 matrices); everything that builds a device layout, runs a kernel or
 times one is the port's own.
 
-Layer map (single-vector SpMV, y = A @ x):
+Layer map (SpMV, y = A @ x, and SpMM, Y = A @ X):
 
-    tools/    CLI entry points: spmv (load, reorder, plan, build, run,
-              validate, time) and info (card and toolchain)
-    tune/     gpu_plan: DIA for constant-diagonal matrices, else ranked
-    formats/  DiaSlabs, SellSlabs, RankedSlabs as torch containers, built
-              on the host with NumPy; convert carries JAX layouts across
+    tools/    CLI entry points: spmv and spmm (load, reorder, plan, build,
+              run, validate, time) and info (card and toolchain)
+    tune/     gpu_plan: DIA for constant-diagonal matrices, else packed or
+              ranked by sub-tile count and a measured time ratio
+    formats/  DiaSlabs, SellSlabs, RankedSlabs, PackedRanked as torch
+              containers, built on the host with NumPy; convert carries
+              JAX layouts across
     kernels/  CUDA C++ kernels (csrc/*.cu, built with nvcc into one
               ctypes-bound library) with a plain PyTorch version beside
-              each: spmv_dia, spmv_ranked, spmv_sell
+              each: spmv_dia, spmv_ranked, spmv_sell, spmv_packed,
+              spmm_ranked, spmm_packed
     bench/    CUDA-event timing (warm and cold regimes) and validation
     hw        DeviceSpec of the card, nvidia-smi, the toolchain report
 """

@@ -1,7 +1,9 @@
 """Timing and validation harness for the port.
 
 Counterpart of `tpu_spmv/bench/harness.py`, with the same result keys
-(TimeMin/TimeMax/TimeAvg/GFLOPs) and the same `validate`.
+(TimeMin/TimeMax/TimeAvg/GFLOPs) and the same `validate`. The operand
+is x (n,) for SpMV or X (n, B) for SpMM; one call then does nnz * B
+multiply-adds, and that is what the rates count.
 
 Timing is on the card only, with CUDA events: warm up, size a batch of
 N back-to-back launches from a timed warm batch, then time several
@@ -41,7 +43,7 @@ class BenchResult:
     time_min: float  # seconds per SpMV, min over samples
     time_max: float
     time_avg: float
-    nnz: int
+    nnz: int  # multiply-adds per call: the matrix's nnz times B columns
     iters: tuple  # (launches per sample, samples, operator copies)
     regime: str  # "warm" or "cold"
     launch: str  # "graph" (device time) or "eager" (Python launches)
@@ -49,6 +51,11 @@ class BenchResult:
     @property
     def gflops(self) -> float:
         return 2.0 * self.nnz / self.time_min / 1e9
+
+    @property
+    def vals_per_s(self) -> float:
+        """Matrix values applied per second (nnz * B / TimeMin)."""
+        return self.nnz / self.time_min
 
     def summary(self) -> str:
         """The reference's stdout keys (spmv-csr/spmv.c:183-185)."""
@@ -105,10 +112,11 @@ def _time_rotation(spmv, layouts, x, warmup: int, samples: int,
     return [timed(g.replay) / count for _ in range(samples)], count
 
 
-def _result(times, nnz, count, copies, regime, graph) -> BenchResult:
+def _result(times, nnz, x, count, copies, regime, graph) -> BenchResult:
     return BenchResult(
         time_min=min(times), time_max=max(times),
-        time_avg=sum(times) / len(times), nnz=nnz,
+        time_avg=sum(times) / len(times),
+        nnz=nnz * (x.shape[1] if x.dim() == 2 else 1),
         iters=(count, len(times), copies), regime=regime,
         launch="graph" if graph else "eager",
     )
@@ -117,10 +125,12 @@ def _result(times, nnz, count, copies, regime, graph) -> BenchResult:
 def bench_spmv(spmv, layout, x: torch.Tensor, samples: int = 5,
                warmup: int = 5, nnz: int | None = None,
                graph: bool = True) -> BenchResult:
-    """Warm regime: the same operator every launch (see module doc)."""
+    """Warm regime: the same operator every launch (see module doc).
+    nnz: the matrix's nonzeros (default layout.nnz); the result counts
+    nnz * B multiply-adds for an (n, B) operand."""
     _require_cuda(x)
     times, count = _time_rotation(spmv, [layout], x, warmup, samples, graph)
-    return _result(times, nnz if nnz is not None else layout.nnz, count,
+    return _result(times, nnz if nnz is not None else layout.nnz, x, count,
                    1, "warm", graph)
 
 
@@ -134,7 +144,8 @@ def bench_spmv_cold(spmv, make_layout, x: torch.Tensor, nnz: int,
                     samples: int = 5, warmup: int = 5,
                     graph: bool = True) -> BenchResult:
     """Cold regime: K distinct operator copies from `make_layout()`
-    (each with its own storage) launched in rotation (see module doc)."""
+    (each with its own storage) launched in rotation (see module doc).
+    nnz as for bench_spmv."""
     _require_cuda(x)
     if l2_bytes is None:
         from tpu_spmv_torch.hw import device_spec
@@ -143,7 +154,7 @@ def bench_spmv_cold(spmv, make_layout, x: torch.Tensor, nnz: int,
     k = cold_copies(layout_bytes, l2_bytes)
     layouts = [make_layout() for _ in range(k)]
     times, count = _time_rotation(spmv, layouts, x, warmup, samples, graph)
-    return _result(times, nnz, count, k, "cold", graph)
+    return _result(times, nnz, x, count, k, "cold", graph)
 
 
 def roofline_nnzs(bytes_per_nnz: float,
@@ -155,6 +166,16 @@ def roofline_nnzs(bytes_per_nnz: float,
 
         hbm_bytes_per_s = device_spec().hbm_bytes_per_s
     return hbm_bytes_per_s / bytes_per_nnz
+
+
+def roofline_vals(layout_bytes: int, nnz: int, batch: int = 1,
+                  hbm_bytes_per_s: float | None = None) -> float:
+    """Max matrix values applied per second (nnz * B per call) if one
+    call streamed `layout_bytes` from HBM and nothing else: the slab
+    traffic amortizes over the B columns (tpu_spmv/tools/spmm.py's
+    bytes_per_val)."""
+    return roofline_nnzs(layout_bytes / max(nnz, 1) / max(batch, 1),
+                         hbm_bytes_per_s)
 
 
 def validate(y_device: np.ndarray, y_oracle_permuted: np.ndarray,

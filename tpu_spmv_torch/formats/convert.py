@@ -1,9 +1,12 @@
 """Layouts carried across from the JAX package, and bf16 rounding.
 
-`from_reference` turns a `tpu_spmv` layout (DiaSlabs, SellSlabs or
-RankedSlabs, whose arrays np.asarray can read) into the port's
-container, so a layout built once can be run through both packages'
-kernels. It reads the arrays through NumPy and never imports JAX.
+`from_reference` turns a `tpu_spmv` layout (DiaSlabs, SellSlabs,
+RankedSlabs or PackedRanked, whose arrays np.asarray can read) into the
+port's container, so a layout built once can be run through both
+packages' kernels. It reads the arrays through NumPy and never imports
+JAX. The port's derived fields come from the reference's arrays alone:
+chunk_ptr from sub_chunk, and PackedRanked's chunk_koff from out_row
+and bmeta.
 
 Two encodings need care: numpy has no bf16 of its own and
 torch.from_numpy rejects ml_dtypes' bfloat16, so bf16 crosses as its
@@ -18,6 +21,7 @@ import torch
 
 from tpu_spmv.formats.csr import CSRMatrix
 from tpu_spmv_torch.formats.dia import DiaSlabs
+from tpu_spmv_torch.formats.packed import PackedRanked, chunk_koff_from_segments
 from tpu_spmv_torch.formats.sell import (
     RankedSlabs, SellSlabs, _chunk_ptr, to_tensor,
 )
@@ -34,6 +38,23 @@ def from_reference(layout):
             offsets=tuple(int(o) for o in layout.offsets),
             m=layout.m, n=layout.n, nnz=layout.nnz,
             rows_per_tile=layout.rows_per_tile,
+        )
+    if kind == "PackedRanked":
+        return PackedRanked(
+            vals=to_tensor(layout.vals),
+            lcols=to_tensor(layout.lcols),
+            sub_b0=to_tensor(layout.sub_b0),
+            sub_dlo=to_tensor(layout.sub_dlo),
+            sub_dhi=to_tensor(layout.sub_dhi),
+            bmeta=to_tensor(layout.bmeta),
+            out_row=to_tensor(layout.out_row),
+            grp_b0=to_tensor(layout.grp_b0),
+            chunk_koff=torch.from_numpy(
+                chunk_koff_from_segments(layout.out_row, layout.bmeta)
+            ),
+            m=layout.m, n=layout.n, nnz=layout.nnz,
+            num_chunks=layout.num_chunks, rank_nb=layout.rank_nb,
+            tile_k=layout.tile_k, group_code=layout.group_code,
         )
     sub_chunk = np.asarray(layout.sub_chunk)
     chunk_ptr = torch.from_numpy(_chunk_ptr(sub_chunk, layout.num_chunks))

@@ -1,7 +1,7 @@
 """Builds the port's CUDA kernels and binds them through ctypes.
 
-Every `.cu` file under `csrc/` is compiled by `nvcc` into one shared
-library with a plain C interface, for Hopper only:
+Every `.cu` file under `csrc/` (with the headers it includes from
+there) is compiled by `nvcc` into one shared library with a plain C interface, for Hopper only:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -o _build/libtpu_spmv_torch_kernels.so csrc/*.cu
@@ -49,6 +49,21 @@ _SIGNATURES = {
     ),
     # vals, cols, chunk_ptr, x, y, m, n, stream
     "tsp_spmv_sell": (_P, _P, _P, _P, _P, _LL, _LL, _P),
+    # val_kind, lcol_kind, vals, lcols, sub_b0, sub_dlo, sub_dhi,
+    # grp_b0, G, gmap, chunk_koff, x, y, m, n, stream
+    "tsp_spmv_packed": (
+        _I, _I, _P, _P, _P, _P, _P, _P, _I, _U, _P, _P, _P, _LL, _LL, _P,
+    ),
+    # val_kind, lcol_kind, vals, lcols, sub_b0, sub_dlo, sub_dhi,
+    # chunk_ptr, X, Y, m, n, B, stream
+    "tsp_spmm_ranked": (
+        _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, _P,
+    ),
+    # val_kind, lcol_kind, vals, lcols, sub_b0, sub_dlo, sub_dhi,
+    # grp_b0, G, gmap, chunk_koff, X, Y, m, n, B, stream
+    "tsp_spmm_packed": (
+        _I, _I, _P, _P, _P, _P, _P, _P, _I, _U, _P, _P, _P, _LL, _LL, _I, _P,
+    ),
 }
 
 _lib = None
@@ -141,15 +156,22 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def check_operands(layout, x: torch.Tensor, what: str) -> None:
+def check_operands(layout, x: torch.Tensor, what: str,
+                   matrix: bool = False) -> None:
     """What every kernel wrapper requires before it hands out pointers:
-    a contiguous float32 x of length n on a CUDA device, and every
+    a contiguous float32 x of shape (n,) (or, with matrix=True, X of
+    shape (n, B) with B >= 1, row-major) on a CUDA device, and every
     layout tensor contiguous on that same device."""
     if x.device.type != "cuda":
         raise ValueError(f"{what}: x is on {x.device}, not a CUDA device")
-    if x.dtype != torch.float32 or x.dim() != 1 or x.numel() != layout.n:
+    shape_ok = (
+        x.dim() == 2 and x.shape[0] == layout.n and x.shape[1] >= 1
+        if matrix else x.dim() == 1 and x.numel() == layout.n
+    )
+    if x.dtype != torch.float32 or not shape_ok:
+        want = f"({layout.n}, B)" if matrix else f"({layout.n},)"
         raise ValueError(
-            f"{what}: x must be float32 of shape ({layout.n},), got "
+            f"{what}: x must be float32 of shape {want}, got "
             f"{x.dtype} {tuple(x.shape)}"
         )
     if not x.is_contiguous():

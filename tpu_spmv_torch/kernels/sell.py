@@ -41,17 +41,22 @@ def ranked_bases(layout: RankedSlabs) -> torch.Tensor:
 def _slab_spmv(layout, cols: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """y from (S, 8, 128) absolute columns: per-sub-tile sums, then the
     sub-tile sums added into their chunks (the sentinel tail lands in
-    the dropped last row)."""
+    the dropped last row). x is (n,) or (n, B); y is (m,) or (m, B)."""
     n = layout.n
     S = layout.num_subtiles
     ok = (cols >= 0) & (cols < n)
+    vals = layout.vals.view(S, SUBLANES, LANES).float()
+    if x.dim() == 2:
+        ok, vals = ok[..., None], vals[..., None]
     xg = torch.where(ok, x[cols.clamp(0, max(n - 1, 0))], 0.0)
-    part = (layout.vals.view(S, SUBLANES, LANES).float() * xg).sum(1)
+    part = (vals * xg).sum(1)
+    batch = tuple(x.shape[1:])
     y = torch.zeros(
-        layout.num_chunks + 1, LANES, dtype=torch.float32, device=x.device
+        layout.num_chunks + 1, LANES, *batch, dtype=torch.float32,
+        device=x.device,
     )
     y.index_add_(0, layout.sub_chunk.long(), part)
-    return y[:-1].reshape(-1)[: layout.m]
+    return y[:-1].reshape(-1, *batch)[: layout.m]
 
 
 def spmv_ranked_reference(layout: RankedSlabs, x: torch.Tensor) -> torch.Tensor:

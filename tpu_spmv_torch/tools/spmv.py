@@ -10,7 +10,8 @@ versions and is accepted only with `--validate-only`.
 
 Usage:
   python -m tpu_spmv_torch.tools.spmv matrix.mtx|synthetic:NAME [num_runs]
-      [sizes ...] [--kernel auto|dia|ranked|sell] [--val-dtype f32|bf16]
+      [sizes ...] [--kernel auto|dia|packed|ranked|sell]
+      [--val-dtype f32|bf16]
       [--rcm auto|always|never] [--bin-blocks W] [--cold] [--validate-only]
 """
 
@@ -28,7 +29,6 @@ from tpu_spmv.tools.spmv import load_input
 # Options of the JAX CLI that the port does not run yet, and the
 # ROADMAP.md queue-A item that ports each.
 REFUSED_KERNELS = {
-    "packed": "A4 (packed mixed-height slabs)",
     "striped": "A10 (column stripes)",
     "segsum": "A5 (baselines)",
     "bcoo": "A5 (baselines)",
@@ -66,13 +66,28 @@ def prepare(mat, rcm: str = "auto", k: int = 1, sizes: tuple = ()):
 
 def build_layout(matrix, kernel: str, val_dtype=None, bin_blocks: int = 0):
     """(layout, spmv function, kernel actually used) for kernel in
-    dia/ranked/sell. A ranked build that exceeds the packed-delta range
-    falls back to sell, and says so."""
+    dia/packed/ranked/sell. A packed build that exceeds the packed-delta
+    range falls back to ranked, and a ranked one to sell, each saying
+    so (tpu_spmv/tools/spmv.py's fallbacks)."""
     from tpu_spmv_torch.formats.dia import DiaSlabs
+    from tpu_spmv_torch.formats.packed import PackedRanked
     from tpu_spmv_torch.formats.sell import RankedSlabs, SellSlabs
     from tpu_spmv_torch.kernels.dia import spmv_dia
+    from tpu_spmv_torch.kernels.packed import spmv_packed
     from tpu_spmv_torch.kernels.sell import spmv_ranked, spmv_sell
 
+    if kernel == "packed":
+        try:
+            layout = PackedRanked.from_csr(
+                matrix, val_dtype=val_dtype, bin_blocks=bin_blocks
+            )
+            print(f"packed mixed-height slabs: pad "
+                  f"{layout.padding_ratio:.2f}x, rank {layout.rank_nb}"
+                  + (f", W={bin_blocks} bins" if bin_blocks > 0 else ""))
+            return layout, spmv_packed, "packed"
+        except ValueError as e:
+            print(f"packed layout unavailable ({e}); falling back to ranked")
+            kernel = "ranked"
     if kernel == "dia":
         layout = DiaSlabs.from_csr(matrix, val_dtype=val_dtype)
         print(f"DIA: {layout.num_diagonals} diagonals, "
@@ -101,7 +116,7 @@ def main(argv=None):
                     help="super-row sizes per level (k-1 of them)")
     ap.add_argument(
         "--kernel", default="auto",
-        choices=("auto", "sell", "ranked", "dia", *REFUSED_KERNELS),
+        choices=("auto", "sell", "ranked", "packed", "dia", *REFUSED_KERNELS),
     )
     ap.add_argument("--k", type=int, default=None,
                     help="CSR-k depth; default 1 (plain) or len(sizes)+1")
@@ -111,13 +126,13 @@ def main(argv=None):
                     "the planner's needs_rcm")
     ap.add_argument("--bin-blocks", type=int, default=-1,
                     help="column-bin width in 128-column x blocks for the "
-                    "ranked/sell layouts; -1 = planner (0), 0 = "
+                    "packed/ranked/sell layouts; -1 = planner (0), 0 = "
                     "cluster-aligned slots")
     ap.add_argument("--sigma", type=int, default=-1,
                     help="SELL-C-sigma row sort window (not ported yet: "
                     "a positive window is refused)")
     ap.add_argument("--val-dtype", default="f32", choices=("f32", "bf16"),
-                    help="value storage (ranked/dia). bf16 runs are "
+                    help="value storage (packed/ranked/dia). bf16 runs are "
                     "validated against the bf16-rounded operator, with "
                     "drift against the f32 oracle printed for information")
     ap.add_argument("--cold", action="store_true",
@@ -176,11 +191,14 @@ def main(argv=None):
         plan = gpu_plan(ck.matrix, assume_rcm=(k > 1))
         kernel = plan.kernel
         print(f"auto kernel: {kernel} ({plan.reason})")
-    bin_blocks = max(args.bin_blocks, 0)
+        bin_blocks = plan.bin_blocks if args.bin_blocks < 0 else args.bin_blocks
+    else:
+        bin_blocks = max(args.bin_blocks, 0)
     vdt = torch.bfloat16 if args.val_dtype == "bf16" else None
-    if vdt is not None and kernel not in ("ranked", "dia"):
+    if vdt is not None and kernel not in ("packed", "ranked", "dia"):
         raise SystemExit(
-            f"--val-dtype bf16 supports the ranked/dia kernels, not {kernel!r}"
+            "--val-dtype bf16 supports the packed/ranked/dia kernels, not "
+            f"{kernel!r}"
         )
 
     layout, fn, kernel = build_layout(ck.matrix, kernel, vdt, bin_blocks)

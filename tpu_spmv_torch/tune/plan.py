@@ -7,14 +7,19 @@ none of its cost constants, which were measured on a TPU v5e:
     `diagonal_profile` (a sampled probe first, then the exact scan);
     any reordering would break the constant diagonals, so needs_rcm is
     False;
-  * otherwise ranked, with needs_rcm from the 95th-percentile row band
-    (tpu_plan's estimate without its sampled exact span, so the two can
-    differ near the 8-block threshold: general_1k estimates 8.4 blocks
-    here, 8.0 exactly there, and only the port reorders it). The CLI
-    falls back to sell when the ranked build rejects a packed-delta
-    span.
+  * otherwise packed or ranked, on cluster-aligned slots (bin_blocks 0;
+    the binned widths wait for a calibrated planner). On an evenly
+    spaced sample of at most 256 chunks, the ranked layout's sub-tiles
+    (each chunk rounded up to whole 8-slot sub-tiles) are weighed
+    against the packed layout's (chunks of max(kc, 4) slots back to
+    back), and packed is taken when s_packed * PACKED_OVER_RANKED <
+    s_ranked. The CLI falls back from packed to ranked, and from ranked
+    to sell, when a build rejects a packed-delta span.
 
-A planner with constants measured on the H100 is later work.
+needs_rcm comes from the 95th-percentile row band (tpu_plan's estimate
+without its sampled exact span, so the two can differ near the 8-block
+threshold: general_1k estimates 8.4 blocks here, 8.0 exactly there, and
+only the port reorders it).
 """
 
 from __future__ import annotations
@@ -23,15 +28,73 @@ import dataclasses
 
 import numpy as np
 
+from tpu_spmv.formats.csr import CSRMatrix
 from tpu_spmv_torch.formats.dia import DIA_MAX_DIAGS, DIA_MAX_FILL, diagonal_profile
-from tpu_spmv_torch.formats.sell import LANES
+from tpu_spmv_torch.formats.packed import MIN_KC
+from tpu_spmv_torch.formats.sell import LANES, SUBLANES, _aligned_slots
+
+# Device time per walked sub-tile of spmv_packed over that of
+# spmv_ranked, both grouped, on lap2d_1024 after RCM, warm (CUDA-graph
+# timing): (25.12 us / 5122) / (27.26 us / 8192) = 1.474, measured by
+# chip_smoke.py on an NVIDIA H100 80GB HBM3 at a 700.00 W power limit.
+# A packed sub-tile costs more because chunks share sub-tiles, and the
+# shared sub-tiles' slots run one at a time.
+PACKED_OVER_RANKED = 1.47
+
+# tpu_plan's gate for its sampled slot statistics.
+_MAX_ROW_FOR_SAMPLING = 2048
 
 
 @dataclasses.dataclass(frozen=True)
 class GpuPlan:
-    kernel: str  # "dia" or "ranked"
+    kernel: str  # "dia", "packed" or "ranked"
     needs_rcm: bool
     reason: str
+    bin_blocks: int = 0
+
+
+def sample_chunks(mat, max_chunks: int = 256):
+    """(submatrix of evenly spaced 128-row chunks, total/sampled chunks):
+    tpu_spmv.tune.model._sample_chunks, whose module loads JAX when it
+    runs. Slot assignment is per chunk, so sub-tile counts on the
+    sample scale linearly."""
+    m = mat.m
+    num_chunks = max(-(-m // LANES), 1)
+    if num_chunks <= max_chunks:
+        return mat, 1.0
+    pick = np.unique(
+        np.linspace(0, num_chunks - 1, max_chunks).astype(np.int64)
+    )
+    indptr = [np.zeros(1, np.int64)]
+    indices, data = [], []
+    total = 0
+    ip = mat.indptr.astype(np.int64)
+    for c in pick:
+        r0, r1 = c * LANES, min((c + 1) * LANES, m)
+        e0, e1 = int(ip[r0]), int(ip[r1])
+        indptr.append(ip[r0 + 1 : r1 + 1] - e0 + total)
+        indices.append(mat.indices[e0:e1])
+        data.append(mat.data[e0:e1])
+        total += e1 - e0
+        if r1 - r0 < LANES:  # tail chunk: keep 128-row framing via pad rows
+            indptr.append(np.full(LANES - (r1 - r0), total, np.int64))
+    sub = CSRMatrix(
+        np.concatenate(indptr).astype(np.int32),
+        np.concatenate(indices),
+        np.concatenate(data).astype(np.float32),
+        (pick.shape[0] * LANES, mat.n),
+    )
+    return sub, num_chunks / pick.shape[0]
+
+
+def subtile_counts(kc) -> tuple:
+    """(ranked, packed) sub-tiles for per-chunk slot counts kc: ranked
+    rounds every chunk up to whole sub-tiles (at least one), packed
+    stacks max(kc, MIN_KC) slots back to back."""
+    kc = np.asarray(kc, np.int64)
+    ranked = int(np.maximum((kc + SUBLANES - 1) // SUBLANES, 1).sum())
+    packed = -(-int(np.maximum(kc, MIN_KC).sum()) // SUBLANES)
+    return ranked, packed
 
 
 def gpu_plan(mat, assume_rcm: bool = False) -> GpuPlan:
@@ -47,7 +110,20 @@ def gpu_plan(mat, assume_rcm: bool = False) -> GpuPlan:
     bands = mat.row_bands()
     est_nb = (float(np.percentile(bands, 95)) + LANES) / LANES if mat.m else 1.0
     needs_rcm = not assume_rcm and est_nb > 8 and mat.m > LANES
-    return GpuPlan(
-        "ranked", needs_rcm,
-        f"aligned rank windows (95th-percentile row span {est_nb:.0f} blocks)",
-    )
+    span = f"95th-percentile row span {est_nb:.0f} blocks"
+    if mat.nnz and int(mat.row_lengths.max()) <= _MAX_ROW_FOR_SAMPLING:
+        sampled, scale = sample_chunks(mat)
+        s_ali, s_pk = subtile_counts(_aligned_slots(sampled)[1])
+        s_ali, s_pk = s_ali * scale, s_pk * scale
+        if s_pk * PACKED_OVER_RANKED < s_ali:
+            return GpuPlan(
+                "packed", needs_rcm,
+                f"packed mixed-height slabs: {s_pk:.0f} sub-tiles x "
+                f"R={PACKED_OVER_RANKED:.2f} < {s_ali:.0f} ranked ({span})",
+            )
+        return GpuPlan(
+            "ranked", needs_rcm,
+            f"aligned rank windows: {s_ali:.0f} sub-tiles <= {s_pk:.0f} "
+            f"packed x R={PACKED_OVER_RANKED:.2f} ({span})",
+        )
+    return GpuPlan("ranked", needs_rcm, f"aligned rank windows ({span})")
