@@ -5,8 +5,9 @@ Run from the root of the repository, on a machine with one CUDA card:
     python chip_smoke.py
 
 It builds the port's CUDA kernels from tpu_spmv_torch/kernels/csrc/,
-then, at the main path's real sizes (lap2d_1024: 1.05M rows, 5.2M nnz;
-varstencil_1024; banded_1m: 1M rows, 16.9M nnz):
+then, at the main paths' real sizes (lap2d_1024: 1.05M rows, 5.2M nnz;
+varstencil_1024; banded_1m: 1M rows, 16.9M nnz; lap3d_101: 1.03M rows,
+7.2M nnz):
 
   1. checks each kernel against its plain PyTorch version on the card
      (max |kernel - plain| <= 1e-5 * max(1, max |plain|): both sum in
@@ -22,10 +23,24 @@ varstencil_1024; banded_1m: 1M rows, 16.9M nnz):
   2. prints R, the packed-to-ranked time per walked sub-tile measured in
      step 1 on lap2d_1024 after RCM, beside the planner's constant, and
      the plan auto takes on each matrix;
-  3. zeroes the kernels' launch counters, drives the port's CLIs
-     (tpu_spmv_torch.tools.spmv.main and tools.spmm.main) on lap2d_1024
-     and banded_1m, and fails unless every kernel of the path was
-     launched in that run.
+  3. checks both triangular-solve kernels (lower_solve_ranked and
+     lower_solve_blocks) against their plain versions (RelL2 <= 1e-5)
+     and a float64 forward substitution (RelL2 <= 1e-5, Number Wrong 0
+     at 0.01 for x = ones), and times them warm and cold (the plain
+     versions, a host loop over the packs, eagerly), on lap2d_1024 in
+     level (LS) and COLOR order, lap3d_101 LS and banded_1m LS (the
+     column-binned rank windows); it prints the host set-up seconds
+     and each system's dependency depth, by rows and by chunks (the
+     kernel waits on whole chunks), also for lap2d_1024 k=3;
+  4. on lap3d_101 and lap2d_1024 checks IC0Preconditioner.apply against
+     its plain version, times one CUDA-graph-captured PCG iteration and
+     prints the residual as lap3d_101 converges;
+  5. drives each main path with every launch counter zeroed just before
+     and read just after: the SpMV/SpMM CLIs (tools.spmv, tools.spmm on
+     lap2d_1024 and banded_1m), the solve CLIs (tools.sts on lap2d_1024
+     LS, COLOR and k=3 and lap3d_101 --part upper; tools.solve --precond
+     ic0 on lap3d_101), and the library's lower_solve with ranked=False;
+     it fails unless every kernel was launched on its path.
 
 It prints the card (nvidia-smi name and power limit), the toolchain, the
 build time and ptxas's register/spill report, one line per phase, a JSON
@@ -44,6 +59,13 @@ import time
 X_SEED = 0
 L2_TOL = 1e-6
 PLAIN_TOL = 1e-5
+# A triangular solve carries f32 rounding along its dependency chain.
+SOLVE_TOL = 1e-5
+# tools.solve on lap3d_101: the RMS residual levels off near 3.3e-4
+# (float32 x of magnitude ~1e3) above the CLI's default --tol 1e-4, so the
+# run asks for 1e-3, which IC(0)-PCG reaches in under 50 iterations.
+PCG_ITERS = 60
+PCG_TOL = 1e-3
 
 
 class SmokeFailure(RuntimeError):
@@ -273,6 +295,270 @@ def _phases(stats):
     return r_times
 
 
+def _solve_oracle(sys_, b):
+    """x of L x = b in float64, pack by pack (a pack's rows are mutually
+    independent), from the host system alone: no layout, no kernel."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    L = sys_.lower.to_scipy().tocsr().astype(np.float64)
+    d = L.diagonal()
+    strict = (L - sp.diags(d)).tocsr()
+    x = np.zeros(L.shape[0])
+    b = np.asarray(b, np.float64)
+    ptr = sys_.pack_ptr
+    for p in range(sys_.num_packs):
+        r0, r1 = int(ptr[p]), int(ptr[p + 1])
+        x[r0:r1] = (b[r0:r1] - strict[r0:r1] @ x) / d[r0:r1]
+    return x
+
+
+def _chunk_depth(sys_, lay):
+    """Dependency depth of the solve at chunk granularity: chunk c waits
+    on chunk b when any row of c reads a row of b. The kernel waits on
+    whole chunks, so this, not the row-level depth, bounds its chain."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    from tpu_spmv_torch.sts.host import find_levels
+
+    L = sys_.lower
+    rows = np.repeat(np.arange(L.m, dtype=np.int64), np.diff(L.indptr))
+    pad = lay.pad_index.cpu().numpy().astype(np.int64)
+    c_row = pad[rows] >> 7
+    c_col = pad[L.indices.astype(np.int64)] >> 7
+    dep = c_col < c_row
+    n = lay.slabs.num_chunks
+    g = sp.csr_matrix(
+        (np.ones(int(dep.sum()), np.float32), (c_row[dep], c_col[dep])),
+        shape=(n, n),
+    )
+    g.sum_duplicates()
+    return int(find_levels(g.indptr.astype(np.int32),
+                           g.indices.astype(np.int32)).max()) + 1
+
+
+def _time_eager(fn, layouts, b, calls):
+    """Seconds per call of `calls` eager calls over `layouts` in rotation,
+    after one warm call on each (CUDA events)."""
+    import torch
+
+    for lay in layouts:
+        fn(lay, b)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(calls):
+        fn(layouts[i % len(layouts)], b)
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / 1e3 / calls
+
+
+def _check_solve(label, sys_, b, ranked, stats, setup):
+    """One solve phase: build the layout (timed), kernel vs plain on the
+    card, the float64 oracle, then warm and cold times (kernel from a
+    CUDA graph, plain eagerly). Returns the layout (on the card)."""
+    import numpy as np
+    import torch
+
+    from tpu_spmv_torch.bench.harness import bench_spmv, bench_spmv_cold
+    from tpu_spmv_torch.kernels.sts import (
+        lower_solve_blocks, lower_solve_blocks_reference, lower_solve_ranked,
+        lower_solve_ranked_reference,
+    )
+    from tpu_spmv_torch.sts.host import find_levels
+    from tpu_spmv_torch.sts.solve import LowerSolveLayout
+
+    # The dependency depth of the solved system (below the pack count
+    # when the packs are sorted by size).
+    depth = int(find_levels(sys_.lower.indptr, sys_.lower.indices).max()) + 1
+    t0 = time.perf_counter()
+    lay = LowerSolveLayout.build(sys_, b, ranked=ranked)
+    setup = dict(setup, layout=time.perf_counter() - t0)
+    chunk_depth = _chunk_depth(sys_, lay)
+    lay = lay.to(torch.device("cuda"))
+    if lay.ranked is not None:
+        kernel, plain = lower_solve_ranked, lower_solve_ranked_reference
+        slabs, steps = lay.ranked, lay.ranked_steps
+        shape = f"rank_nb {slabs.rank_nb}"
+    else:
+        kernel, plain = lower_solve_blocks, lower_solve_blocks_reference
+        slabs, steps = lay.slabs, lay.slab_steps
+        shape = f"max_nb {slabs.max_nb}"
+    bs = lay.b_scale
+    before = kernel.launches
+    xk = kernel(slabs, bs)
+    xp = plain(slabs, bs, steps)
+    torch.cuda.synchronize()
+    delta = kernel.launches - before
+    err = float((xk - xp).abs().max())
+    rel_plain = float((xk - xp).norm() / xp.norm().clamp_min(1e-30))
+    x = xk.reshape(-1)[lay.pad_index].cpu().numpy()
+    del xp
+    wrong = int(np.sum(np.abs(x - 1.0) > 0.01))
+    x_ref = _solve_oracle(sys_, b)
+    rel = float(np.linalg.norm(x - x_ref) / np.linalg.norm(x_ref))
+    if delta != 1:
+        raise SmokeFailure(f"{label}: launch counter moved by {delta}, not 1")
+    if not rel_plain <= SOLVE_TOL:
+        raise SmokeFailure(f"{label}: kernel differs from plain, RelL2 "
+                           f"{rel_plain:.3g}")
+    if wrong != 0 or not rel <= SOLVE_TOL:
+        raise SmokeFailure(f"{label}: Number Wrong {wrong}, RelL2 {rel:.3g}")
+
+    nnz = sys_.lower.nnz
+    bflat = bs.reshape(-1)
+
+    def kfn(sl, bf):
+        return kernel(sl, bf.view(-1, 128))
+
+    def pfn(sl, bf):
+        return plain(sl, bf.view(-1, 128), steps)
+
+    t0 = time.perf_counter()
+    warm = bench_spmv(kfn, slabs, bflat, nnz=nnz)
+    cold = bench_spmv_cold(kfn, slabs.clone, bflat, nnz=nnz,
+                           layout_bytes=slabs.nbytes)
+    eager = bench_spmv(kfn, slabs, bflat, nnz=nnz, graph=False, samples=3)
+    k = cold.iters[2]
+    p_warm = _time_eager(pfn, [slabs], bflat, 3)
+    p_cold = _time_eager(pfn, [slabs.clone() for _ in range(k)], bflat, k)
+    us = lambda s: f"{s * 1e6:.2f}"  # noqa: E731
+    print(
+        f"[{label}] {kernel.__name__}: launches +{delta}, RelL2 vs plain "
+        f"{rel_plain:.3g} (max abs {err:.3g}), Number Wrong {wrong}, RelL2 "
+        f"vs f64 oracle {rel:.3g} | packs {sys_.num_packs}, dependency "
+        f"levels {depth} (rows) / {chunk_depth} (chunks), chunks "
+        f"{slabs.num_chunks}, {shape}, slabs {slabs.nbytes / 2**20:.1f} MB | "
+        "host set-up s: " + ", ".join(f"{k_} {v:.2f}" for k_, v in
+                                      setup.items()),
+        flush=True,
+    )
+    print(f"    kernel TimeMin/TimeAvg us (CUDA graph): warm "
+          f"{us(warm.time_min)}/{us(warm.time_avg)}, cold "
+          f"{us(cold.time_min)}/{us(cold.time_avg)} (K={k}) | eager warm "
+          f"{us(eager.time_min)} | GF/s warm {warm.gflops:.2f} | "
+          f"{1e6 * warm.time_min / sys_.num_packs:.3f} us per pack, "
+          f"{1e6 * warm.time_min / depth:.3f} us per row level, "
+          f"{1e6 * warm.time_min / chunk_depth:.3f} us per chunk level",
+          flush=True)
+    print(f"    plain  us per solve (eager host loop over the packs): warm "
+          f"{us(p_warm)}, cold {us(p_cold)} | timing wall "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    stats.setdefault(kernel.__name__, []).append(
+        dict(label=label, err=err, ms=warm.time_min * 1e3,
+             plain_ms=p_warm * 1e3)
+    )
+    return lay
+
+
+def _solve_phases(stats):
+    """Both solve kernels at full size, on the schedules users run."""
+    from tpu_spmv_torch.sts.host import build_sts, compute_b, find_levels
+    from tpu_spmv_torch.sts.solve import RANKED_SOLVE_MAX_NB, LowerSolveLayout
+    from tpu_spmv_torch.tools.spmv import load_input
+
+    for name, order, variants in (
+        ("lap2d_1024", "LS", (True, False)),
+        ("lap2d_1024", "COLOR", (True,)),
+        ("lap3d_101", "LS", (True, False)),
+        ("banded_1m", "LS", (True,)),
+    ):
+        t0 = time.perf_counter()
+        mat = load_input(f"synthetic:{name}")
+        t1 = time.perf_counter()
+        sys_ = build_sts(mat, order_type=order)
+        setup = dict(load=t1 - t0, build_sts=time.perf_counter() - t1)
+        b = compute_b(sys_.lower)
+        for ranked in variants:
+            label = f"{name} {order} {'ranked' if ranked else 'blocks'}"
+            lay = _check_solve(label, sys_, b, ranked, stats, setup)
+            if ranked and lay.ranked is None:
+                raise SmokeFailure(f"{label}: no rank-windowed layout built")
+            if name == "banded_1m":
+                # Scattered dependencies: the exact windows span far more
+                # than RANKED_SOLVE_MAX_NB blocks, so the binned ones
+                # engaged (tests/test_sts.py's scattered-solve check).
+                if not (lay.ranked.rank_nb <= RANKED_SOLVE_MAX_NB
+                        < lay.slabs.max_nb):
+                    raise SmokeFailure(f"{label}: binned path not engaged")
+            del lay
+
+    # The k=3 schedule (one chunk per pack), timed by its CLI run: its
+    # row-level and chunk-level depths.
+    mat = load_input("synthetic:lap2d_1024")
+    sys_ = build_sts(mat, order_type="LS", k=3, sup_row_sizes=(32,))
+    lay = LowerSolveLayout.build(sys_, compute_b(sys_.lower))
+    rows = int(find_levels(sys_.lower.indptr, sys_.lower.indices).max()) + 1
+    print(f"[lap2d_1024 LS k=3] packs {sys_.num_packs}, dependency levels "
+          f"{rows} (rows) / {_chunk_depth(sys_, lay)} (chunks), chunks "
+          f"{lay.slabs.num_chunks}", flush=True)
+
+
+def _ic0_phases():
+    """IC(0) apply, kernel vs plain, and one graph-captured PCG iteration
+    on lap3d_101 and lap2d_1024; the residual as lap3d_101 converges."""
+    import numpy as np
+    import torch
+
+    from tpu_spmv_torch.formats.sell import RankedSlabs
+    from tpu_spmv_torch.sts.ic0 import (
+        IC0Preconditioner, capture_pcg_step, pcg_ic0_init,
+    )
+    from tpu_spmv_torch.tools.spmv import load_input
+
+    dev = torch.device("cuda")
+    for name in ("lap3d_101", "lap2d_1024"):
+        mat = load_input(f"synthetic:{name}")
+        t0 = time.perf_counter()
+        pre = IC0Preconditioner.build(mat)
+        build_s = time.perf_counter() - t0
+        pre = pre.to(dev)
+        lay = RankedSlabs.from_csr(mat).to(dev)
+        r = torch.from_numpy(np.random.default_rng(X_SEED).standard_normal(
+            mat.m).astype(np.float32)).to(dev)
+        zk, zp = pre.apply(r), pre.apply(r, plain=True)
+        rel = float((zk - zp).norm() / zp.norm())
+        if not rel <= SOLVE_TOL:
+            raise SmokeFailure(f"{name} ic0 apply: RelL2 vs plain {rel:.3g}")
+        t_apply = _time_eager(lambda p, v: p.apply(v), [pre], r, 3)
+        t_plain = _time_eager(lambda p, v: p.apply(v, plain=True), [pre], r, 2)
+
+        b = torch.ones(mat.m, device=dev)
+        state = pcg_ic0_init(b, pre)
+        graph = capture_pcg_step(lay, pre, state)
+        trace, done = [], 0
+        for it in (10, 20, 30, 40, 50, 60, 100) if name == "lap3d_101" else ():
+            for _ in range(it - done):
+                graph.replay()
+            done = it
+            x = state[0].cpu().numpy()
+            res = np.linalg.norm(mat.matvec(x) - 1.0) / np.sqrt(mat.m)
+            if not np.isfinite(res):
+                raise SmokeFailure(f"{name} pcg: residual {res} at {it}")
+            trace.append(f"{it}:{res:.3e}")
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(10):
+            graph.replay()
+        stop.record()
+        stop.synchronize()
+        it_us = start.elapsed_time(stop) / 10 * 1e3
+        print(f"[{name} ic0] apply RelL2 vs plain {rel:.3g} | host set-up "
+              f"(factor + both layouts) {build_s:.2f} s | L {pre.lay_l.kernel}"
+              f" {pre.lay_l.num_packs} packs, L^T {pre.lay_u.kernel} "
+              f"{pre.lay_u.num_packs} packs | apply eager us: kernels "
+              f"{t_apply * 1e6:.1f}, plain {t_plain * 1e6:.1f} | PCG "
+              f"iteration (CUDA graph) {it_us:.1f} us", flush=True)
+        if trace:
+            print(f"    rms residual by iteration: {' '.join(trace)}",
+                  flush=True)
+        del pre, lay, graph, state
+
+
 def _plans(r_times):
     """R measured in this run beside the planner's constant, and the plan
     auto takes on each matrix."""
@@ -293,20 +579,69 @@ def _plans(r_times):
               flush=True)
 
 
-def _main_path():
-    """Launch counts of the kernels over the CLI runs."""
-    from tpu_spmv_torch.kernels.dia import spmv_dia
-    from tpu_spmv_torch.kernels.packed import spmv_packed
-    from tpu_spmv_torch.kernels.sell import spmv_ranked, spmv_sell
-    from tpu_spmv_torch.kernels.spmm import spmm_packed, spmm_ranked
-    from tpu_spmv_torch.tools import spmm as spmm_cli
-    from tpu_spmv_torch.tools import spmv as spmv_cli
+def _drive(steps):
+    """Zero every launch counter, run the steps, return the counts. A
+    step is a (CLI module, argv) pair, whose main must return 0, or a
+    callable that raises SmokeFailure."""
+    from tpu_spmv_torch.kernels import dia, packed, sell, spmm, sts
 
-    wrappers = (spmv_dia, spmv_ranked, spmv_sell, spmv_packed, spmm_ranked,
-                spmm_packed)
+    wrappers = (dia.spmv_dia, sell.spmv_ranked, sell.spmv_sell,
+                packed.spmv_packed, spmm.spmm_ranked, spmm.spmm_packed,
+                sts.lower_solve_ranked, sts.lower_solve_blocks)
     for w in wrappers:
         w.launches = 0
-    for cli, argv in (
+    for step in steps:
+        if callable(step):
+            step()
+            continue
+        cli, argv = step
+        t0 = time.perf_counter()
+        print(f"== tools.{cli.__name__.rsplit('.', 1)[1]}.main({argv})",
+              flush=True)
+        rc = cli.main(argv)
+        print(f"   (wall {time.perf_counter() - t0:.1f} s)", flush=True)
+        if rc != 0:
+            raise SmokeFailure(f"{cli.__name__}.main({argv}) returned {rc}")
+    return {w.__name__: w.launches for w in wrappers}
+
+
+def _library_blocks():
+    """Launch counts of the library's lower_solve on layouts built (on
+    the host, before the counters are zeroed) with ranked=False."""
+    import numpy as np
+    import torch
+
+    from tpu_spmv_torch.sts.host import build_sts, compute_b
+    from tpu_spmv_torch.sts.solve import LowerSolveLayout, lower_solve
+    from tpu_spmv_torch.tools.spmv import load_input
+
+    def solve(name, lay):
+        def run():
+            x = lower_solve(lay).cpu().numpy()
+            wrong = int(np.sum(np.abs(x - 1.0) > 0.01))
+            print(f"== lower_solve({name} LS, ranked=False): {lay.kernel}, "
+                  f"Number Wrong {wrong}", flush=True)
+            if wrong:
+                raise SmokeFailure(f"library lower_solve on {name}: Number "
+                                   f"Wrong {wrong}")
+        return run
+
+    steps = []
+    for name in ("lap2d_1024", "lap3d_101"):
+        sys_ = build_sts(load_input(f"synthetic:{name}"), order_type="LS")
+        lay = LowerSolveLayout.build(sys_, compute_b(sys_.lower), ranked=False)
+        steps.append(solve(name, lay.to(torch.device("cuda"))))
+    return _drive(steps)
+
+
+def _main_path():
+    """Launch counts of each kernel over its own path's run."""
+    from tpu_spmv_torch.tools import solve as solve_cli
+    from tpu_spmv_torch.tools import spmm as spmm_cli
+    from tpu_spmv_torch.tools import spmv as spmv_cli
+    from tpu_spmv_torch.tools import sts as sts_cli
+
+    spmv_path = _drive((
         (spmv_cli, ["synthetic:lap2d_1024", "20"]),
         (spmv_cli, ["synthetic:lap2d_1024", "20", "--val-dtype", "bf16",
                     "--cold"]),
@@ -319,15 +654,21 @@ def _main_path():
         (spmm_cli, ["synthetic:lap2d_1024", "20", "--batch", "8"]),
         (spmm_cli, ["synthetic:lap2d_1024", "20", "--batch", "5", "--rcm",
                     "always"]),
-    ):
-        t0 = time.perf_counter()
-        print(f"== tools.{cli.__name__.rsplit('.', 1)[1]}.main({argv})",
-              flush=True)
-        rc = cli.main(argv)
-        print(f"   (wall {time.perf_counter() - t0:.1f} s)", flush=True)
-        if rc != 0:
-            raise SmokeFailure(f"{cli.__name__}.main({argv}) returned {rc}")
-    counts = {w.__name__: w.launches for w in wrappers}
+    ))
+    sts_path = _drive((
+        (sts_cli, ["synthetic:lap2d_1024", "5"]),
+        (sts_cli, ["synthetic:lap2d_1024", "5", "--order", "COLOR"]),
+        (sts_cli, ["synthetic:lap2d_1024", "3", "--k", "3"]),
+        (sts_cli, ["synthetic:lap3d_101", "5", "--part", "upper"]),
+        (solve_cli, ["synthetic:lap3d_101", "--precond", "ic0", "--iters",
+                     str(PCG_ITERS), "--tol", str(PCG_TOL)]),
+    ))
+    library = _library_blocks()
+    counts = dict(spmv_path,
+                  lower_solve_ranked=sts_path["lower_solve_ranked"],
+                  lower_solve_blocks=library["lower_solve_blocks"])
+    print(f"launches: SpMV/SpMM CLIs {spmv_path} | solve CLIs {sts_path} | "
+          f"library lower_solve(ranked=False) {library}", flush=True)
     missing = [k for k, v in counts.items() if v < 1]
     if missing:
         raise SmokeFailure(f"main path never launched {missing}: {counts}")
@@ -350,6 +691,12 @@ _KERNELS = {
     "spmm_packed": ("tpu_spmv_torch/kernels/csrc/spmm.cu",
                     "tpu_spmv/kernels/spmm.py:691",
                     "lap2d_1024 rcm spmm_packed B=8"),
+    "lower_solve_ranked": ("tpu_spmv_torch/kernels/csrc/sts.cu",
+                           "tpu_spmv/sts/solve.py:369",
+                           "lap2d_1024 LS ranked"),
+    "lower_solve_blocks": ("tpu_spmv_torch/kernels/csrc/sts.cu",
+                           "tpu_spmv/sts/solve.py:450",
+                           "lap2d_1024 LS blocks"),
 }
 
 
@@ -389,6 +736,14 @@ def main() -> int:
         print(f"kernel phases: wall {time.perf_counter() - t0:.1f} s",
               flush=True)
         _plans(r_times)
+        t0 = time.perf_counter()
+        _solve_phases(stats)
+        print(f"solve phases: wall {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        t0 = time.perf_counter()
+        _ic0_phases()
+        print(f"ic0 phases: wall {time.perf_counter() - t0:.1f} s",
+              flush=True)
         t0 = time.perf_counter()
         counts = _main_path()
         print(f"CLI runs: wall {time.perf_counter() - t0:.1f} s", flush=True)

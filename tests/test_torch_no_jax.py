@@ -2,9 +2,10 @@
 
 tests/conftest.py imports JAX into every test process, so the check runs
 in a fresh interpreter: it imports every tpu_spmv_torch module (and
-chip_smoke), runs both CLIs on the CPU (SpMV auto and packed, SpMM) and
-the planner on a matrix large enough to be sampled, and asserts that
-`jax` was never loaded. A source scan backs it up.
+chip_smoke), runs the CLIs on the CPU (SpMV auto and packed, SpMM, the
+triangular solve and IC(0)-PCG) and the planner on a matrix large enough
+to be sampled, and asserts that `jax` was never loaded. A source scan
+backs it up.
 """
 
 import pathlib
@@ -22,13 +23,18 @@ names = [m.name for m in pkgutil.walk_packages(
 for name in names:
     importlib.import_module(name)
 import chip_smoke
-from tpu_spmv_torch.tools import spmm, spmv
+from tpu_spmv_torch.tools import solve, spmm, spmv, sts
 for argv in (["synthetic:banded_1k"], ["synthetic:banded_1k", "--kernel",
                                        "packed"]):
     rc = spmv.main([*argv, "--device", "cpu", "--validate-only"])
     assert rc == 0, rc
 rc = spmm.main(["synthetic:banded_1k", "--batch", "3", "--device", "cpu",
                 "--validate-only"])
+assert rc == 0, rc
+rc = sts.main(["synthetic:banded_1k", "--device", "cpu", "--validate-only"])
+assert rc == 0, rc
+rc = solve.main(["synthetic:banded_1k", "--iters", "25", "--precond", "ic0",
+                 "--devices", "1", "--device", "cpu"])
 assert rc == 0, rc
 from tpu_spmv_torch.tune.plan import gpu_plan
 gpu_plan(spmv.load_input("synthetic:banded_100k"))  # samples 256 chunks
@@ -45,7 +51,7 @@ def test_port_imports_no_jax():
     )
     assert out.returncode == 0, out.stderr
     n = int(out.stdout.split("modules")[-1])
-    assert n >= 18  # every module of the port was imported
+    assert n >= 25  # every module of the port was imported
 
 
 def test_port_sources_have_no_jax_import():

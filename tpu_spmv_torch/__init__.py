@@ -8,10 +8,14 @@ jax. Host code that touches no device is reused from `tpu_spmv` as it is
 matrices); everything that builds a device layout, runs a kernel or
 times one is the port's own.
 
-Layer map (SpMV, y = A @ x, and SpMM, Y = A @ X):
+Layer map (SpMV, y = A @ x; SpMM, Y = A @ X; the triangular solve
+L x = b and IC(0)-PCG):
 
     tools/    CLI entry points: spmv and spmm (load, reorder, plan, build,
-              run, validate, time) and info (card and toolchain)
+              run, validate, time), sts (triangular solve), solve
+              (IC(0)-PCG on one card) and info (card and toolchain)
+    sts/      pack schedule (host), LowerSolveLayout and lower_solve,
+              IC(0) factor, preconditioner and PCG
     tune/     gpu_plan: DIA for constant-diagonal matrices, else packed or
               ranked by sub-tile count and a measured time ratio
     formats/  DiaSlabs, SellSlabs, RankedSlabs, PackedRanked as torch
@@ -20,7 +24,8 @@ Layer map (SpMV, y = A @ x, and SpMM, Y = A @ X):
     kernels/  CUDA C++ kernels (csrc/*.cu, built with nvcc into one
               ctypes-bound library) with a plain PyTorch version beside
               each: spmv_dia, spmv_ranked, spmv_sell, spmv_packed,
-              spmm_ranked, spmm_packed
+              spmm_ranked, spmm_packed, lower_solve_ranked and
+              lower_solve_blocks
     bench/    CUDA-event timing (warm and cold regimes) and validation
     hw        DeviceSpec of the card, nvidia-smi, the toolchain report
 """

@@ -318,34 +318,46 @@ def to_tensor(a, dtype=None) -> torch.Tensor:
 
 
 class TensorLayout:
-    """Mixin for layout dataclasses: the tensor fields move, count and
-    clone together; every other field is static metadata."""
+    """Mixin for layout dataclasses: the tensor fields, and those of any
+    nested layout field, move, count and clone together; every other
+    field is static metadata."""
 
     def tensors(self) -> dict:
+        """The layout's own tensor fields (nested layouts excluded)."""
         return {
             f.name: getattr(self, f.name)
             for f in dataclasses.fields(self)
             if isinstance(getattr(self, f.name), torch.Tensor)
         }
 
-    def to(self, device):
+    def _nested(self) -> dict:
+        return {
+            f.name: getattr(self, f.name)
+            for f in dataclasses.fields(self)
+            if isinstance(getattr(self, f.name), TensorLayout)
+        }
+
+    def _map(self, fn):
         return dataclasses.replace(
-            self, **{k: v.to(device) for k, v in self.tensors().items()}
+            self,
+            **{k: fn(v) for k, v in self.tensors().items()},
+            **{k: v._map(fn) for k, v in self._nested().items()},
         )
+
+    def to(self, device):
+        return self._map(lambda t: t.to(device))
 
     def clone(self):
         """Copy with distinct storage (the cold-regime timing rotates
         such copies so the operator cannot stay in L2)."""
-        return dataclasses.replace(
-            self, **{k: v.clone() for k, v in self.tensors().items()}
-        )
+        return self._map(torch.clone)
 
     @property
     def nbytes(self) -> int:
         """Bytes the layout's tensors hold on their device."""
         return sum(
             t.numel() * t.element_size() for t in self.tensors().values()
-        )
+        ) + sum(v.nbytes for v in self._nested().values())
 
 
 @dataclasses.dataclass

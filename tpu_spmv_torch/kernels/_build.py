@@ -64,6 +64,14 @@ _SIGNATURES = {
     "tsp_spmm_packed": (
         _I, _I, _P, _P, _P, _P, _P, _P, _I, _U, _P, _P, _P, _LL, _LL, _I, _P,
     ),
+    # vals, cols, chunk_ptr, b_scale, x, flags, num_chunks, x_blocks,
+    # stream
+    "tsp_lower_solve_blocks": (_P, _P, _P, _P, _P, _P, _I, _LL, _P),
+    # lcol_kind, vals, lcols, sub_b0, sub_dlo, sub_dhi, chunk_ptr,
+    # b_scale, x, flags, num_chunks, x_blocks, stream
+    "tsp_lower_solve_ranked": (
+        _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _LL, _P,
+    ),
 }
 
 _lib = None
