@@ -4,10 +4,12 @@ Run from the root of the repository, on a machine with one CUDA card:
 
     python chip_smoke.py
 
-It builds the port's CUDA kernels from tpu_spmv_torch/kernels/csrc/,
-then, at the main paths' real sizes (lap2d_1024: 1.05M rows, 5.2M nnz;
-varstencil_1024; banded_1m: 1M rows, 16.9M nnz; lap3d_101: 1.03M rows,
-7.2M nnz):
+It builds the port's CUDA kernels from tpu_spmv_torch/kernels/csrc/ and
+its C++ host core from tpu_spmv_torch/reorder/csrc/ (it fails unless the
+core builds), then, at the main paths' real sizes (lap2d_1024: 1.05M
+rows, 5.2M nnz; varstencil_1024; banded_1m: 1M rows, 16.9M nnz;
+lap3d_101: 1.03M rows, 7.2M nnz; lap2d_4096: 16.8M rows, 83.9M nnz, whose
+x is past the L2 residency gate):
 
   1. checks each kernel against its plain PyTorch version on the card
      (max |kernel - plain| <= 1e-5 * max(1, max |plain|): both sum in
@@ -17,9 +19,18 @@ varstencil_1024; banded_1m: 1M rows, 16.9M nnz; lap3d_101: 1.03M rows,
      SpMM; bf16 layouts against the bf16-rounded operator), and times
      kernel and plain version in the warm regime (one operator, which
      may stay in L2) and the cold one (operator copies rotated, >= 4x L2
-     in all). The single-vector kernels spmv_dia, spmv_ranked,
-     spmv_sell and spmv_packed (delta, grouped, bf16, column-binned) run
-     at one x; spmm_ranked and spmm_packed at B = 8 and B = 5 columns;
+     in all), beside its bound (layout, x and y moved once at the HBM
+     rate) and the one PyTorch call computing the same product (a CSR
+     tensor times x: cuSPARSE). The single-vector kernels spmv_dia,
+     spmv_ranked, spmv_sell and spmv_packed (delta, grouped, bf16,
+     column-binned) run at one x; spmm_ranked and spmm_packed at B = 8
+     and B = 5 columns; the windowed kernels spmv_dia_windowed
+     (lap2d_4096 f32 and bf16, lap2d_1024), spmv_ranked_windowed
+     (lap2d_4096 and lap2d_1024 after RCM, banded_1m) and
+     spmm_ranked_windowed (lap2d_1024 after RCM, B = 8 and 5 at the
+     CLI's tile and column passes) are also held to their resident
+     kernels on the same layout, and lap2d_4096's host set-up seconds
+     are printed;
   2. prints R, the packed-to-ranked time per walked sub-tile measured in
      step 1 on lap2d_1024 after RCM, beside the planner's constant, and
      the plan auto takes on each matrix;
@@ -31,13 +42,17 @@ varstencil_1024; banded_1m: 1M rows, 16.9M nnz; lap3d_101: 1.03M rows,
      level (LS) and COLOR order, lap3d_101 LS and banded_1m LS (the
      column-binned rank windows); it prints the host set-up seconds
      and each system's dependency depth, by rows and by chunks (the
-     kernel waits on whole chunks), also for lap2d_1024 k=3;
+     kernel waits on whole chunks), also for lap2d_1024 k=3, and the time
+     of torch.triangular_solve on the system as a sparse CSR tensor;
   4. on lap3d_101 and lap2d_1024 checks IC0Preconditioner.apply against
      its plain version, times one CUDA-graph-captured PCG iteration and
      prints the residual as lap3d_101 converges;
   5. drives each main path with every launch counter zeroed just before
      and read just after: the SpMV/SpMM CLIs (tools.spmv, tools.spmm on
-     lap2d_1024 and banded_1m), the solve CLIs (tools.sts on lap2d_1024
+     lap2d_1024 and banded_1m, and on the windowed routes: tools.spmv on
+     lap2d_4096, natural and --kernel ranked after RCM, tools.spmm on
+     lap2d_1024 at B = 8 and --kernel windowed), the solve CLIs
+     (tools.sts on lap2d_1024
      LS, COLOR and k=3 and lap3d_101 --part upper; tools.solve --precond
      ic0 on lap3d_101), and the library's lower_solve with ranked=False;
      it fails unless every kernel was launched on its path.
@@ -66,6 +81,11 @@ SOLVE_TOL = 1e-5
 # run asks for 1e-3, which IC(0)-PCG reaches in under 50 iterations.
 PCG_ITERS = 60
 PCG_TOL = 1e-3
+# The bound of a kernel (the least time the card could take for its
+# work): NVIDIA's data sheet for the H100 SXM at 700 W, HBM 3.35 TB/s and
+# 67 TFLOP/s in float32 outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
 
 
 class SmokeFailure(RuntimeError):
@@ -110,10 +130,44 @@ def _validate_columns(y, x, oracle, perm):
     return wrong, rel
 
 
+def _bound(nbytes, flops):
+    """(bound_ms, bound_by): the least time the card could take, the
+    larger of the bytes over the HBM rate and the f32 operations over
+    the f32 peak outside the tensor cores (the data-sheet H100 SXM
+    figures at 700 W)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _csr_tensor(csr, dev):
+    """The matrix as a torch CSR tensor on the card (int32 indices)."""
+    import torch
+
+    return torch.sparse_csr_tensor(
+        torch.from_numpy(csr.indptr), torch.from_numpy(csr.indices),
+        torch.from_numpy(csr.data), size=csr.shape, device=dev,
+    )
+
+
+def _time_library(csr, xt, nnz):
+    """Warm TimeMin (s) of one PyTorch call computing the same product
+    on the same reordered matrix and x: a CSR tensor times x (n,) or X
+    (n, B), which PyTorch runs through cuSPARSE (SpMV / SpMM), timed from
+    a CUDA graph like the kernels."""
+    from tpu_spmv_torch.bench.harness import bench_spmv
+
+    return bench_spmv(lambda a, v: a @ v, _csr_tensor(csr, xt.device), xt,
+                      nnz=nnz).time_min
+
+
 def _check_kernel(label, kernel, plain, layout, mat, perm, oracle, stats,
-                  batch=None):
+                  batch=None, twin=None, csr=None):
     """One phase: kernel vs plain on the card, oracle validation, warm
     and cold timings of both. x is (n,), or (n, batch) for an SpMM.
+    twin: a windowed kernel's resident counterpart, run on the same
+    layout and x (max difference printed). csr: the matrix the layout
+    was built from, for the library call's time (f32 layouts only).
     Appends to stats[kernel name] and returns the kernel's warm
     TimeMin in seconds."""
     import numpy as np
@@ -137,6 +191,9 @@ def _check_kernel(label, kernel, plain, layout, mat, perm, oracle, stats,
     scale = max(1.0, float(yp.abs().max()))
     wrong, rel = _validate_columns(yk.cpu().numpy(), x, oracle, perm)
     del yp
+    twin_err = None
+    if twin is not None:
+        twin_err = float((yk - twin(lay, xt)).abs().max())
     if delta != 1:
         raise SmokeFailure(f"{label}: launch counter moved by {delta}, not 1")
     if not err <= PLAIN_TOL * scale:
@@ -149,6 +206,9 @@ def _check_kernel(label, kernel, plain, layout, mat, perm, oracle, stats,
 
     nnz = mat.nnz
     lbytes = lay.nbytes
+    cols = 1 if batch is None else batch
+    bound_ms, bound_by = _bound(lbytes + 4 * (mat.n + mat.m) * cols,
+                                2 * nnz * cols)
     t = {}
     # Kernel and plain version in turns: warm, then cold, then the
     # kernel's eager (host-launched) warm time.
@@ -159,17 +219,31 @@ def _check_kernel(label, kernel, plain, layout, mat, perm, oracle, stats,
             fn, lay.clone, xt, nnz=nnz, layout_bytes=lbytes
         )
     eager = bench_spmv(kernel, lay, xt, nnz=nnz, graph=False)
+    twin_s = None if twin is None else bench_spmv(twin, lay, xt,
+                                                 nnz=nnz).time_min
+    library_ms = None
+    if csr is not None:
+        library_ms = _time_library(csr, xt, nnz) * 1e3
     bw = device_spec().hbm_bytes_per_s
     us = lambda s: f"{s * 1e6:.2f}"  # noqa: E731
     kw, kc = t["kernel", "warm"], t["kernel", "cold"]
-    cols = "" if batch is None else f", B={batch} (GF/s count 2*nnz*B)"
+    colstr = "" if batch is None else f", B={batch} (GF/s count 2*nnz*B)"
     print(
         f"[{label}] {kernel.__name__}: launches +{delta}, "
         f"max|kernel-plain| {err:.3g}, Number Wrong {wrong}, RelL2 {rel:.3g}"
-        f", layout {lbytes / 2**20:.1f} MB, K={kc.iters[2]} cold copies"
-        f"{cols}",
+        + ("" if twin_err is None else
+           f", max|kernel-{twin.__name__}| {twin_err:.3g}")
+        + f", layout {lbytes / 2**20:.1f} MB, K={kc.iters[2]} cold copies"
+        f"{colstr}",
         flush=True,
     )
+    lib_txt = "none" if library_ms is None else f"{library_ms * 1e3:.2f}"
+    print(f"    bound {bound_ms * 1e3:.2f} us ({bound_by}: layout + x + y "
+          f"once at {bw / 1e12:.2f} TB/s) | library call (CSR tensor @ x, "
+          f"cuSPARSE) warm TimeMin us: {lib_txt}"
+          + ("" if twin_s is None else
+             f" | {twin.__name__} on the same layout: warm TimeMin us "
+             f"{twin_s * 1e6:.2f}"), flush=True)
     for name in ("kernel", "plain"):
         w, c = t[name, "warm"], t[name, "cold"]
         print(
@@ -187,7 +261,8 @@ def _check_kernel(label, kernel, plain, layout, mat, perm, oracle, stats,
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     stats.setdefault(kernel.__name__, []).append(
         dict(label=label, err=err, ms=kw.time_min * 1e3,
-             plain_ms=t["plain", "warm"].time_min * 1e3)
+             plain_ms=t["plain", "warm"].time_min * 1e3, bound_ms=bound_ms,
+             bound_by=bound_by, library_ms=library_ms)
     )
     return kw.time_min
 
@@ -197,14 +272,14 @@ def _phases(stats):
     Returns the warm times R is computed from."""
     import torch
 
-    from tpu_spmv_torch.formats.convert import rounded
     from tpu_spmv_torch.formats.dia import DiaSlabs
     from tpu_spmv_torch.formats.packed import PackedRanked
     from tpu_spmv_torch.formats.sell import RankedSlabs, SellSlabs
     from tpu_spmv_torch.kernels.dia import spmv_dia, spmv_dia_reference
     from tpu_spmv_torch.kernels.packed import spmv_packed, spmv_packed_reference
     from tpu_spmv_torch.kernels.sell import (
-        spmv_ranked, spmv_ranked_reference, spmv_sell, spmv_sell_reference,
+        spmv_ranked, spmv_ranked_reference, spmv_ranked_windowed,
+        spmv_ranked_windowed_reference, spmv_sell, spmv_sell_reference,
     )
     from tpu_spmv_torch.kernels.spmm import (
         spmm_packed, spmm_packed_reference, spmm_ranked, spmm_ranked_reference,
@@ -219,11 +294,12 @@ def _phases(stats):
         if plan.kernel != "dia":
             raise SmokeFailure(f"{name}: auto planned {plan.kernel}, not dia")
         ck, perm = prepare(mat, "auto")
-        for vdt, oracle in ((None, mat), (bf16, rounded(mat))):
+        for vdt, oracle in ((None, mat), (bf16, mat.rounded())):
             lay = DiaSlabs.from_csr(ck.matrix, val_dtype=vdt)
             tag = "bf16" if vdt else "f32"
             _check_kernel(f"{name} dia {tag}", spmv_dia, spmv_dia_reference,
-                          lay, mat, perm, oracle, stats)
+                          lay, mat, perm, oracle, stats,
+                          csr=None if vdt else ck.matrix)
 
     r_times = {}
     mat = load_input("synthetic:lap2d_1024")
@@ -234,11 +310,20 @@ def _phases(stats):
             raise SmokeFailure("lap2d_1024 rcm: grouping not as requested")
         kind = f"grouped G={lay.num_groups}" if groups else "ungrouped"
         t = _check_kernel(f"lap2d_1024 rcm ranked {kind}", spmv_ranked,
-                          spmv_ranked_reference, lay, mat, perm, mat, stats)
+                          spmv_ranked_reference, lay, mat, perm, mat, stats,
+                          csr=ck.matrix)
         if groups:
             r_times["ranked"] = (t, int(lay.chunk_ptr[-1]))
+            # The same layout through the windowed kernel (x of 4 MB
+            # passes the gate: a comparison, not a CLI route).
+            _check_kernel(f"lap2d_1024 rcm ranked_windowed {kind} tile "
+                          f"{lay.tile_k} win_span {lay.win_span}",
+                          spmv_ranked_windowed,
+                          spmv_ranked_windowed_reference, lay, mat, perm,
+                          mat, stats, twin=spmv_ranked, csr=ck.matrix)
     _check_kernel("lap2d_1024 rcm sell", spmv_sell, spmv_sell_reference,
-                  SellSlabs.from_csr(ck.matrix), mat, perm, mat, stats)
+                  SellSlabs.from_csr(ck.matrix), mat, perm, mat, stats,
+                  csr=ck.matrix)
     for vdt, groups in ((None, True), (None, False), (bf16, True)):
         lay = PackedRanked.from_csr(ck.matrix, allow_groups=groups,
                                     val_dtype=vdt)
@@ -249,7 +334,8 @@ def _phases(stats):
             f"grouped G={lay.num_groups}" if groups else "delta")
         t = _check_kernel(f"lap2d_1024 rcm packed {kind}", spmv_packed,
                           spmv_packed_reference, lay, mat, perm,
-                          rounded(mat) if vdt else mat, stats)
+                          mat.rounded() if vdt else mat, stats,
+                          csr=None if vdt else ck.matrix)
         if groups and vdt is None:
             r_times["packed"] = (t, int(lay.chunk_koff[-1]) / 8)
     lap_layouts = (RankedSlabs.from_csr(ck.matrix),
@@ -257,22 +343,23 @@ def _phases(stats):
     for B in (8, 5):
         _check_kernel(f"lap2d_1024 rcm spmm_ranked B={B}", spmm_ranked,
                       spmm_ranked_reference, lap_layouts[0], mat, perm, mat,
-                      stats, batch=B)
+                      stats, batch=B, csr=ck.matrix)
         _check_kernel(f"lap2d_1024 rcm spmm_packed B={B}", spmm_packed,
                       spmm_packed_reference, lap_layouts[1], mat, perm, mat,
-                      stats, batch=B)
+                      stats, batch=B, csr=ck.matrix)
     del lap_layouts
 
     mat = load_input("synthetic:banded_1m")
     ck, perm = prepare(mat, "auto")
     ranked = RankedSlabs.from_csr(ck.matrix)
     _check_kernel("banded_1m ranked", spmv_ranked, spmv_ranked_reference,
-                  ranked, mat, perm, mat, stats)
+                  ranked, mat, perm, mat, stats, csr=ck.matrix)
     _check_kernel("banded_1m sell", spmv_sell, spmv_sell_reference,
-                  SellSlabs.from_csr(ck.matrix), mat, perm, mat, stats)
+                  SellSlabs.from_csr(ck.matrix), mat, perm, mat, stats,
+                  csr=ck.matrix)
     packed = PackedRanked.from_csr(ck.matrix)
     _check_kernel("banded_1m packed", spmv_packed, spmv_packed_reference,
-                  packed, mat, perm, mat, stats)
+                  packed, mat, perm, mat, stats, csr=ck.matrix)
     binned = None
     for w in (4, 2, 1):
         try:
@@ -288,11 +375,105 @@ def _phases(stats):
     for B in (8, 5):
         _check_kernel(f"banded_1m spmm_ranked B={B}", spmm_ranked,
                       spmm_ranked_reference, ranked, mat, perm, mat, stats,
-                      batch=B)
+                      batch=B, csr=ck.matrix)
         _check_kernel(f"banded_1m spmm_packed B={B}", spmm_packed,
                       spmm_packed_reference, packed, mat, perm, mat, stats,
-                      batch=B)
+                      batch=B, csr=ck.matrix)
+    # spmv_ranked_windowed on the aligned (bin 0) ranked layout of this
+    # banded matrix: x of 4 MB passes the gate, so this is a comparison
+    # with the resident kernel, not a CLI route.
+    _check_kernel("banded_1m ranked_windowed", spmv_ranked_windowed,
+                  spmv_ranked_windowed_reference, ranked, mat, perm, mat,
+                  stats, twin=spmv_ranked, csr=ck.matrix)
     return r_times
+
+
+def _windowed_phases(stats):
+    """The windowed kernels where the CLIs route to them: lap2d_4096
+    (16.8M rows, 83.9M nnz; x 67 MB, past half the 50 MB L2) in natural
+    order through spmv_dia_windowed (f32 and bf16) and after RCM through
+    spmv_ranked_windowed, and lap2d_1024 after RCM through
+    spmm_ranked_windowed at B = 8 and 5, at the tile and column passes B'
+    the CLI picks; plus lap2d_1024's DIA layout through
+    spmv_dia_windowed beside spmv_dia. Each is also held to its resident
+    kernel on the same layout. Prints the host set-up seconds."""
+    import torch
+
+    from tpu_spmv_torch import hw
+    from tpu_spmv_torch.formats.dia import DiaSlabs
+    from tpu_spmv_torch.formats.sell import RankedSlabs
+    from tpu_spmv_torch.kernels.dia import (
+        dia_window_rows, dia_x_fits, spmv_dia, spmv_dia_windowed,
+        spmv_dia_windowed_reference,
+    )
+    from tpu_spmv_torch.kernels.sell import (
+        resident_x_fits, spmv_ranked, spmv_ranked_windowed,
+        spmv_ranked_windowed_reference,
+    )
+    from tpu_spmv_torch.kernels.spmm import (
+        spmm_ranked, spmm_ranked_windowed, spmm_ranked_windowed_reference,
+    )
+    from tpu_spmv_torch.tools.spmv import fit_window, load_input, prepare
+
+    dev = torch.device("cuda")
+    smem = hw.smem_per_block(dev)
+    setup = {}
+    t0 = time.perf_counter()
+    mat = load_input("synthetic:lap2d_4096")
+    setup["generate"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ck, perm = prepare(mat, "auto")
+    setup["plan (natural order)"] = time.perf_counter() - t0
+    for vdt in (None, torch.bfloat16):
+        tag = "bf16" if vdt else "f32"
+        t0 = time.perf_counter()
+        lay = DiaSlabs.from_csr(ck.matrix, val_dtype=vdt).to(dev)
+        setup[f"DIA {tag} build"] = time.perf_counter() - t0
+        if dia_x_fits(lay):
+            raise SmokeFailure("lap2d_4096: x passes the DIA residency gate")
+        rows = dia_window_rows(lay, smem)
+        _check_kernel(f"lap2d_4096 dia_windowed {tag} ({rows} rows/block)",
+                      spmv_dia_windowed, spmv_dia_windowed_reference, lay,
+                      mat, perm, mat.rounded() if vdt else mat, stats,
+                      twin=spmv_dia, csr=None if vdt else ck.matrix)
+        del lay
+    t0 = time.perf_counter()
+    ck, perm = prepare(mat, "always")
+    setup["RCM + permute"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lay = RankedSlabs.from_csr(ck.matrix).to(dev)
+    setup["ranked build"] = time.perf_counter() - t0
+    if resident_x_fits(lay):
+        raise SmokeFailure("lap2d_4096: x passes the ranked residency gate")
+    lay, _ = fit_window(lay, 1, dev,
+                        lambda cap: RankedSlabs.from_csr(ck.matrix,
+                                                         tile_k=cap))
+    _check_kernel(f"lap2d_4096 rcm ranked_windowed (tile {lay.tile_k}, "
+                  f"win_span {lay.win_span}, {lay.win_b0.numel()} tiles)",
+                  spmv_ranked_windowed, spmv_ranked_windowed_reference, lay,
+                  mat, perm, mat, stats, twin=spmv_ranked, csr=ck.matrix)
+    del lay, ck, mat
+    print("lap2d_4096 host set-up s: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in setup.items()), flush=True)
+
+    mat = load_input("synthetic:lap2d_1024")
+    ck, perm = prepare(mat, "auto")
+    _check_kernel("lap2d_1024 dia_windowed f32", spmv_dia_windowed,
+                  spmv_dia_windowed_reference, DiaSlabs.from_csr(ck.matrix),
+                  mat, perm, mat, stats, twin=spmv_dia, csr=ck.matrix)
+    ck, perm = prepare(mat, "always")
+    for B in (8, 5):
+        lay = RankedSlabs.from_csr(ck.matrix).to(dev)
+        if resident_x_fits(lay, batch=B) != (B == 5):
+            raise SmokeFailure(f"lap2d_1024 B={B}: gate not as expected")
+        lay, cols = fit_window(lay, B, dev,
+                               lambda cap: RankedSlabs.from_csr(ck.matrix,
+                                                                tile_k=cap))
+        _check_kernel(f"lap2d_1024 rcm spmm_ranked_windowed B={B} (tile "
+                      f"{lay.tile_k}, win_span {lay.win_span}, B'={cols}: "
+                      f"{-(-B // cols)} pass(es))", spmm_ranked_windowed,
+                      spmm_ranked_windowed_reference, lay, mat, perm, mat,
+                      stats, batch=cols, twin=spmm_ranked, csr=ck.matrix)
 
 
 def _solve_oracle(sys_, b):
@@ -356,10 +537,35 @@ def _time_eager(fn, layouts, b, calls):
     return start.elapsed_time(stop) / 1e3 / calls
 
 
-def _check_solve(label, sys_, b, ranked, stats, setup):
+def _time_solve_library(label, sys_, b):
+    """Warm seconds per call of the one PyTorch call that solves the same
+    system: torch.triangular_solve with L as a sparse CSR tensor, which
+    PyTorch runs through cuSPARSE's SpSV (its analysis included, as each
+    call redoes it), eagerly; torch.linalg.solve_triangular takes dense
+    matrices only."""
+    import numpy as np
+    import torch
+
+    L = _csr_tensor(sys_.lower, torch.device("cuda"))
+    bt = torch.from_numpy(np.asarray(b, np.float32)).to(L.device)[:, None]
+
+    def solve(A, v):
+        return torch.triangular_solve(v, A, upper=False).solution
+
+    x = solve(L, bt).cpu().numpy().ravel()
+    wrong = int(np.sum(np.abs(x - 1.0) > 0.01))
+    t = _time_eager(solve, [L], bt, 3)
+    print(f"    [{label}] library solve (torch.triangular_solve, sparse CSR "
+          f"L, cuSPARSE SpSV, eager): {t * 1e6:.2f} us, Number Wrong "
+          f"{wrong} for x = ones", flush=True)
+    return t
+
+
+def _check_solve(label, sys_, b, ranked, stats, setup, library_s):
     """One solve phase: build the layout (timed), kernel vs plain on the
     card, the float64 oracle, then warm and cold times (kernel from a
-    CUDA graph, plain eagerly). Returns the layout (on the card)."""
+    CUDA graph, plain eagerly). library_s: the library solve's time on
+    the same system. Returns the layout (on the card)."""
     import numpy as np
     import torch
 
@@ -410,6 +616,9 @@ def _check_solve(label, sys_, b, ranked, stats, setup):
 
     nnz = sys_.lower.nnz
     bflat = bs.reshape(-1)
+    # Slabs read once, b read and x written once; the dependency depth
+    # (printed) bounds it from the other side.
+    bound_ms, bound_by = _bound(slabs.nbytes + 8 * bs.numel(), 2 * nnz)
 
     def kfn(sl, bf):
         return kernel(sl, bf.view(-1, 128))
@@ -445,11 +654,13 @@ def _check_solve(label, sys_, b, ranked, stats, setup):
           f"{1e6 * warm.time_min / chunk_depth:.3f} us per chunk level",
           flush=True)
     print(f"    plain  us per solve (eager host loop over the packs): warm "
-          f"{us(p_warm)}, cold {us(p_cold)} | timing wall "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+          f"{us(p_warm)}, cold {us(p_cold)} | bound {bound_ms * 1e3:.2f} us "
+          f"({bound_by}) | timing wall {time.perf_counter() - t0:.1f} s",
+          flush=True)
     stats.setdefault(kernel.__name__, []).append(
         dict(label=label, err=err, ms=warm.time_min * 1e3,
-             plain_ms=p_warm * 1e3)
+             plain_ms=p_warm * 1e3, bound_ms=bound_ms, bound_by=bound_by,
+             library_ms=library_s * 1e3)
     )
     return lay
 
@@ -472,9 +683,11 @@ def _solve_phases(stats):
         sys_ = build_sts(mat, order_type=order)
         setup = dict(load=t1 - t0, build_sts=time.perf_counter() - t1)
         b = compute_b(sys_.lower)
+        library_s = _time_solve_library(f"{name} {order}", sys_, b)
         for ranked in variants:
             label = f"{name} {order} {'ranked' if ranked else 'blocks'}"
-            lay = _check_solve(label, sys_, b, ranked, stats, setup)
+            lay = _check_solve(label, sys_, b, ranked, stats, setup,
+                               library_s)
             if ranked and lay.ranked is None:
                 raise SmokeFailure(f"{label}: no rank-windowed layout built")
             if name == "banded_1m":
@@ -585,8 +798,9 @@ def _drive(steps):
     callable that raises SmokeFailure."""
     from tpu_spmv_torch.kernels import dia, packed, sell, spmm, sts
 
-    wrappers = (dia.spmv_dia, sell.spmv_ranked, sell.spmv_sell,
-                packed.spmv_packed, spmm.spmm_ranked, spmm.spmm_packed,
+    wrappers = (dia.spmv_dia, dia.spmv_dia_windowed, sell.spmv_ranked,
+                sell.spmv_ranked_windowed, sell.spmv_sell, packed.spmv_packed,
+                spmm.spmm_ranked, spmm.spmm_ranked_windowed, spmm.spmm_packed,
                 sts.lower_solve_ranked, sts.lower_solve_blocks)
     for w in wrappers:
         w.launches = 0
@@ -652,8 +866,15 @@ def _main_path():
         (spmv_cli, ["synthetic:banded_1m", "20", "--kernel", "sell"]),
         (spmv_cli, ["synthetic:banded_1m", "20", "--kernel", "packed"]),
         (spmm_cli, ["synthetic:lap2d_1024", "20", "--batch", "8"]),
+        (spmm_cli, ["synthetic:lap2d_1024", "20", "--batch", "8", "--kernel",
+                    "resident"]),
         (spmm_cli, ["synthetic:lap2d_1024", "20", "--batch", "5", "--rcm",
                     "always"]),
+        (spmm_cli, ["synthetic:lap2d_1024", "20", "--batch", "5", "--kernel",
+                    "windowed", "--rcm", "always"]),
+        (spmv_cli, ["synthetic:lap2d_4096", "20"]),
+        (spmv_cli, ["synthetic:lap2d_4096", "20", "--kernel", "ranked",
+                    "--rcm", "always"]),
     ))
     sts_path = _drive((
         (sts_cli, ["synthetic:lap2d_1024", "5"]),
@@ -697,6 +918,15 @@ _KERNELS = {
     "lower_solve_blocks": ("tpu_spmv_torch/kernels/csrc/sts.cu",
                            "tpu_spmv/sts/solve.py:450",
                            "lap2d_1024 LS blocks"),
+    "spmv_dia_windowed": ("tpu_spmv_torch/kernels/csrc/windowed.cu",
+                          "tpu_spmv/kernels/dia.py:244",
+                          "lap2d_4096 dia_windowed f32"),
+    "spmv_ranked_windowed": ("tpu_spmv_torch/kernels/csrc/windowed.cu",
+                             "tpu_spmv/kernels/pallas_sell.py:706",
+                             "lap2d_4096 rcm ranked_windowed"),
+    "spmm_ranked_windowed": ("tpu_spmv_torch/kernels/csrc/windowed.cu",
+                             "tpu_spmv/kernels/spmm.py:391",
+                             "lap2d_1024 rcm spmm_ranked_windowed B=5"),
 }
 
 
@@ -724,9 +954,19 @@ def main() -> int:
     print(f"torch {tc['torch']} | CUDA {tc['cuda']} | nvcc {tc['nvcc']} | "
           f"triton present: {tc['triton']}")
     info = _build.build(verbose=True, force=True)
-    print(f"kernel build: {info.seconds:.1f} s -> {info.path.name}")
+    print(f"kernel build (one nvcc per source, in parallel, then one link): "
+          f"{info.seconds:.1f} s -> {info.path.name}")
     for line in _ptxas_summary(info.log):
         print(f"  ptxas: {line}")
+    from tpu_spmv_torch.reorder import native
+
+    t0 = time.perf_counter()
+    if not native.available():
+        print(f"chip_smoke: FAILED: the C++ host core did not build "
+              f"({native.load_error()})", file=sys.stderr)
+        return 1
+    print(f"host core (reorder/csrc/reorder.cc) ready in "
+          f"{time.perf_counter() - t0:.1f} s -> {native._LIB_PATH.name}")
     print(f"device: {hw.device_spec()}", flush=True)
 
     stats = {}
@@ -734,6 +974,10 @@ def main() -> int:
         t0 = time.perf_counter()
         r_times = _phases(stats)
         print(f"kernel phases: wall {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        t0 = time.perf_counter()
+        _windowed_phases(stats)
+        print(f"windowed phases: wall {time.perf_counter() - t0:.1f} s",
               flush=True)
         _plans(r_times)
         t0 = time.perf_counter()
@@ -761,7 +1005,8 @@ def main() -> int:
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=counts[name], max_abs_err=max(r["err"] for r in rows),
-            ms=at["ms"], plain_ms=at["plain_ms"],
+            ms=at["ms"], plain_ms=at["plain_ms"], bound_ms=at["bound_ms"],
+            bound_by=at["bound_by"], library_ms=at["library_ms"],
         ))
     print(f"total wall {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

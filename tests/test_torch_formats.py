@@ -24,7 +24,8 @@ from tpu_spmv.reorder.rcm import rcm
 
 from tpu_spmv_torch.formats import dia as tdia
 from tpu_spmv_torch.formats import sell as tsell
-from tpu_spmv_torch.formats.convert import from_reference, rounded
+from tpu_spmv_torch.formats import csr as tcsr
+from tpu_spmv_torch.formats.convert import from_reference
 
 MATRICES = {
     "lap2d_37": lambda: laplacian_2d(37),
@@ -168,13 +169,20 @@ def test_unroll_budget_matches_reference():
     assert tsell._UNROLL_BUDGET == _UNROLL_BUDGET
 
 
+def rounded(mat):
+    """The bf16-rounded operator of a JAX-package matrix, by the port's
+    CSRMatrix.rounded (the oracle of its bf16 layouts)."""
+    return tcsr.CSRMatrix(mat.indptr, mat.indices, mat.data,
+                          mat.shape).rounded()
+
+
 def test_rounded_matches_reference_bits():
     mat = variable_stencil(23)
     rng = np.random.default_rng(5)
     mat = CSRMatrix(mat.indptr, mat.indices,
                     rng.standard_normal(mat.nnz).astype(np.float32) * 1e3,
                     mat.shape)
-    ours = rounded(mat).data
+    ours = rounded(mat).data  # the port's CSRMatrix.rounded, through torch
     ref = mat.rounded(jnp.bfloat16).data
     assert ours.dtype == ref.dtype == np.float32
     assert np.array_equal(ours.view(np.uint32), ref.view(np.uint32))

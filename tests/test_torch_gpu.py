@@ -12,7 +12,8 @@ orders and with or without fused multiply-add, so they agree to
 1e-5 * max(1, max |y|), not bit for bit. Against the serial CSR oracle
 the bar is the suite's: Number Wrong 0 at the magnitude-aware 0.01 and
 RelL2 <= 1e-6 (bf16 layouts against the bf16-rounded operator; SpMM
-column by column). The triangular solves carry rounding along the
+column by column). A windowed kernel is also held to its resident twin
+on the same layout (same order of summation for SpMV: 1e-5 too). The triangular solves carry rounding along the
 dependency chain, so kernel, plain version and the f64 oracle agree to
 RelL2 <= 1e-5, with Number Wrong 0 at 0.01 for x = ones.
 """
@@ -21,25 +22,29 @@ import numpy as np
 import pytest
 import torch
 
-from tpu_spmv.bench.matrices import (
+from tpu_spmv_torch import hw
+from tpu_spmv_torch.bench.harness import bench_spmv, bench_spmv_cold, validate
+from tpu_spmv_torch.bench.matrices import (
     laplacian_2d, random_banded, random_general, variable_stencil,
 )
-from tpu_spmv.formats.csr import CSRMatrix
-from tpu_spmv.reorder.rcm import rcm
-
-from tpu_spmv_torch.bench.harness import bench_spmv, bench_spmv_cold, validate
-from tpu_spmv_torch.formats.convert import rounded
+from tpu_spmv_torch.formats.csr import CSRMatrix
 from tpu_spmv_torch.formats.dia import DiaSlabs
 from tpu_spmv_torch.formats.packed import PackedRanked
 from tpu_spmv_torch.formats.sell import RankedSlabs, SellSlabs
-from tpu_spmv_torch.kernels.dia import spmv_dia, spmv_dia_reference
+from tpu_spmv_torch.kernels.dia import (
+    spmv_dia, spmv_dia_reference, spmv_dia_windowed,
+    spmv_dia_windowed_reference,
+)
 from tpu_spmv_torch.kernels.packed import spmv_packed, spmv_packed_reference
 from tpu_spmv_torch.kernels.sell import (
-    spmv_ranked, spmv_ranked_reference, spmv_sell, spmv_sell_reference,
+    spmv_ranked, spmv_ranked_reference, spmv_ranked_windowed,
+    spmv_ranked_windowed_reference, spmv_sell, spmv_sell_reference,
 )
 from tpu_spmv_torch.kernels.spmm import (
     spmm_packed, spmm_packed_reference, spmm_ranked, spmm_ranked_reference,
+    spmm_ranked_windowed, spmm_ranked_windowed_reference,
 )
+from tpu_spmv_torch.reorder import rcm
 from tpu_spmv_torch.kernels.sts import (
     lower_solve_blocks, lower_solve_blocks_reference, lower_solve_ranked,
     lower_solve_ranked_reference,
@@ -66,7 +71,9 @@ def _rcm(mat):
     return mat.permuted(rcm(mat.indptr, mat.indices))
 
 
-def _run(kernel, plain, layout, mat, oracle, dev, batch=None):
+def _run(kernel, plain, layout, mat, oracle, dev, batch=None, twin=None):
+    """kernel vs plain and the oracle; with twin (the resident kernel of
+    a windowed one), kernel vs twin on the same layout as well."""
     lay = layout.to(dev)
     shape = (mat.n,) if batch is None else (mat.n, batch)
     x = np.random.default_rng(3).standard_normal(shape).astype(np.float32)
@@ -84,6 +91,8 @@ def _run(kernel, plain, layout, mat, oracle, dev, batch=None):
     for b in range(xs.shape[1]):
         wrong, rel = validate(y[:, b], oracle.matvec(xs[:, b]))
         assert wrong == 0 and rel <= 1e-6, (b, wrong, rel)
+    if twin is not None:
+        assert float((yk - twin(lay, xt)).abs().max()) <= 1e-5 * scale
 
 
 @pytest.mark.parametrize("mat", [laplacian_2d(70), variable_stencil(53)],
@@ -91,7 +100,7 @@ def _run(kernel, plain, layout, mat, oracle, dev, batch=None):
 @pytest.mark.parametrize("vdt", [None, torch.bfloat16], ids=["f32", "bf16"])
 def test_dia_kernel_matches_plain(cuda, mat, vdt):
     lay = DiaSlabs.from_csr(mat, val_dtype=vdt)
-    oracle = rounded(mat) if vdt else mat
+    oracle = mat.rounded() if vdt else mat
     _run(spmv_dia, spmv_dia_reference, lay, mat, oracle, cuda)
 
 
@@ -115,7 +124,7 @@ def test_ranked_kernel_matches_plain(cuda, case):
     make, kw = _RANKED[case]
     mat = make()
     lay = RankedSlabs.from_csr(mat, **kw)
-    oracle = rounded(mat) if kw.get("val_dtype") else mat
+    oracle = mat.rounded() if kw.get("val_dtype") else mat
     _run(spmv_ranked, spmv_ranked_reference, lay, mat, oracle, cuda)
 
 
@@ -144,7 +153,7 @@ def test_packed_kernel_matches_plain(cuda, case):
     make, kw = _PACKED[case]
     mat = make()
     lay = PackedRanked.from_csr(mat, **kw)
-    oracle = rounded(mat) if kw.get("val_dtype") else mat
+    oracle = mat.rounded() if kw.get("val_dtype") else mat
     _run(spmv_packed, spmv_packed_reference, lay, mat, oracle, cuda)
 
 
@@ -156,11 +165,101 @@ def test_spmm_kernels_match_plain(cuda, case, batch):
     tiles, the second one partial."""
     make, kw = _PACKED[case]
     mat = make()
-    oracle = rounded(mat) if kw.get("val_dtype") else mat
+    oracle = mat.rounded() if kw.get("val_dtype") else mat
     _run(spmm_packed, spmm_packed_reference, PackedRanked.from_csr(mat, **kw),
          mat, oracle, cuda, batch)
     _run(spmm_ranked, spmm_ranked_reference, RankedSlabs.from_csr(mat, **kw),
          mat, oracle, cuda, batch)
+
+
+@pytest.mark.parametrize("mat", [laplacian_2d(300), variable_stencil(97)],
+                         ids=["lap2d", "varstencil"])
+@pytest.mark.parametrize("vdt", [None, torch.bfloat16], ids=["f32", "bf16"])
+def test_dia_windowed_kernel_matches_plain(cuda, mat, vdt):
+    """Several blocks of 4096 rows, each staging its own window."""
+    lay = DiaSlabs.from_csr(mat, val_dtype=vdt, rows_per_tile=8192)
+    oracle = mat.rounded() if vdt else mat
+    _run(spmv_dia_windowed, spmv_dia_windowed_reference, lay, mat, oracle,
+         cuda, twin=spmv_dia)
+
+
+_WINDOWED = {
+    "banded_grouped": (lambda: _rcm(random_banded(20000, 90, 11, seed=1)),
+                       dict(tile_k=512)),
+    "banded_bf16_ungrouped": (
+        lambda: _rcm(random_banded(20000, 90, 11, seed=1)),
+        dict(tile_k=1024, allow_groups=False, val_dtype=torch.bfloat16)),
+    "lap2d_u8": (lambda: _rcm(laplacian_2d(200)), dict(tile_k=512)),
+}
+
+
+@pytest.mark.parametrize("case,batch", [
+    (case, batch) for case in sorted(_WINDOWED)
+    for batch in ((None, 1, 5, 13) if case != "lap2d_u8" else (None, 5))
+])
+def test_ranked_windowed_kernels_match_plain(cuda, case, batch):
+    """spmv_ranked_windowed (batch None) and spmm_ranked_windowed against
+    their plain versions and their resident twins; B = 13 takes two
+    column tiles, the second one partial. (lap2d_u8's window, 72 blocks,
+    holds at most 6 columns in 227 KB; no int32-lcols layout has a
+    window that fits: their windows span more than 256 blocks.)"""
+    make, kw = _WINDOWED[case]
+    mat = make()
+    lay = RankedSlabs.from_csr(mat, **kw)
+    assert lay.win_b0.numel() > 1
+    oracle = mat.rounded() if kw.get("val_dtype") else mat
+    if batch is None:
+        _run(spmv_ranked_windowed, spmv_ranked_windowed_reference, lay, mat,
+             oracle, cuda, twin=spmv_ranked)
+    else:
+        _run(spmm_ranked_windowed, spmm_ranked_windowed_reference, lay, mat,
+             oracle, cuda, batch, twin=spmm_ranked)
+
+
+def test_windowed_kernels_replay_from_a_graph(cuda):
+    """One captured call of each windowed kernel, replayed on new x,
+    equals an eager call (the partials buffer and the shared-memory
+    opt-in are no host work inside the capture)."""
+    mat = _rcm(random_banded(20000, 90, 11, seed=1))
+    ranked = RankedSlabs.from_csr(mat, tile_k=512).to(cuda)
+    dia = DiaSlabs.from_csr(laplacian_2d(300)).to(cuda)
+    rng = np.random.default_rng(5)
+    for fn, lay, shape in ((spmv_ranked_windowed, ranked, (mat.n,)),
+                           (spmm_ranked_windowed, ranked, (mat.n, 5)),
+                           (spmv_dia_windowed, dia, (dia.n,))):
+        static_x = torch.zeros(shape, device=cuda)
+        fn(lay, static_x)  # eager first: builds, opts into shared memory
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = fn(lay, static_x)
+        before = fn.launches
+        for _ in range(2):
+            static_x.copy_(torch.from_numpy(
+                rng.standard_normal(shape).astype(np.float32)).to(cuda))
+            graph.replay()
+            expect = fn(lay, static_x)
+            torch.cuda.synchronize()
+            assert torch.equal(out, expect)
+        assert fn.launches == before + 2  # the eager calls only
+
+
+def test_windowed_kernels_refuse_an_oversize_window(cuda, monkeypatch):
+    mat = _rcm(random_banded(20000, 90, 11, seed=1))
+    ranked = RankedSlabs.from_csr(mat, tile_k=512).to(cuda)
+    dia = DiaSlabs.from_csr(laplacian_2d(300)).to(cuda)
+    monkeypatch.setattr(hw, "smem_per_block", lambda device=None: 1024)
+    x = torch.zeros(mat.n, device=cuda)
+    before = (spmv_ranked_windowed.launches, spmm_ranked_windowed.launches,
+              spmv_dia_windowed.launches)
+    with pytest.raises(ValueError, match="shared-memory budget"):
+        spmv_ranked_windowed(ranked, x)
+    with pytest.raises(ValueError, match="shared-memory budget"):
+        spmm_ranked_windowed(ranked, torch.zeros(mat.n, 2, device=cuda))
+    with pytest.raises(ValueError, match="shared-memory budget"):
+        spmv_dia_windowed(dia, torch.zeros(dia.n, device=cuda))
+    assert (spmv_ranked_windowed.launches, spmm_ranked_windowed.launches,
+            spmv_dia_windowed.launches) == before
 
 
 def test_wrapper_refuses_bad_operands(cuda):

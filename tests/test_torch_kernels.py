@@ -25,10 +25,12 @@ from tpu_spmv.kernels.pallas_sell import (
 from tpu_spmv.reorder.rcm import rcm
 
 from tpu_spmv_torch.bench.harness import validate
-from tpu_spmv_torch.formats.convert import from_reference, rounded
+from tpu_spmv_torch.formats.convert import from_reference
 from tpu_spmv_torch.formats.sell import RankedSlabs
 from tpu_spmv_torch.kernels.dia import spmv_dia
 from tpu_spmv_torch.kernels.sell import spmv_ranked, spmv_sell
+
+from test_torch_formats import rounded
 
 MATRICES = {
     "lap2d_37": lambda: laplacian_2d(37),

@@ -1,11 +1,13 @@
-"""The port never imports JAX.
+"""The port never imports JAX, nor anything of the JAX package.
 
 tests/conftest.py imports JAX into every test process, so the check runs
 in a fresh interpreter: it imports every tpu_spmv_torch module (and
-chip_smoke), runs the CLIs on the CPU (SpMV auto and packed, SpMM, the
+chip_smoke), runs the CLIs on the CPU (SpMV auto, packed and ranked with
+the residency gate forced, so the windowed route runs; SpMM, the
 triangular solve and IC(0)-PCG) and the planner on a matrix large enough
-to be sampled, and asserts that `jax` was never loaded. A source scan
-backs it up.
+to be sampled, and asserts that neither `jax` nor `tpu_spmv` (the JAX
+package, whose host modules the port carries copies of) was ever
+loaded. A source scan backs it up.
 """
 
 import pathlib
@@ -28,6 +30,12 @@ for argv in (["synthetic:banded_1k"], ["synthetic:banded_1k", "--kernel",
                                        "packed"]):
     rc = spmv.main([*argv, "--device", "cpu", "--validate-only"])
     assert rc == 0, rc
+from tpu_spmv_torch import hw
+l2, hw.H100_L2_BYTES = hw.H100_L2_BYTES, 0  # x past the residency gate
+rc = spmv.main(["synthetic:banded_1k", "--kernel", "ranked", "--device",
+                "cpu", "--validate-only"])
+assert rc == 0, rc
+hw.H100_L2_BYTES = l2
 rc = spmm.main(["synthetic:banded_1k", "--batch", "3", "--device", "cpu",
                 "--validate-only"])
 assert rc == 0, rc
@@ -38,7 +46,8 @@ rc = solve.main(["synthetic:banded_1k", "--iters", "25", "--precond", "ic0",
 assert rc == 0, rc
 from tpu_spmv_torch.tune.plan import gpu_plan
 gpu_plan(spmv.load_input("synthetic:banded_100k"))  # samples 256 chunks
-loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax",
+                                                              "tpu_spmv"))
 assert not loaded, loaded
 print("modules", len(names))
 """
@@ -56,6 +65,17 @@ def test_port_imports_no_jax():
 
 def test_port_sources_have_no_jax_import():
     pattern = re.compile(r"^\s*(import jax|from jax)\b", re.M)
+    files = [*(REPO / "tpu_spmv_torch").rglob("*.py"), REPO / "chip_smoke.py",
+             REPO / "tests" / "test_torch_gpu.py"]
+    offenders = [str(p) for p in files if pattern.search(p.read_text())]
+    assert not offenders
+
+
+def test_port_sources_import_nothing_of_the_jax_package():
+    """`tpu_spmv` is the JAX package. The pattern does not match the
+    port's own `tpu_spmv_torch`: `_` is a word character, so there is no
+    word boundary after `tpu_spmv` there."""
+    pattern = re.compile(r"^\s*(from|import) tpu_spmv\b", re.M)
     files = [*(REPO / "tpu_spmv_torch").rglob("*.py"), REPO / "chip_smoke.py",
              REPO / "tests" / "test_torch_gpu.py"]
     offenders = [str(p) for p in files if pattern.search(p.read_text())]

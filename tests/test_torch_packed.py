@@ -25,11 +25,11 @@ from tpu_spmv.reorder.rcm import rcm
 
 from tpu_spmv_torch.bench.harness import validate
 from tpu_spmv_torch.formats import packed as tpacked
-from tpu_spmv_torch.formats.convert import from_reference, rounded
+from tpu_spmv_torch.formats.convert import from_reference
 from tpu_spmv_torch.kernels.packed import spmv_packed
 from tpu_spmv_torch.tools import spmv as cli
 
-from test_torch_formats import assert_same_layout
+from test_torch_formats import assert_same_layout, rounded
 
 MATRICES = {
     "lap2d_37": lambda: laplacian_2d(37),

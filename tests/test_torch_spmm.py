@@ -70,7 +70,7 @@ def test_spmm_matches_pallas(name, kernel, B):
 def test_spmm_grouped_and_bf16_layouts_match_oracle():
     """Grouped and ungrouped, f32 and bf16 layouts of both kernels give
     the same columns (bf16 against the bf16-rounded operator)."""
-    from tpu_spmv_torch.formats.convert import rounded
+    from test_torch_formats import rounded
 
     mat = random_banded(1100, 70, 9)
     mat = mat.permuted(rcm(mat.indptr, mat.indices))
@@ -114,8 +114,19 @@ def test_cli_follows_the_plan(monkeypatch, capsys):
     assert "auto kernel: resident (ranked" in capsys.readouterr().out
 
 
+@pytest.mark.parametrize("spec", ["lap2d_32", "banded_1k"])
+def test_cli_windowed_validates(spec, capsys):
+    """--kernel windowed runs spmm_ranked_windowed (its plain version
+    here) whatever the gate says."""
+    rc = cli.main([f"synthetic:{spec}", "--batch", "5", "--kernel",
+                   "windowed", *CPU])
+    out = capsys.readouterr().out
+    assert rc == 0, out
+    assert "windowed SpMM: tile" in out and "auto kernel" not in out
+    assert "Number Wrong: 0 " in out
+
+
 @pytest.mark.parametrize("args,item", [
-    (["--kernel", "windowed"], "A8"),
     (["--devices", "2"], "A13"),
     (["--devices", "0"], "A13"),
     (["--overlap"], "A13"),

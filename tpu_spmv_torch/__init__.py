@@ -2,11 +2,10 @@
 H100 (Hopper, sm_90a).
 
 The JAX package `tpu_spmv` stays the reference: each part of the port is
-tested against it on the same inputs. The port imports torch and never
-jax. Host code that touches no device is reused from `tpu_spmv` as it is
-(CSRMatrix and CSRkMatrix, io, RCM with its C++ core, the synthetic
-matrices); everything that builds a device layout, runs a kernel or
-times one is the port's own.
+tested against it on the same inputs. The port imports torch, never jax
+and nothing of `tpu_spmv`: it carries its own copies of the host code
+that touches no device (CSRMatrix and CSRkMatrix, io, RCM with its C++
+core, the synthetic matrices), held equal to the originals by tests.
 
 Layer map (SpMV, y = A @ x; SpMM, Y = A @ X; the triangular solve
 L x = b and IC(0)-PCG):
@@ -18,15 +17,21 @@ L x = b and IC(0)-PCG):
               IC(0) factor, preconditioner and PCG
     tune/     gpu_plan: DIA for constant-diagonal matrices, else packed or
               ranked by sub-tile count and a measured time ratio
-    formats/  DiaSlabs, SellSlabs, RankedSlabs, PackedRanked as torch
-              containers, built on the host with NumPy; convert carries
-              JAX layouts across
+    formats/  CSRMatrix, CSRkMatrix; DiaSlabs, SellSlabs, RankedSlabs,
+              PackedRanked as torch containers, built on the host with
+              NumPy; convert carries JAX layouts across
+    reorder/  RCM, coarsening, permutation composition, and the C++ host
+              core (reorder/csrc/reorder.cc, built with g++ on first use)
+    io/       MatrixMarket and .csr/.csr2/.csr3 text formats
     kernels/  CUDA C++ kernels (csrc/*.cu, built with nvcc into one
               ctypes-bound library) with a plain PyTorch version beside
               each: spmv_dia, spmv_ranked, spmv_sell, spmv_packed,
-              spmm_ranked, spmm_packed, lower_solve_ranked and
-              lower_solve_blocks
-    bench/    CUDA-event timing (warm and cold regimes) and validation
+              spmm_ranked, spmm_packed, lower_solve_ranked,
+              lower_solve_blocks, and the windowed spmv_dia_windowed,
+              spmv_ranked_windowed and spmm_ranked_windowed; the x
+              residency gates that choose between resident and windowed
+    bench/    CUDA-event timing (warm and cold regimes), validation and
+              the synthetic matrices
     hw        DeviceSpec of the card, nvidia-smi, the toolchain report
 """
 

@@ -1,12 +1,13 @@
-"""Layouts carried across from the JAX package, and bf16 rounding.
+"""Layouts carried across from the JAX package.
 
 `from_reference` turns a `tpu_spmv` layout (DiaSlabs, SellSlabs,
 RankedSlabs or PackedRanked, whose arrays np.asarray can read) into the
 port's container, so a layout built once can be run through both
 packages' kernels. It reads the arrays through NumPy and never imports
 JAX. The port's derived fields come from the reference's arrays alone:
-chunk_ptr from sub_chunk, and PackedRanked's chunk_koff from out_row
-and bmeta.
+chunk_ptr from sub_chunk, RankedSlabs' win_b0/win_span from the bases
+and sub_chunk (formats/sell.real_windows), and PackedRanked's
+chunk_koff from out_row and bmeta.
 
 Two encodings need care: numpy has no bf16 of its own and
 torch.from_numpy rejects ml_dtypes' bfloat16, so bf16 crosses as its
@@ -19,11 +20,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tpu_spmv.formats.csr import CSRMatrix
 from tpu_spmv_torch.formats.dia import DiaSlabs
 from tpu_spmv_torch.formats.packed import PackedRanked, chunk_koff_from_segments
 from tpu_spmv_torch.formats.sell import (
-    RankedSlabs, SellSlabs, _chunk_ptr, to_tensor,
+    RankedSlabs, SellSlabs, _chunk_ptr, real_windows, to_tensor,
 )
 
 
@@ -71,6 +71,10 @@ def from_reference(layout):
             chunk_q=layout.chunk_q,
         )
     if kind == "RankedSlabs":
+        win_b0, win_span = real_windows(
+            layout.sub_b0, layout.sub_dlo, layout.sub_dhi, sub_chunk,
+            layout.num_chunks, layout.tile_k, layout.rank_nb,
+        )
         return RankedSlabs(
             vals=to_tensor(layout.vals),
             lcols=to_tensor(layout.lcols),
@@ -81,17 +85,12 @@ def from_reference(layout):
             tile_b0=to_tensor(layout.tile_b0),
             grp_b0=to_tensor(layout.grp_b0),
             chunk_ptr=chunk_ptr,
+            win_b0=torch.from_numpy(win_b0),
             m=layout.m, n=layout.n, nnz=layout.nnz,
             num_chunks=layout.num_chunks, rank_nb=layout.rank_nb,
             chunk_q=layout.chunk_q, win_w=layout.win_w,
             tile_k=layout.tile_k, group_code=layout.group_code,
+            win_span=win_span,
         )
     raise TypeError(f"no port container for a {kind}")
 
-
-def rounded(mat: CSRMatrix, dtype=torch.bfloat16) -> CSRMatrix:
-    """Same pattern with values round-tripped through `dtype`: the exact
-    operator a bf16 layout stores, and so the oracle its runs are
-    validated against (the port's CSRMatrix.rounded, which needs JAX)."""
-    data = torch.from_numpy(mat.data).to(dtype).float().numpy()
-    return CSRMatrix(mat.indptr, mat.indices, data, mat.shape)

@@ -16,7 +16,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from tpu_spmv.formats.csr import CSRMatrix
+from tpu_spmv_torch.formats.csr import CSRMatrix
 from tpu_spmv_torch.formats.sell import LANES, SUBLANES, TensorLayout
 
 # Admission gates: past this many distinct diagonals, or this much fill,

@@ -25,7 +25,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from tpu_spmv.formats.csr import CSRMatrix
+from tpu_spmv_torch.formats.csr import CSRMatrix
 
 LANES = 128
 SUBLANES = 8
@@ -64,7 +64,7 @@ def _aligned_slots(mat: CSRMatrix, gap: int = LANES, cap_factor: float = 2.0):
     """Cluster-aligned slot assignment per 128-row chunk (see
     tpu_spmv.formats.sell._aligned_slots for the design). Returns
     (slots, kc): per-nonzero slot index and per-chunk slab height."""
-    from tpu_spmv.reorder import native
+    from tpu_spmv_torch.reorder import native
 
     if native.available():
         return native.aligned_slots(
@@ -179,7 +179,7 @@ def _binned_slots(mat: CSRMatrix, bin_blocks: int):
     if nnz == 0:
         return np.zeros(0, np.int64), np.ones(num_chunks, np.int64)
 
-    from tpu_spmv.reorder import native
+    from tpu_spmv_torch.reorder import native
 
     if native.available():
         return native.binned_slots(mat.indptr, mat.indices, bin_blocks)
@@ -301,6 +301,37 @@ def group_windows(sub_base, hi_units, rank_nb0: int):
             gb[:, r] = gmin
             group_code |= gi << (4 * r)
     return gb, gmat.T.reshape(-1).astype(np.int32), group_code
+
+
+def real_windows(sub_b0, sub_dlo, sub_dhi, sub_chunk, num_chunks: int,
+                 tile_k: int, rank_nb: int):
+    """(win_b0, win_span): the x window of each tile of tile_k sublanes
+    over its real sub-tiles only, for the port's windowed kernels.
+
+    The reference's tile_b0/win_w also span the all-pad sub-tiles
+    (sub_chunk == num_chunks: the tail that rounds total_k up), whose
+    bases are 0, so the last tile's window can reach from block 0 to the
+    end of x (n / 128 blocks on lap2d_4096, far past shared memory).
+    No chunk reduces those sub-tiles, so the windows leave them out: the
+    kernels read 0 for a slot outside its tile's window. win_span is the
+    widest tile's span plus the paired-read blocks, rounded up to 8, as
+    win_w is."""
+    sub_b0 = np.asarray(sub_b0).astype(np.int64)
+    shifts = np.arange(0, 32, 8, dtype=np.uint32)
+    lo = (np.asarray(sub_dlo).view(np.uint32)[:, None] >> shifts) & 255
+    hi = (np.asarray(sub_dhi).view(np.uint32)[:, None] >> shifts) & 255
+    bases = sub_b0[:, None] + np.concatenate([lo, hi], 1).astype(np.int64)
+    real = np.asarray(sub_chunk) < num_chunks
+    spt = tile_k // SUBLANES
+    T = bases.shape[0] // spt if spt else 0
+    big = np.iinfo(np.int64).max
+    tile_lo = np.where(real[:, None], bases, big).reshape(T, -1).min(1)
+    tile_hi = np.where(real[:, None], bases, -1).reshape(T, -1).max(1)
+    empty = tile_hi < 0
+    tile_lo[empty], tile_hi[empty] = 0, 0
+    reads_nb = 2 * max((rank_nb + 1) // 2, 1)
+    span = int((tile_hi - tile_lo).max()) + reads_nb if T else 2
+    return tile_lo.astype(np.int32), _round_up(max(span, SUBLANES), SUBLANES)
 
 
 def to_tensor(a, dtype=None) -> torch.Tensor:
@@ -453,7 +484,7 @@ class SellSlabs(TensorLayout):
         vals = np.zeros((total_k, LANES), dtype=np.float32)
         cols = np.full((total_k, LANES), -1, dtype=np.int32)
 
-        from tpu_spmv.reorder import native
+        from tpu_spmv_torch.reorder import native
 
         if not align and not bin_blocks and native.available():
             dest_k, dest_l = native.sell_targets(mat.indptr, koff, LANES)
@@ -516,6 +547,7 @@ class RankedSlabs(TensorLayout):
     tile_b0: torch.Tensor  # (T,) int32 (windowed variant's metadata)
     grp_b0: torch.Tensor  # (S*G,) int32, empty when ungrouped
     chunk_ptr: torch.Tensor  # (num_chunks+1,) int32
+    win_b0: torch.Tensor  # (T,) int32, real_windows: the port's windows
     m: int
     n: int
     nnz: int
@@ -525,6 +557,7 @@ class RankedSlabs(TensorLayout):
     win_w: int = 0
     tile_k: int = 2048
     group_code: int = 0
+    win_span: int = 0  # real_windows: blocks per window of the port's kernels
 
     @property
     def groups(self) -> tuple:
@@ -655,6 +688,10 @@ class RankedSlabs(TensorLayout):
             int((base_t.max(axis=1) - tile_b0).max()) + reads_nb if T else 2
         )
         win_w = _round_up(max(win_w, SUBLANES), SUBLANES)
+        win_b0, win_span = real_windows(
+            sub_b0, sub_dlo, sub_dhi, host["sub_chunk"], host["num_chunks"],
+            tile_eff, rank_nb,
+        )
 
         return cls(
             vals=to_tensor(vals, val_dtype or torch.float32),
@@ -668,6 +705,7 @@ class RankedSlabs(TensorLayout):
             chunk_ptr=to_tensor(
                 _chunk_ptr(host["sub_chunk"], host["num_chunks"])
             ),
+            win_b0=to_tensor(win_b0),
             m=host["m"],
             n=host["n"],
             nnz=mat.nnz,
@@ -677,4 +715,5 @@ class RankedSlabs(TensorLayout):
             win_w=win_w,
             tile_k=tile_eff,
             group_code=group_code,
+            win_span=win_span,
         )

@@ -21,6 +21,16 @@ import torch
 # card set lower (nvidia-smi's power.limit) streams slower under load.
 _HBM_BYTES_PER_S = {"H100": 3.35e12, "H200": 4.8e12}
 
+# The H100's L2 cache (50 MB, as torch.cuda.get_device_properties reports
+# it): what the x-residency gates (kernels/dia.dia_x_fits,
+# kernels/sell.resident_x_fits) charge against when no card is at hand,
+# e.g. a `--device cpu` run of the CLIs.
+H100_L2_BYTES = 50 * 2**20
+# Shared memory one block of threads can opt into on an H100 (227 KB):
+# what the windowed kernels' x windows are held to (kernels/dia.py,
+# kernels/sell.py) when no card is at hand.
+H100_SMEM_PER_BLOCK = 232_448
+
 
 @dataclasses.dataclass(frozen=True)
 class DeviceSpec:
@@ -59,6 +69,28 @@ def device_spec(device=None) -> DeviceSpec:
         hbm_bytes_per_s=hbm_bytes_per_s(p.name),
         capability=(p.major, p.minor),
     )
+
+
+def _on_card(device) -> bool:
+    """Whether `device` (None: the current card) names a present card."""
+    if device is not None and torch.device(device).type != "cuda":
+        return False
+    return torch.cuda.is_available()
+
+
+def l2_bytes(device=None) -> int:
+    """L2 bytes of the CUDA card `device` (a CUDA device, or None for the
+    current card when one is present); H100_L2_BYTES for a CPU device or
+    when no card is present."""
+    return device_spec(device).l2_bytes if _on_card(device) else H100_L2_BYTES
+
+
+def smem_per_block(device=None) -> int:
+    """Shared memory a block can opt into on `device`, as l2_bytes
+    resolves it; H100_SMEM_PER_BLOCK without a card."""
+    if not _on_card(device):
+        return H100_SMEM_PER_BLOCK
+    return device_spec(device).smem_per_block
 
 
 def nvidia_smi() -> str:

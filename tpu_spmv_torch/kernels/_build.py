@@ -1,10 +1,14 @@
 """Builds the port's CUDA kernels and binds them through ctypes.
 
 Every `.cu` file under `csrc/` (with the headers it includes from
-there) is compiled by `nvcc` into one shared library with a plain C interface, for Hopper only:
+there) is compiled by its own `nvcc`, all of them started together, and
+the objects are linked into one shared library with a plain C
+interface, for Hopper only:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o _build/libtpu_spmv_torch_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
+         -Xcompiler -fPIC -c -o _build/<name>.o csrc/<name>.cu   (each)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \\
+         -o _build/libtpu_spmv_torch_kernels.so _build/*.o
 
 The library is built on first use, and again whenever a source is newer
 than it, into `_build/` beside this file (listed in .gitignore). No
@@ -29,10 +33,8 @@ import torch
 CSRC_DIR = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
 LIB_PATH = BUILD_DIR / "libtpu_spmv_torch_kernels.so"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
-)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -72,6 +74,18 @@ _SIGNATURES = {
     "tsp_lower_solve_ranked": (
         _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _LL, _P,
     ),
+    # val_kind, vals, offs, D, rb, off_min, span, rows_per_cta, x, y, m,
+    # n, smem, stream
+    "tsp_spmv_dia_windowed": (
+        _I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _LL, _LL, _I, _P,
+    ),
+    # val_kind, lcol_kind, vals, lcols, sub_b0, sub_dlo, sub_dhi, win_b0,
+    # num_tiles, subs_per_tile, win_span, chunk_ptr, X, part, Y, m, n, B,
+    # smem, stream
+    "tsp_ranked_windowed": (
+        _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _LL, _LL,
+        _I, _I, _P,
+    ),
 }
 
 _lib = None
@@ -110,31 +124,51 @@ def _stale() -> bool:
 
 
 def build(verbose: bool = False, force: bool = False) -> BuildInfo:
-    """Compile csrc/*.cu into LIB_PATH unless it is up to date.
+    """Compile csrc/*.cu into LIB_PATH unless it is up to date: one nvcc
+    per source, run in parallel, then one link.
 
     verbose passes -Xptxas -v, whose per-kernel register, shared-memory
     and spill report comes back in BuildInfo.log. Raises RuntimeError
-    with nvcc's output when the build fails.
+    with nvcc's output when a compile or the link fails.
     """
     if not force and not _stale():
         return BuildInfo(LIB_PATH, 0.0, "")
     BUILD_DIR.mkdir(exist_ok=True)
-    tmp = BUILD_DIR / f"{LIB_PATH.name}.{os.getpid()}.tmp"
-    cmd = [nvcc(), *NVCC_FLAGS]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", str(tmp), *(str(s) for s in sources())]
+    tag = os.getpid()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed with code {proc.returncode}:\n{' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, LIB_PATH)  # atomic: a reader never sees half a file
-    return BuildInfo(LIB_PATH, seconds, proc.stderr)
+    jobs = []
+    for src in sources():
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        cmd = [nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
+               "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        )))
+    log, failed = [], []
+    for cmd, obj, proc in jobs:
+        out, err = proc.communicate()
+        log.append(err)
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{out}{err}")
+    objs = [obj for _, obj, _ in jobs]
+    try:
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        tmp = BUILD_DIR / f"{LIB_PATH.name}.{tag}.tmp"
+        cmd = [nvcc(), *ARCH_FLAGS, "-shared", "-o", str(tmp),
+               *(str(o) for o in objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(
+                f"nvcc link failed with code {proc.returncode}:\n"
+                f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+            )
+        os.replace(tmp, LIB_PATH)  # atomic: a reader never sees half a file
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    return BuildInfo(LIB_PATH, time.perf_counter() - t0, "".join(log))
 
 
 def library() -> ctypes.CDLL:

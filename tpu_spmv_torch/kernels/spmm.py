@@ -1,12 +1,17 @@
 """Multi-vector SpMV (SpMM, Y = A @ X): the CUDA kernels of csrc/spmm.cu
-and their plain PyTorch versions.
+and csrc/windowed.cu and their plain PyTorch versions.
 
 Counterpart of `tpu_spmv/kernels/spmm.py`:
 
-  spmm_ranked  replaces spmm_ranked (RankedSlabs) and its per-column
-               segment-sum of partials;
-  spmm_packed  replaces spmm_packed (PackedRanked, delta and grouped
-               bases) and its out_row gather.
+  spmm_ranked           replaces spmm_ranked (RankedSlabs) and its
+                        per-column segment-sum of partials;
+  spmm_ranked_windowed  replaces spmm_ranked_windowed, the route for an X
+                        past `resident_x_fits(layout, batch=B)`: the
+                        tile's rows of X staged in shared memory (the
+                        CLI picks the tile and the column chunks B' so
+                        the window fits), partials reduced per column;
+  spmm_packed           replaces spmm_packed (PackedRanked, delta and
+                        grouped bases) and its out_row gather.
 
 X is (n, B) float32, row-major, any B >= 1; Y is (m, B) float32. On a
 CPU tensor each runs its plain version (the single-vector plain
@@ -23,13 +28,21 @@ from tpu_spmv_torch.formats.sell import RankedSlabs
 from tpu_spmv_torch.kernels import _build
 from tpu_spmv_torch.kernels.packed import check_packed, spmv_packed_reference
 from tpu_spmv_torch.kernels.sell import (
-    _LCOL_KIND, _VAL_KIND, _check_slabs, spmv_ranked_reference,
+    _LCOL_KIND, _VAL_KIND, _check_slabs, launch_ranked_windowed,
+    spmv_ranked_reference, spmv_ranked_windowed_reference,
 )
 
 
 def spmm_ranked_reference(layout: RankedSlabs, X: torch.Tensor) -> torch.Tensor:
     """Plain version: spmv_ranked_reference over the B columns at once."""
     return spmv_ranked_reference(layout, X)
+
+
+def spmm_ranked_windowed_reference(layout: RankedSlabs,
+                                   X: torch.Tensor) -> torch.Tensor:
+    """Plain version: spmv_ranked_windowed_reference over the B columns
+    at once."""
+    return spmv_ranked_windowed_reference(layout, X)
 
 
 def spmm_packed_reference(layout: PackedRanked, X: torch.Tensor) -> torch.Tensor:
@@ -72,6 +85,18 @@ def spmm_ranked(layout: RankedSlabs, X: torch.Tensor) -> torch.Tensor:
     return Y
 
 
+def spmm_ranked_windowed(layout: RankedSlabs, X: torch.Tensor) -> torch.Tensor:
+    """Y = A @ X with the tile's rows of X (win_span blocks of 128, B
+    columns) staged in shared memory per layout tile; same results as
+    spmm_ranked. Raises ValueError when that window exceeds the card's
+    shared memory (kernels/sell.check_window)."""
+    if X.device.type == "cpu":
+        return spmm_ranked_windowed_reference(layout, X)
+    Y = launch_ranked_windowed(layout, X, "spmm_ranked_windowed")
+    spmm_ranked_windowed.launches += 1
+    return Y
+
+
 def spmm_packed(layout: PackedRanked, X: torch.Tensor) -> torch.Tensor:
     """Y = A @ X with A in packed mixed-height layout (grouped or not)."""
     if X.device.type == "cpu":
@@ -96,4 +121,5 @@ def spmm_packed(layout: PackedRanked, X: torch.Tensor) -> torch.Tensor:
 
 
 spmm_ranked.launches = 0
+spmm_ranked_windowed.launches = 0
 spmm_packed.launches = 0

@@ -3,9 +3,9 @@
 A line-for-line copy of `tpu_spmv/sts/host.py`: importing that module
 runs `tpu_spmv/sts/__init__.py`, which loads the JAX solve module, so
 the port carries its own. tests/test_torch_sts.py holds every schedule
-and system it builds array-equal to the reference's. It reuses
-`tpu_spmv.reorder.native` (level schedule, greedy colour) and
-`tpu_spmv.formats.csrk`, neither of which loads JAX.
+and system it builds array-equal to the reference's. It uses the port's
+copies of `tpu_spmv.reorder.native` (level schedule, greedy colour)
+and `tpu_spmv.formats.csrk`.
 
 Reproduces the semantics of the reference's STS pipeline
 (preprocessingForSTS spmv-csrk/csrk.cpp:1522-1966) with vectorized NumPy
@@ -43,7 +43,7 @@ import dataclasses
 
 import numpy as np
 
-from tpu_spmv.formats.csr import CSRMatrix
+from tpu_spmv_torch.formats.csr import CSRMatrix
 
 
 def split_lu(mat: CSRMatrix) -> tuple[CSRMatrix, CSRMatrix]:
@@ -108,7 +108,7 @@ def find_levels(indptr: np.ndarray, indices: np.ndarray) -> np.ndarray:
     unfixed rows (total work O(nnz * depth / average wavefront) but each
     pass is fully vectorized).
     """
-    from tpu_spmv.reorder import native
+    from tpu_spmv_torch.reorder import native
 
     if native.available():
         return native.level_schedule(indptr, indices)
@@ -171,7 +171,7 @@ def greedy_color(indptr: np.ndarray, indices: np.ndarray) -> np.ndarray:
     already-colored neighbors. Serial by nature; the native C++ core is
     used when available (tpu_spmv/cpp/reorder.cc).
     """
-    from tpu_spmv.reorder import native
+    from tpu_spmv_torch.reorder import native
 
     if native.available() and hasattr(native, "greedy_color"):
         return native.greedy_color(indptr, indices)
@@ -293,7 +293,7 @@ def build_sts(
             labels = find_levels(mat.indptr, mat.indices)
         perm, pack_ptr = _packs_from_labels(labels, sort_packs)
     elif k >= 3:
-        from tpu_spmv.formats.csrk import CSRkMatrix
+        from tpu_spmv_torch.formats.csrk import CSRkMatrix
 
         # Coarsen k-2 times with RCM at each level (the reference runs
         # BAND_k(k-1) so its innermost loop count matches ours).

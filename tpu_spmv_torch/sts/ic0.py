@@ -8,8 +8,8 @@ sts/host.reversed_for_upper), both through `lower_solve`. Both systems
 use level order with sort_packs=False, which keeps a triangular input's
 structure (the two `raise`s below guard it).
 
-The factorization is the reference's native routine
-(`tpu_spmv.reorder.native.ic0`), or a copy of its NumPy twin when the
+The factorization is the reference's native routine (the port's copy,
+`tpu_spmv_torch.reorder.native.ic0`), or a copy of its NumPy twin when the
 native core is missing; the factor is bit-equal either way.
 
 `pcg_ic0_step` is the reference's jitted loop body: one `spmv_ranked`,
@@ -27,7 +27,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from tpu_spmv.formats.csr import CSRMatrix
+from tpu_spmv_torch.formats.csr import CSRMatrix
 from tpu_spmv_torch.formats.sell import TensorLayout
 from tpu_spmv_torch.sts.host import build_sts, reversed_for_upper, split_lu
 from tpu_spmv_torch.sts.solve import LowerSolveLayout, lower_solve
@@ -76,7 +76,7 @@ def ic0_factor(mat: CSRMatrix) -> tuple[CSRMatrix, int]:
     positive-definite matrix, on the lower pattern of `mat`. Returns
     (L, breakdown count: 0 for diagonally dominant SPD inputs)."""
     lower, _ = split_lu(mat)
-    from tpu_spmv.reorder import native
+    from tpu_spmv_torch.reorder import native
 
     if native.available():
         vals, bad = native.ic0(lower.indptr, lower.indices, lower.data)

@@ -28,7 +28,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from tpu_spmv.formats.csr import CSRMatrix
+from tpu_spmv_torch.formats.csr import CSRMatrix
 from tpu_spmv_torch.formats.sell import (
     LANES, RankedSlabs, SellSlabs, TensorLayout, to_tensor,
 )

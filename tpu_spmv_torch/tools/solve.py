@@ -29,7 +29,7 @@ import time
 import numpy as np
 import torch
 
-from tpu_spmv.tools.spmv import load_input
+from tpu_spmv_torch.tools.spmv import load_input
 
 REFUSED = "A13 (distributed layer)"
 
@@ -86,7 +86,7 @@ def main(argv=None):
         raise SystemExit("CG needs a square (SPD) matrix")
     if args.rcm != "never":
         if args.rcm == "always" or gpu_plan(mat).needs_rcm:
-            from tpu_spmv.reorder import rcm as rcm_fn
+            from tpu_spmv_torch.reorder import rcm as rcm_fn
 
             mat = mat.permuted(rcm_fn(mat.indptr, mat.indices))
             print("RCM applied")

@@ -8,10 +8,19 @@ oracle, time it (`TimeMin/TimeMax/TimeAvg`, `vals/s ... (% of
 roofline) B=`, `Number Wrong:`, `RelL2:`). `--device cpu` runs the plain
 PyTorch versions and is accepted only with `--validate-only`.
 
+auto takes packed when the planner picks it and X (n x B floats) passes
+the L2 residency gate, else the ranked layout, resident or windowed by
+the same gate; `--kernel windowed` forces the windowed kernel (e.g.
+`synthetic:lap2d_1024 --batch 8`, X 33.5 MB, is windowed under auto).
+The windowed route rebuilds the layout at a smaller tile and then
+splits B into column passes until the per-tile window fits shared
+memory.
+
 Usage:
   python -m tpu_spmv_torch.tools.spmm matrix.mtx|synthetic:NAME [num_runs]
-      [--batch B] [--kernel auto|resident] [--rcm auto|always|never]
-      [--val-dtype f32|bf16] [--tol T] [--validate-only]
+      [--batch B] [--kernel auto|resident|windowed]
+      [--rcm auto|always|never] [--val-dtype f32|bf16] [--tol T]
+      [--validate-only]
 """
 
 from __future__ import annotations
@@ -22,48 +31,90 @@ import sys
 import numpy as np
 import torch
 
-from tpu_spmv.tools.spmv import load_input
+from tpu_spmv_torch.tools.spmv import fit_window, load_input, x_budget
 
 # Options of the JAX CLI that the port does not run yet, and the
 # ROADMAP.md queue-A item that ports each.
-REFUSED_WINDOWED = "A8 (HBM-windowed variants)"
 REFUSED_DISTRIBUTED = "A13 (distributed layer)"
 
 
-def build_spmm(mat, kernel: str, val_dtype=None):
-    """(layout, spmm function). auto takes packed when the
-    planner picks it and the build succeeds, else ranked; resident is
-    always ranked. A ranked build that fails ends the run: SpMM has no
-    sell kernel."""
+def build_spmm(mat, kernel: str, B: int, val_dtype=None, device="cpu"):
+    """(layout on `device`, spmm function, passes over the slabs), as
+    tpu_spmv/tools/spmm.py:85-192 chooses them. auto takes packed when
+    the planner picks it, the build succeeds and X passes the residency
+    gate (resident_x_fits at batch=B); otherwise the ranked layout, with
+    spmm_ranked when X passes the gate (or under resident) and
+    spmm_ranked_windowed past it (or under windowed). The windowed route
+    fits the window to shared memory (tools/spmv.fit_window) and runs
+    B/B' column passes when B' < B. A ranked build that fails ends the
+    run: SpMM has no sell kernel."""
     from tpu_spmv_torch.formats.packed import PackedRanked
     from tpu_spmv_torch.formats.sell import RankedSlabs
-    from tpu_spmv_torch.kernels.spmm import spmm_packed, spmm_ranked
+    from tpu_spmv_torch.kernels.sell import resident_x_fits, window_bytes
+    from tpu_spmv_torch.kernels.spmm import (
+        spmm_packed, spmm_ranked, spmm_ranked_windowed,
+    )
     from tpu_spmv_torch.tune.plan import gpu_plan
 
+    device = torch.device(device)
     plan = gpu_plan(mat, assume_rcm=True)
     if kernel == "auto" and plan.kernel == "packed":
         try:
             layout = PackedRanked.from_csr(
                 mat, bin_blocks=plan.bin_blocks, val_dtype=val_dtype
-            )
-            print(f"auto kernel: packed (plan; fill "
-                  f"{layout.padding_ratio:.2f}, {plan.reason})")
-            return layout, spmm_packed
+            ).to(device)
         except ValueError as e:
             print(f"packed layout unavailable ({e}); falling back to ranked")
+        else:
+            if resident_x_fits(layout, batch=B):
+                print(f"auto kernel: packed (plan; fill "
+                      f"{layout.padding_ratio:.2f}, {plan.reason}; "
+                      f"{x_budget(mat.n, device, B)})")
+                return layout, spmm_packed, 1
+            print(f"packed layout past the L2 residency budget "
+                  f"({x_budget(mat.n, device, B)}; packed has no windowed "
+                  "variant); taking the ranked layout")
     try:
         layout = RankedSlabs.from_csr(
             mat, bin_blocks=plan.bin_blocks, val_dtype=val_dtype
-        )
+        ).to(device)
     except ValueError as e:
         raise SystemExit(
             f"ranked layout unavailable for this matrix ({e}); "
             "SpMM currently runs on the rank-windowed layout only"
         )
     if kernel == "auto":
-        print(f"auto kernel: resident (ranked; plan {plan.kernel}: "
-              f"{plan.reason})")
-    return layout, spmm_ranked
+        kernel = "resident" if resident_x_fits(layout, batch=B) else "windowed"
+        print(f"auto kernel: {kernel} (ranked; {x_budget(mat.n, device, B)}; "
+              f"plan {plan.kernel}: {plan.reason})")
+    if kernel == "resident":
+        return layout, spmm_ranked, 1
+    try:
+        layout, cols = fit_window(
+            layout, B, device, lambda cap: RankedSlabs.from_csr(
+                mat, bin_blocks=plan.bin_blocks, val_dtype=val_dtype,
+                tile_k=cap,
+            ),
+        )
+    except ValueError as e:
+        raise SystemExit(
+            f"no windowed SpMM path: {e}, even at one column per pass. "
+            "Options: --kernel resident, or B columns of single-vector "
+            "spmv_packed."
+        )
+    print(f"windowed SpMM: tile {layout.tile_k}, window {layout.win_span} blocks"
+          f" x {cols} column(s) = {window_bytes(layout, cols) / 1024:.0f} KB "
+          f"of shared memory, {-(-B // cols)} column pass(es) of B'={cols}")
+    if cols == B:
+        return layout, spmm_ranked_windowed, 1
+
+    def column_passes(lay, X):
+        return torch.cat([
+            spmm_ranked_windowed(lay, X[:, i : i + cols].contiguous())
+            for i in range(0, B, cols)
+        ], dim=1)
+
+    return layout, column_passes, -(-B // cols)
 
 
 def main(argv=None):
@@ -76,8 +127,9 @@ def main(argv=None):
                     help="number of right-hand-side columns B")
     ap.add_argument(
         "--kernel", default="auto", choices=("auto", "resident", "windowed"),
-        help="auto takes packed when the planner picks it, else ranked; "
-        "resident is ranked (windowed is not ported yet: refused)",
+        help="auto takes packed when the planner picks it and X passes the "
+        "L2 residency gate, else ranked, resident or windowed by the gate; "
+        "resident and windowed are ranked",
     )
     ap.add_argument("--rcm", default="auto", choices=("auto", "always", "never"))
     ap.add_argument("--tol", type=float, default=0.01)
@@ -95,11 +147,6 @@ def main(argv=None):
                     "--validate-only")
     args = ap.parse_args(argv)
 
-    if args.kernel == "windowed":
-        raise SystemExit(
-            "--kernel windowed is not ported to the GPU yet (ROADMAP.md "
-            f"item {REFUSED_WINDOWED})"
-        )
     if args.devices != 1 or args.overlap:
         raise SystemExit(
             "--devices other than 1 and --overlap are not ported to the GPU "
@@ -120,28 +167,26 @@ def main(argv=None):
         )
 
     from tpu_spmv_torch.bench.harness import validate
-    from tpu_spmv_torch.formats.convert import rounded
     from tpu_spmv_torch.tune.plan import gpu_plan
 
     mat = load_input(args.input)
     if args.rcm != "never" and mat.m == mat.n:
         if args.rcm == "always" or gpu_plan(mat).needs_rcm:
-            from tpu_spmv.reorder import rcm as rcm_fn
+            from tpu_spmv_torch.reorder import rcm as rcm_fn
 
             mat = mat.permuted(rcm_fn(mat.indptr, mat.indices))
             print("RCM applied")
 
     B = args.batch
     vdt = torch.bfloat16 if args.val_dtype == "bf16" else None
-    layout, fn = build_spmm(mat, args.kernel, vdt)
-    layout = layout.to(device)
+    layout, fn, passes = build_spmm(mat, args.kernel, B, vdt, device)
     X = np.random.default_rng(0).standard_normal((mat.n, B)).astype(np.float32)
     Xt = torch.from_numpy(X).to(device)
     Y = fn(layout, Xt).cpu().numpy()
 
     mat_v = mat
     if layout.vals.dtype == torch.bfloat16:
-        mat_v = rounded(mat)
+        mat_v = mat.rounded()
         print("(bf16 values: validated vs the bf16-rounded operator)")
     # Every column against its own serial oracle: the worst column's
     # RelL2, and the wrong entries summed over the columns.
@@ -162,9 +207,12 @@ def main(argv=None):
     print("warm regime: one operator reused every launch (it may stay "
           f"in the {device_spec().l2_bytes / 2**20:.0f} MB L2)")
     print(res.summary(), end="")
-    roof = roofline_vals(layout.hbm_bytes, mat.nnz, B)
+    # A column-chunked windowed run streams the slabs once per pass, so
+    # they amortize over B/passes columns (tpu_spmv/tools/spmm.py).
+    roof = roofline_vals(layout.hbm_bytes * passes, mat.nnz, B)
     print(f"vals/s: {res.vals_per_s:.4g} "
-          f"({100 * res.vals_per_s / roof:.0f}% of roofline) B={B}")
+          f"({100 * res.vals_per_s / roof:.0f}% of roofline) B={B}"
+          + (f" in {passes} passes" if passes > 1 else ""))
     print(f"Number Wrong: {wrong} ")
     print(f"RelL2: {rel:.3g}")
     return 0 if wrong == 0 else 1

@@ -13,6 +13,9 @@ Usage:
       [sizes ...] [--kernel auto|dia|packed|ranked|sell]
       [--val-dtype f32|bf16]
       [--rcm auto|always|never] [--bin-blocks W] [--cold] [--validate-only]
+
+An x past the L2 residency gate (half the L2, hw.l2_bytes) takes the
+windowed DIA or ranked kernel, e.g. `synthetic:lap2d_4096` (x 67 MB).
 """
 
 from __future__ import annotations
@@ -23,8 +26,27 @@ import sys
 import numpy as np
 import torch
 
-# A file path or `synthetic:<name>` -> CSRMatrix (JAX-free at import).
-from tpu_spmv.tools.spmv import load_input
+
+def load_input(spec: str):
+    """A CSRMatrix from a `synthetic:<name>` spec (bench/matrices.py) or
+    a .csr/.csr2/.csr3/.mtx(.gz) file: tpu_spmv.tools.spmv.load_input
+    with the file branch of tpu_spmv.tools.stats.load."""
+    if spec.startswith("synthetic:"):
+        from tpu_spmv_torch.bench import matrices
+
+        return matrices.make(spec.split(":", 1)[1])
+    from tpu_spmv_torch.io import (
+        read_csr2_text, read_csr3_text, read_csr_text, read_mtx,
+    )
+
+    if spec.endswith(".csr3"):
+        return read_csr3_text(spec)[0]
+    if spec.endswith(".csr2"):
+        return read_csr2_text(spec)[0]
+    if spec.endswith(".mtx") or spec.endswith(".mtx.gz"):
+        return read_mtx(spec)
+    return read_csr_text(spec)
+
 
 # Options of the JAX CLI that the port does not run yet, and the
 # ROADMAP.md queue-A item that ports each.
@@ -47,7 +69,7 @@ def prepare(mat, rcm: str = "auto", k: int = 1, sizes: tuple = ()):
     oracle's y are gathered with (the port has no row-only sort, which
     is what made the JAX CLI keep two).
     """
-    from tpu_spmv.formats.csrk import CSRkMatrix
+    from tpu_spmv_torch.formats.csrk import CSRkMatrix
 
     from tpu_spmv_torch.tune.plan import gpu_plan
 
@@ -55,7 +77,7 @@ def prepare(mat, rcm: str = "auto", k: int = 1, sizes: tuple = ()):
     if rcm != "never" and mat.m == mat.n:
         apply_rcm = rcm == "always" or gpu_plan(mat).needs_rcm
         if apply_rcm:
-            from tpu_spmv.reorder import rcm as rcm_fn
+            from tpu_spmv_torch.reorder import rcm as rcm_fn
 
             pre_perm = rcm_fn(mat.indptr, mat.indices)
             work = mat.permuted(pre_perm)
@@ -64,18 +86,71 @@ def prepare(mat, rcm: str = "auto", k: int = 1, sizes: tuple = ()):
     return ck, (ck.perm if pre_perm is None else pre_perm[ck.perm])
 
 
-def build_layout(matrix, kernel: str, val_dtype=None, bin_blocks: int = 0):
-    """(layout, spmv function, kernel actually used) for kernel in
-    dia/packed/ranked/sell. A packed build that exceeds the packed-delta
-    range falls back to ranked, and a ranked one to sell, each saying
-    so (tpu_spmv/tools/spmv.py's fallbacks)."""
+def x_budget(n: int, device, batch: int = 1) -> str:
+    """What the residency gates weigh, for the CLIs' route messages."""
+    from tpu_spmv_torch import hw
+
+    x_mb = 4 * n * batch / 2**20
+    return (f"{'X' if batch > 1 else 'x'} {x_mb:.1f} MB against half of the "
+            f"{hw.l2_bytes(device) / 2**20:.0f} MB L2")
+
+
+def fit_window(layout, batch: int, device, rebuild):
+    """(layout, B'): the windowed kernels' per-tile window, `batch`
+    columns wide, held to the shared memory of one block
+    (hw.smem_per_block). While it does not fit, the layout is rebuilt by
+    `rebuild(tile_k cap)` at half its tile, down to 512 sublanes; then
+    the columns are split into passes of B' (halved while the window
+    still does not fit). Raises ValueError, naming the sizes, when B' = 1
+    at the smallest tile cannot fit (tpu_spmv/tools/spmm.py:133-176's
+    steps, against shared memory in place of the VMEM scratch)."""
+    from tpu_spmv_torch import hw
+    from tpu_spmv_torch.kernels.sell import window_bytes
+
+    budget = hw.smem_per_block(device)
+    while window_bytes(layout, batch) > budget and layout.tile_k > 512:
+        cap = layout.tile_k // 2
+        print(f"rebuilding layout at tile {cap}: window {layout.win_span} blocks"
+              f" x {batch} column(s) = {window_bytes(layout, batch) / 1024:.0f}"
+              f" KB > {budget / 1024:.0f} KB of shared memory")
+        layout = rebuild(cap).to(device)
+    cols = batch
+    while cols > 1 and window_bytes(layout, cols) > budget:
+        cols = (cols + 1) // 2
+    if window_bytes(layout, cols) > budget:
+        raise ValueError(
+            f"the per-tile x window is {layout.win_span} blocks "
+            f"({window_bytes(layout) / 1024:.0f} KB at one column, tile "
+            f"{layout.tile_k}), beyond the {budget / 1024:.0f} KB "
+            "shared-memory budget"
+        )
+    return layout, cols
+
+
+def build_layout(matrix, kernel: str, val_dtype=None, bin_blocks: int = 0,
+                 device="cpu"):
+    """(layout on `device`, spmv function, kernel actually used) for
+    kernel in dia/packed/ranked/sell, routed as tpu_spmv/tools/spmv.py
+    routes them: a packed build that exceeds the packed-delta range
+    falls back to ranked, and a ranked one to sell, each saying so; past
+    the x residency gate (kernels/dia.dia_x_fits, kernels/sell.
+    resident_x_fits) dia and ranked take their windowed kernels, a
+    column-binned ranked layout is refused (its route, the striped
+    kernel, is not ported), and sell warns."""
+    from tpu_spmv_torch import hw
     from tpu_spmv_torch.formats.dia import DiaSlabs
     from tpu_spmv_torch.formats.packed import PackedRanked
     from tpu_spmv_torch.formats.sell import RankedSlabs, SellSlabs
-    from tpu_spmv_torch.kernels.dia import spmv_dia
+    from tpu_spmv_torch.kernels.dia import (
+        dia_window_rows, dia_x_fits, spmv_dia, spmv_dia_windowed,
+    )
     from tpu_spmv_torch.kernels.packed import spmv_packed
-    from tpu_spmv_torch.kernels.sell import spmv_ranked, spmv_sell
+    from tpu_spmv_torch.kernels.sell import (
+        resident_x_fits, spmv_ranked, spmv_ranked_windowed, spmv_sell,
+        window_bytes,
+    )
 
+    device = torch.device(device)
     if kernel == "packed":
         try:
             layout = PackedRanked.from_csr(
@@ -84,26 +159,67 @@ def build_layout(matrix, kernel: str, val_dtype=None, bin_blocks: int = 0):
             print(f"packed mixed-height slabs: pad "
                   f"{layout.padding_ratio:.2f}x, rank {layout.rank_nb}"
                   + (f", W={bin_blocks} bins" if bin_blocks > 0 else ""))
-            return layout, spmv_packed, "packed"
+            return layout.to(device), spmv_packed, "packed"
         except ValueError as e:
             print(f"packed layout unavailable ({e}); falling back to ranked")
             kernel = "ranked"
     if kernel == "dia":
-        layout = DiaSlabs.from_csr(matrix, val_dtype=val_dtype)
+        layout = DiaSlabs.from_csr(matrix, val_dtype=val_dtype).to(device)
         print(f"DIA: {layout.num_diagonals} diagonals, "
               f"fill {layout.padding_ratio:.2f}x")
-        return layout, spmv_dia, "dia"
+        if dia_x_fits(layout):
+            return layout, spmv_dia, "dia"
+        rows = dia_window_rows(layout, hw.smem_per_block(device))
+        span = max(layout.offsets) - min(layout.offsets)
+        print(f"x exceeds the L2 residency budget ({x_budget(matrix.n, device)}"
+              f"); using the HBM-windowed DIA kernel: {rows} rows per block, "
+              f"halo {span} of a {rows + span}-entry window "
+              f"({100 * span / (rows + span):.0f}%)")
+        return layout, spmv_dia_windowed, "dia"
     if kernel == "ranked":
         try:
             layout = RankedSlabs.from_csr(
                 matrix, bin_blocks=bin_blocks, val_dtype=val_dtype
-            )
-            return layout, spmv_ranked, "ranked"
+            ).to(device)
         except ValueError as e:
             print(f"ranked layout unavailable ({e}); falling back to sell")
             if val_dtype is not None:
                 print("(sell fallback stores f32 values; bf16 not applied)")
-    return SellSlabs.from_csr(matrix, bin_blocks=bin_blocks), spmv_sell, "sell"
+        else:
+            if resident_x_fits(layout):
+                return layout, spmv_ranked, "ranked"
+            if bin_blocks > 0:
+                raise SystemExit(
+                    f"x exceeds the L2 residency budget "
+                    f"({x_budget(matrix.n, device)}) and the column-binned "
+                    f"layout (W={bin_blocks}) has no windowed route: its "
+                    "column-striped passes are not ported to the GPU yet "
+                    f"(ROADMAP.md item {REFUSED_KERNELS['striped']})"
+                )
+            try:
+                layout, _ = fit_window(
+                    layout, 1, device, lambda cap: RankedSlabs.from_csr(
+                        matrix, bin_blocks=bin_blocks, val_dtype=val_dtype,
+                        tile_k=cap,
+                    ),
+                )
+            except ValueError as e:
+                raise SystemExit(
+                    f"no windowed SpMV path: {e}. Use --kernel packed or "
+                    "--kernel sell, which gather x from device memory"
+                )
+            print(f"x exceeds the L2 residency budget ({x_budget(matrix.n, device)}"
+                  f"); using the HBM-windowed kernel: tile {layout.tile_k}, "
+                  f"window {layout.win_span} blocks "
+                  f"({window_bytes(layout) / 1024:.0f} KB of shared memory)")
+            return layout, spmv_ranked_windowed, "ranked"
+    layout = SellSlabs.from_csr(matrix, bin_blocks=bin_blocks).to(device)
+    if not resident_x_fits(layout):
+        print(f"warning: x exceeds the L2 residency budget "
+              f"({x_budget(matrix.n, device)}) and the sell kernel has no "
+              "windowed variant: its gathers read x from device memory; "
+              "--kernel ranked takes the windowed route")
+    return layout, spmv_sell, "sell"
 
 
 def main(argv=None):
@@ -177,7 +293,6 @@ def main(argv=None):
         )
 
     from tpu_spmv_torch.bench.harness import validate
-    from tpu_spmv_torch.formats.convert import rounded
     from tpu_spmv_torch.tune.plan import gpu_plan
 
     mat = load_input(args.input)
@@ -201,8 +316,8 @@ def main(argv=None):
             f"{kernel!r}"
         )
 
-    layout, fn, kernel = build_layout(ck.matrix, kernel, vdt, bin_blocks)
-    layout = layout.to(device)
+    layout, fn, kernel = build_layout(ck.matrix, kernel, vdt, bin_blocks,
+                                      device)
     x = np.random.default_rng(0).standard_normal(mat.n).astype(np.float32)
     xt = torch.from_numpy(x[perm]).to(device)
     y = fn(layout, xt).cpu().numpy()
@@ -210,7 +325,7 @@ def main(argv=None):
     # bf16 applies to the layout actually built (a sell fallback stores
     # f32 and is judged against the f32 oracle).
     if layout.vals.dtype == torch.bfloat16:
-        wrong, rel = validate(y, rounded(mat).matvec(x)[perm], tol=args.tol)
+        wrong, rel = validate(y, mat.rounded().matvec(x)[perm], tol=args.tol)
         y_f32 = mat.matvec(x)[perm]
         drift = np.linalg.norm(y - y_f32) / max(np.linalg.norm(y_f32), 1e-30)
         print(f"(bf16 values: validated vs the bf16-rounded operator; "

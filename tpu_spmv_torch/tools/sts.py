@@ -22,7 +22,7 @@ import sys
 import numpy as np
 import torch
 
-from tpu_spmv.tools.spmv import load_input
+from tpu_spmv_torch.tools.spmv import load_input
 
 # The JAX CLI's distributed solve runs over dist/, not ported yet.
 REFUSED_DEVICES = "A13 (distributed layer)"

@@ -13,8 +13,12 @@ none of its cost constants, which were measured on a TPU v5e:
     (each chunk rounded up to whole 8-slot sub-tiles) are weighed
     against the packed layout's (chunks of max(kc, 4) slots back to
     back), and packed is taken when s_packed * PACKED_OVER_RANKED <
-    s_ranked. The CLI falls back from packed to ranked, and from ranked
-    to sell, when a build rejects a packed-delta span.
+    s_ranked and x passes the residency gate (kernels/sell.
+    resident_x_fits): spmv_packed has no windowed variant, so past the
+    gate the plan is ranked, which the CLI then runs windowed (the
+    reference planner's _packed_x_fits). The CLI falls back from packed
+    to ranked, and from ranked to sell, when a build rejects a
+    packed-delta span.
 
 needs_rcm comes from the 95th-percentile row band (tpu_plan's estimate
 without its sampled exact span, so the two can differ near the 8-block
@@ -25,10 +29,11 @@ only the port reorders it).
 from __future__ import annotations
 
 import dataclasses
+import types
 
 import numpy as np
 
-from tpu_spmv.formats.csr import CSRMatrix
+from tpu_spmv_torch.formats.csr import CSRMatrix
 from tpu_spmv_torch.formats.dia import DIA_MAX_DIAGS, DIA_MAX_FILL, diagonal_profile
 from tpu_spmv_torch.formats.packed import MIN_KC
 from tpu_spmv_torch.formats.sell import LANES, SUBLANES, _aligned_slots
@@ -97,6 +102,16 @@ def subtile_counts(kc) -> tuple:
     return ranked, packed
 
 
+def packed_x_fits(mat) -> bool:
+    """resident_x_fits for a layout not built yet (the reference
+    planner's _packed_x_fits): x of mat.n entries, plus one pair of guard
+    blocks, against half of the L2 (hw.l2_bytes: the current card's,
+    else the H100's)."""
+    from tpu_spmv_torch.kernels.sell import resident_x_fits
+
+    return resident_x_fits(types.SimpleNamespace(n=mat.n, vals=None))
+
+
 def gpu_plan(mat, assume_rcm: bool = False) -> GpuPlan:
     d_s, _ = diagonal_profile(mat, sample_rows=256)
     if d_s <= DIA_MAX_DIAGS:
@@ -115,6 +130,14 @@ def gpu_plan(mat, assume_rcm: bool = False) -> GpuPlan:
         sampled, scale = sample_chunks(mat)
         s_ali, s_pk = subtile_counts(_aligned_slots(sampled)[1])
         s_ali, s_pk = s_ali * scale, s_pk * scale
+        if s_pk * PACKED_OVER_RANKED < s_ali and not packed_x_fits(mat):
+            return GpuPlan(
+                "ranked", needs_rcm,
+                f"aligned rank windows: packed would walk {s_pk:.0f} "
+                f"sub-tiles x R={PACKED_OVER_RANKED:.2f} < {s_ali:.0f}, but "
+                f"x is past the L2 residency gate and packed has no "
+                f"windowed variant ({span})",
+            )
         if s_pk * PACKED_OVER_RANKED < s_ali:
             return GpuPlan(
                 "packed", needs_rcm,
