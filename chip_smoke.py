@@ -30,10 +30,15 @@ x is past the L2 residency gate):
      spmm_ranked_windowed (lap2d_1024 after RCM, B = 8 and 5 at the
      CLI's tile and column passes) are also held to their resident
      kernels on the same layout, and lap2d_4096's host set-up seconds
-     are printed;
+     are printed; before each phase of spmv_ranked and spmv_sell a line
+     gives the segment table it walks (segments, Q, split chunks and
+     their partial rows), and on banded_1m two replays of one captured
+     call of each must give the same bits (max |y1 - y2| printed);
   2. prints R, the packed-to-ranked time per walked sub-tile measured in
-     step 1 on lap2d_1024 after RCM, beside the planner's constant, and
-     the plan auto takes on each matrix;
+     step 1 on lap2d_1024 after RCM, for SpMV and for SpMM (B = 5),
+     beside the planner's constants, and the plan auto takes on each
+     matrix for each, also on general_500k and powerlaw_1m, which the
+     reference planner sends to packed;
   3. checks both triangular-solve kernels (lower_solve_ranked and
      lower_solve_blocks) against their plain versions (RelL2 <= 1e-5)
      and a float64 forward substitution (RelL2 <= 1e-5, Number Wrong 0
@@ -52,9 +57,9 @@ x is past the L2 residency gate):
      lap2d_1024 and banded_1m, and on the windowed routes: tools.spmv on
      lap2d_4096, natural and --kernel ranked after RCM, tools.spmm on
      lap2d_1024 at B = 8 and --kernel windowed), the solve CLIs
-     (tools.sts on lap2d_1024
-     LS, COLOR and k=3 and lap3d_101 --part upper; tools.solve --precond
-     ic0 on lap3d_101), and the library's lower_solve with ranked=False;
+     (tools.sts on lap2d_1024 LS, COLOR and k=3 and lap3d_101 --part
+     upper; tools.solve --precond ic0 on lap3d_101), and the library's
+     lower_solve with ranked=False;
      it fails unless every kernel was launched on its path.
 
 It prints the card (nvidia-smi name and power limit), the toolchain, the
@@ -267,6 +272,47 @@ def _check_kernel(label, kernel, plain, layout, mat, perm, oracle, stats,
     return kw.time_min
 
 
+def _segments(label, lay):
+    """One line on the segment table that spmv_ranked and spmv_sell walk
+    (formats/sell.segment_fields)."""
+    import numpy as np
+
+    from tpu_spmv_torch.formats.sell import SEGMENT_SUBTILES
+
+    cp = np.diff(lay.chunk_ptr.cpu().numpy())
+    ss = lay.split_seg.cpu().numpy()
+    print(f"    [{label}] segments {lay.seg_chunk.numel()} of at most "
+          f"Q={SEGMENT_SUBTILES} sub-tiles over {lay.num_chunks} chunks "
+          f"({int(cp.sum())} sub-tiles, longest chunk {int(cp.max())}); "
+          f"split chunks {ss.shape[1]} ({int((ss[2] - ss[1]).sum())} "
+          "partial rows)", flush=True)
+
+
+def _replay_check(label, kernel, layout, mat, perm):
+    """Two replays of one captured call of `kernel` on the card give the
+    same bits (prints max |y1 - y2|, fails unless it is 0)."""
+    import numpy as np
+    import torch
+
+    lay = layout.to(torch.device("cuda"))
+    x = np.random.default_rng(X_SEED).standard_normal(mat.n).astype(np.float32)
+    xt = torch.from_numpy(x[perm]).to(lay.vals.device)
+    kernel(lay, xt)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = kernel(lay, xt)
+    graph.replay()
+    y1 = out.clone()
+    graph.replay()
+    torch.cuda.synchronize()
+    diff = float((out - y1).abs().max())
+    print(f"    [{label}] two CUDA-graph replays of {kernel.__name__}: "
+          f"max |y1 - y2| = {diff}", flush=True)
+    if diff != 0.0:
+        raise SmokeFailure(f"{label}: graph replays differ by {diff}")
+
+
 def _phases(stats):
     """The DIA, ranked and sell phases, then the packed and SpMM phases.
     Returns the warm times R is computed from."""
@@ -309,6 +355,7 @@ def _phases(stats):
         if bool(lay.group_code) != groups:
             raise SmokeFailure("lap2d_1024 rcm: grouping not as requested")
         kind = f"grouped G={lay.num_groups}" if groups else "ungrouped"
+        _segments(f"lap2d_1024 rcm ranked {kind}", lay)
         t = _check_kernel(f"lap2d_1024 rcm ranked {kind}", spmv_ranked,
                           spmv_ranked_reference, lay, mat, perm, mat, stats,
                           csr=ck.matrix)
@@ -321,9 +368,11 @@ def _phases(stats):
                           spmv_ranked_windowed,
                           spmv_ranked_windowed_reference, lay, mat, perm,
                           mat, stats, twin=spmv_ranked, csr=ck.matrix)
+    sell = SellSlabs.from_csr(ck.matrix)
+    _segments("lap2d_1024 rcm sell", sell)
     _check_kernel("lap2d_1024 rcm sell", spmv_sell, spmv_sell_reference,
-                  SellSlabs.from_csr(ck.matrix), mat, perm, mat, stats,
-                  csr=ck.matrix)
+                  sell, mat, perm, mat, stats, csr=ck.matrix)
+    del sell
     for vdt, groups in ((None, True), (None, False), (bf16, True)):
         lay = PackedRanked.from_csr(ck.matrix, allow_groups=groups,
                                     val_dtype=vdt)
@@ -341,22 +390,29 @@ def _phases(stats):
     lap_layouts = (RankedSlabs.from_csr(ck.matrix),
                    PackedRanked.from_csr(ck.matrix))
     for B in (8, 5):
-        _check_kernel(f"lap2d_1024 rcm spmm_ranked B={B}", spmm_ranked,
-                      spmm_ranked_reference, lap_layouts[0], mat, perm, mat,
-                      stats, batch=B, csr=ck.matrix)
-        _check_kernel(f"lap2d_1024 rcm spmm_packed B={B}", spmm_packed,
-                      spmm_packed_reference, lap_layouts[1], mat, perm, mat,
-                      stats, batch=B, csr=ck.matrix)
+        t_rk = _check_kernel(f"lap2d_1024 rcm spmm_ranked B={B}", spmm_ranked,
+                             spmm_ranked_reference, lap_layouts[0], mat, perm,
+                             mat, stats, batch=B, csr=ck.matrix)
+        t_pk = _check_kernel(f"lap2d_1024 rcm spmm_packed B={B}", spmm_packed,
+                             spmm_packed_reference, lap_layouts[1], mat, perm,
+                             mat, stats, batch=B, csr=ck.matrix)
+    r_times["spmm ranked"] = (t_rk, r_times["ranked"][1])
+    r_times["spmm packed"] = (t_pk, r_times["packed"][1])
     del lap_layouts
 
     mat = load_input("synthetic:banded_1m")
     ck, perm = prepare(mat, "auto")
     ranked = RankedSlabs.from_csr(ck.matrix)
+    _segments(f"banded_1m ranked grouped G={ranked.num_groups}", ranked)
     _check_kernel("banded_1m ranked", spmv_ranked, spmv_ranked_reference,
                   ranked, mat, perm, mat, stats, csr=ck.matrix)
+    _replay_check("banded_1m ranked", spmv_ranked, ranked, mat, perm)
+    sell = SellSlabs.from_csr(ck.matrix)
+    _segments("banded_1m sell", sell)
     _check_kernel("banded_1m sell", spmv_sell, spmv_sell_reference,
-                  SellSlabs.from_csr(ck.matrix), mat, perm, mat, stats,
-                  csr=ck.matrix)
+                  sell, mat, perm, mat, stats, csr=ck.matrix)
+    _replay_check("banded_1m sell", spmv_sell, sell, mat, perm)
+    del sell
     packed = PackedRanked.from_csr(ck.matrix)
     _check_kernel("banded_1m packed", spmv_packed, spmv_packed_reference,
                   packed, mat, perm, mat, stats, csr=ck.matrix)
@@ -773,23 +829,32 @@ def _ic0_phases():
 
 
 def _plans(r_times):
-    """R measured in this run beside the planner's constant, and the plan
-    auto takes on each matrix."""
+    """R measured in this run, for SpMV and for SpMM (B = 5), beside the
+    planner's constants, and the plan auto takes on each matrix for
+    each (the sampled sub-tile counts are in the plan's reason)."""
     from tpu_spmv_torch.tools.spmv import load_input, prepare
     from tpu_spmv_torch.tune import plan
 
-    (t_pk, s_pk), (t_rk, s_rk) = r_times["packed"], r_times["ranked"]
-    r = (t_pk / s_pk) / (t_rk / s_rk)
-    print(f"R (packed/ranked warm time per walked sub-tile, lap2d_1024 rcm, "
-          f"grouped): {r:.3f} = ({t_pk * 1e6:.2f} us / {s_pk:.0f}) / "
-          f"({t_rk * 1e6:.2f} us / {s_rk}); plan.py PACKED_OVER_RANKED = "
-          f"{plan.PACKED_OVER_RANKED}", flush=True)
+    for op, const in (("", "PACKED_OVER_RANKED"),
+                      ("spmm ", "SPMM_PACKED_OVER_RANKED")):
+        (t_pk, s_pk), (t_rk, s_rk) = (r_times[op + "packed"],
+                                      r_times[op + "ranked"])
+        r = (t_pk / s_pk) / (t_rk / s_rk)
+        print(f"R {op or 'spmv '}(packed/ranked warm time per walked "
+              f"sub-tile, lap2d_1024 rcm, grouped{', B=5' if op else ''}): "
+              f"{r:.3f} = ({t_pk * 1e6:.2f} us / {s_pk:.0f}) / "
+              f"({t_rk * 1e6:.2f} us / {s_rk}); plan.py {const} = "
+              f"{getattr(plan, const)}", flush=True)
     for name, rcm in (("lap2d_1024", "auto"), ("lap2d_1024", "always"),
-                      ("banded_1m", "auto")):
+                      ("banded_1m", "auto"), ("general_500k", "auto"),
+                      ("powerlaw_1m", "auto")):
         ck, _ = prepare(load_input(f"synthetic:{name}"), rcm)
-        p = plan.gpu_plan(ck.matrix, assume_rcm=rcm == "always")
-        print(f"auto plan on {name} (rcm {rcm}): {p.kernel} ({p.reason})",
-              flush=True)
+        for spmm in (False, True):
+            p = plan.gpu_plan(ck.matrix, assume_rcm=rcm == "always",
+                              spmm=spmm)
+            print(f"auto plan on {name} (rcm {rcm}) for "
+                  f"{'SpMM' if spmm else 'SpMV'}: {p.kernel} ({p.reason})",
+                  flush=True)
 
 
 def _drive(steps):
@@ -979,7 +1044,9 @@ def main() -> int:
         _windowed_phases(stats)
         print(f"windowed phases: wall {time.perf_counter() - t0:.1f} s",
               flush=True)
+        t0 = time.perf_counter()
         _plans(r_times)
+        print(f"plans: wall {time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
         _solve_phases(stats)
         print(f"solve phases: wall {time.perf_counter() - t0:.1f} s",

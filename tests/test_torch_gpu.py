@@ -18,6 +18,8 @@ dependency chain, so kernel, plain version and the f64 oracle agree to
 RelL2 <= 1e-5, with Number Wrong 0 at 0.01 for x = ones.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -30,7 +32,7 @@ from tpu_spmv_torch.bench.matrices import (
 from tpu_spmv_torch.formats.csr import CSRMatrix
 from tpu_spmv_torch.formats.dia import DiaSlabs
 from tpu_spmv_torch.formats.packed import PackedRanked
-from tpu_spmv_torch.formats.sell import RankedSlabs, SellSlabs
+from tpu_spmv_torch.formats.sell import RankedSlabs, SellSlabs, segment_fields
 from tpu_spmv_torch.kernels.dia import (
     spmv_dia, spmv_dia_reference, spmv_dia_windowed,
     spmv_dia_windowed_reference,
@@ -69,6 +71,23 @@ def cuda():
 
 def _rcm(mat):
     return mat.permuted(rcm(mat.indptr, mat.indices))
+
+
+def _long_row(row=1500, length=400, seed=0):
+    """random_banded(3000, 90, 11) with row `row` replaced by `length`
+    nonzeros spread over all columns: its chunk has 50 sub-tiles, split
+    into several segments (tests/test_torch_segments.py holds the table)."""
+    mat = random_banded(3000, 90, 11, seed=1)
+    rows = np.repeat(np.arange(mat.m), np.diff(mat.indptr))
+    keep = rows != row
+    cols = np.unique(np.linspace(0, mat.n - 1, length).astype(np.int64))
+    vals = np.random.default_rng(seed).standard_normal(cols.size)
+    return CSRMatrix.from_coo(
+        np.concatenate([rows[keep], np.full(cols.size, row)]),
+        np.concatenate([mat.indices[keep], cols]),
+        np.concatenate([mat.data[keep], vals.astype(np.float32)]),
+        mat.shape,
+    )
 
 
 def _run(kernel, plain, layout, mat, oracle, dev, batch=None, twin=None):
@@ -116,6 +135,11 @@ _RANKED = {
                            dict(allow_groups=False)),
     "general_i32_lcols": (lambda: random_general(50000, 6, seed=1),
                           dict(align=False)),
+    "long_row_grouped": (_long_row, {}),
+    "long_row_delta": (_long_row, dict(allow_groups=False)),
+    "long_row_bf16_grouped": (_long_row, dict(val_dtype=torch.bfloat16)),
+    "long_row_bf16_delta": (_long_row, dict(val_dtype=torch.bfloat16,
+                                            allow_groups=False)),
 }
 
 
@@ -124,15 +148,91 @@ def test_ranked_kernel_matches_plain(cuda, case):
     make, kw = _RANKED[case]
     mat = make()
     lay = RankedSlabs.from_csr(mat, **kw)
+    if case.startswith("long_row"):
+        assert lay.split_seg.shape[1] >= 1
     oracle = mat.rounded() if kw.get("val_dtype") else mat
     _run(spmv_ranked, spmv_ranked_reference, lay, mat, oracle, cuda)
 
 
-@pytest.mark.parametrize("bins", [0, 4])
-def test_sell_kernel_matches_plain(cuda, bins):
-    mat = _rcm(random_general(2500, 6, seed=2))
+_SELL = {
+    "general": (lambda: _rcm(random_general(2500, 6, seed=2)), 0),
+    "general_binned_w4": (lambda: _rcm(random_general(2500, 6, seed=2)), 4),
+    "long_row": (_long_row, 0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_SELL))
+def test_sell_kernel_matches_plain(cuda, case):
+    make, bins = _SELL[case]
+    mat = make()
     lay = SellSlabs.from_csr(mat, bin_blocks=bins)
+    if case == "long_row":
+        assert lay.split_seg.shape[1] >= 1
     _run(spmv_sell, spmv_sell_reference, lay, mat, mat, cuda)
+
+
+_WALKS = {
+    "ranked_grouped": (spmv_ranked, lambda m: RankedSlabs.from_csr(m)),
+    "ranked_bf16_delta": (spmv_ranked, lambda m: RankedSlabs.from_csr(
+        m, val_dtype=torch.bfloat16, allow_groups=False)),
+    "sell": (spmv_sell, lambda m: SellSlabs.from_csr(m)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_WALKS))
+def test_segment_walk_replays_bit_identical(cuda, case):
+    """Two replays of a captured call on a layout with a split chunk give
+    the same bits, and so does an eager call: the fix-up adds a split
+    chunk's partials in segment order, with no atomics."""
+    fn, build = _WALKS[case]
+    mat = _long_row()
+    lay = build(mat).to(cuda)
+    assert lay.split_seg.shape[1] >= 1
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        mat.n).astype(np.float32)).to(cuda)
+    fn(lay, x)  # eager first: builds the library
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(lay, x)
+    before = fn.launches
+    graph.replay()
+    y1 = out.clone()
+    graph.replay()
+    y2 = out.clone()
+    expect = fn(lay, x)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and torch.equal(y1, expect)
+    assert fn.launches == before + 1  # the eager call only
+
+
+@pytest.mark.parametrize("q", [1, 16])
+@pytest.mark.parametrize("case", sorted(_WALKS))
+def test_segment_walk_at_any_segment_length(cuda, case, q, monkeypatch):
+    """Tables cut at 1 sub-tile a segment (every chunk of several
+    sub-tiles split) and at 16, the most whose bases a block stages,
+    match the plain version."""
+    from tpu_spmv_torch.formats import sell as fsell
+
+    fn, build = _WALKS[case]
+    mat = _long_row()
+    lay = build(mat)
+    monkeypatch.setattr(fsell, "SEGMENT_SUBTILES", q)
+    lay = dataclasses.replace(lay, **segment_fields(lay.chunk_ptr))
+    assert int(lay.seg_ptr.diff().max()) == q
+    plain = spmv_sell_reference if fn is spmv_sell else spmv_ranked_reference
+    oracle = mat.rounded() if lay.vals.dtype == torch.bfloat16 else mat
+    _run(fn, plain, lay, mat, oracle, cuda)
+
+
+def test_segment_walk_refuses_a_layout_without_a_table(cuda):
+    mat = _long_row()
+    lay = RankedSlabs.from_csr(mat).to(cuda)
+    x = torch.zeros(mat.n, device=cuda)
+    before = spmv_ranked.launches
+    with pytest.raises(ValueError, match="no segment table"):
+        spmv_ranked(dataclasses.replace(lay, seg_ptr=None), x)
+    assert spmv_ranked.launches == before
 
 
 _PACKED = {

@@ -102,16 +102,31 @@ def test_cli_follows_the_plan(monkeypatch, capsys):
     resident is always ranked; bf16 is validated against the rounded
     operator."""
     args = ["synthetic:banded_1k", "--batch", "2", *CPU]
-    monkeypatch.setattr(plan, "PACKED_OVER_RANKED", 0.5)
+    monkeypatch.setattr(plan, "SPMM_PACKED_OVER_RANKED", 0.5)
     assert cli.main(args) == 0
     assert "auto kernel: packed" in capsys.readouterr().out
     assert cli.main([*args, "--kernel", "resident", "--val-dtype",
                      "bf16"]) == 0
     out = capsys.readouterr().out
     assert "auto kernel" not in out and "bf16 values" in out
-    monkeypatch.setattr(plan, "PACKED_OVER_RANKED", 4.0)
+    monkeypatch.setattr(plan, "SPMM_PACKED_OVER_RANKED", 4.0)
     assert cli.main(args) == 0
     assert "auto kernel: resident (ranked" in capsys.readouterr().out
+
+
+def test_spmm_plan_weighs_its_own_ratio(capsys):
+    """On a 5-point stencil after RCM (ranked walks 1.6x packed's
+    sub-tiles) the measured ratios send SpMV to ranked and SpMM to
+    packed, and the CLI's auto takes spmm_packed there."""
+    mat = laplacian_2d(64)
+    mat = mat.permuted(rcm(mat.indptr, mat.indices))
+    assert plan.SPMM_PACKED_OVER_RANKED < 1.6 < plan.PACKED_OVER_RANKED
+    assert plan.gpu_plan(mat, assume_rcm=True).kernel == "ranked"
+    assert plan.gpu_plan(mat, assume_rcm=True, spmm=True).kernel == "packed"
+    assert cli.main(["synthetic:lap2d_256", "3", "--batch", "5", "--rcm",
+                     "always", *CPU]) == 0
+    out = capsys.readouterr().out
+    assert "auto kernel: packed" in out and "Number Wrong: 0 " in out
 
 
 @pytest.mark.parametrize("spec", ["lap2d_32", "banded_1k"])

@@ -68,7 +68,7 @@ def test_slice_matches_jax_pipeline(spec, kernel):
     against the oracle through the permutation."""
     mat = make(spec)
     ck, perm = cli.prepare(mat, "auto")
-    layout, fn, used = cli.build_layout(ck.matrix, kernel)
+    layout, fn, used = cli.build_layout(ck.matrix, kernel, device="cpu")
     assert used == kernel
     x = np.random.default_rng(0).standard_normal(mat.n).astype(np.float32)
     y = fn(layout, torch.from_numpy(x[perm])).numpy()

@@ -257,7 +257,7 @@ def test_spmm_cli_auto_skips_packed_past_the_gate(tiny_l2, monkeypatch,
     """The planner keeps packed out past the gate; a packed plan that
     reaches the CLI all the same (forced here) is dropped there."""
     monkeypatch.setattr(plan, "packed_x_fits", lambda mat: True)
-    monkeypatch.setattr(plan, "PACKED_OVER_RANKED", 0.1)
+    monkeypatch.setattr(plan, "SPMM_PACKED_OVER_RANKED", 0.1)
     assert spmm_cli.main(["synthetic:banded_1k", "--batch", "2", *CPU]) == 0
     out = capsys.readouterr().out
     assert "packed layout past the L2 residency budget" in out

@@ -16,7 +16,8 @@ L x = b and IC(0)-PCG):
     sts/      pack schedule (host), LowerSolveLayout and lower_solve,
               IC(0) factor, preconditioner and PCG
     tune/     gpu_plan: DIA for constant-diagonal matrices, else packed or
-              ranked by sub-tile count and a measured time ratio
+              ranked by sub-tile count and the measured time ratio of the
+              kernels that will run (one for SpMV, one for SpMM)
     formats/  CSRMatrix, CSRkMatrix; DiaSlabs, SellSlabs, RankedSlabs,
               PackedRanked as torch containers, built on the host with
               NumPy; convert carries JAX layouts across

@@ -5,8 +5,9 @@ RankedSlabs or PackedRanked, whose arrays np.asarray can read) into the
 port's container, so a layout built once can be run through both
 packages' kernels. It reads the arrays through NumPy and never imports
 JAX. The port's derived fields come from the reference's arrays alone:
-chunk_ptr from sub_chunk, RankedSlabs' win_b0/win_span from the bases
-and sub_chunk (formats/sell.real_windows), and PackedRanked's
+chunk_ptr from sub_chunk, the segment table from chunk_ptr
+(formats/sell.segment_fields), RankedSlabs' win_b0/win_span from the
+bases and sub_chunk (formats/sell.real_windows), and PackedRanked's
 chunk_koff from out_row and bmeta.
 
 Two encodings need care: numpy has no bf16 of its own and
@@ -23,7 +24,8 @@ import torch
 from tpu_spmv_torch.formats.dia import DiaSlabs
 from tpu_spmv_torch.formats.packed import PackedRanked, chunk_koff_from_segments
 from tpu_spmv_torch.formats.sell import (
-    RankedSlabs, SellSlabs, _chunk_ptr, real_windows, to_tensor,
+    RankedSlabs, SellSlabs, _chunk_ptr, real_windows, segment_fields,
+    to_tensor,
 )
 
 
@@ -57,7 +59,9 @@ def from_reference(layout):
             tile_k=layout.tile_k, group_code=layout.group_code,
         )
     sub_chunk = np.asarray(layout.sub_chunk)
-    chunk_ptr = torch.from_numpy(_chunk_ptr(sub_chunk, layout.num_chunks))
+    chunk_ptr = _chunk_ptr(sub_chunk, layout.num_chunks)
+    segments = segment_fields(chunk_ptr)
+    chunk_ptr = torch.from_numpy(chunk_ptr)
     if kind == "SellSlabs":
         return SellSlabs(
             vals=to_tensor(layout.vals),
@@ -66,6 +70,7 @@ def from_reference(layout):
             sub_nb=to_tensor(layout.sub_nb),
             sub_chunk=to_tensor(sub_chunk),
             chunk_ptr=chunk_ptr,
+            **segments,
             m=layout.m, n=layout.n, nnz=layout.nnz,
             num_chunks=layout.num_chunks, max_nb=layout.max_nb,
             chunk_q=layout.chunk_q,
@@ -86,6 +91,7 @@ def from_reference(layout):
             grp_b0=to_tensor(layout.grp_b0),
             chunk_ptr=chunk_ptr,
             win_b0=torch.from_numpy(win_b0),
+            **segments,
             m=layout.m, n=layout.n, nnz=layout.nnz,
             num_chunks=layout.num_chunks, rank_nb=layout.rank_nb,
             chunk_q=layout.chunk_q, win_w=layout.win_w,

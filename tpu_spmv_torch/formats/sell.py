@@ -4,13 +4,23 @@
 The arrays are identical, array for array, to the JAX package's
 `SellSlabs` / `RankedSlabs` on the same matrix (tests hold them equal),
 so a kernel of either package can be checked against the other on one
-layout. Each container adds one derived field, `chunk_ptr`
-((num_chunks+1,) int32): the sub-tile range [chunk_ptr[c],
-chunk_ptr[c+1]) of chunk c. A GPU thread that owns a row walks its own
-chunk's sub-tiles with it and writes its row total directly, so the
-per-sub-tile partials and their segment-sum epilogue do not exist in
-the port. The all-pad tail (sentinel chunk id num_chunks) lies past
-chunk_ptr[num_chunks] and is never read.
+layout. Each container adds derived fields, built from the reference's
+arrays alone:
+
+  chunk_ptr  ((num_chunks+1,) int32) the sub-tile range [chunk_ptr[c],
+             chunk_ptr[c+1]) of chunk c;
+  seg_ptr, seg_chunk, split_seg
+             the segment table (`segment_fields`): every chunk's
+             sub-tile range cut, in order, into segments of at most
+             SEGMENT_SUBTILES sub-tiles. spmv_ranked and spmv_sell give
+             each segment one block of 128 threads, so a chunk of a very
+             long row no longer leaves one thread walking all of it while
+             the card idles. A chunk of one segment writes its rows
+             directly; the segments of a split chunk write partials that
+             a second launch adds in segment order.
+
+The all-pad tail (sentinel chunk id num_chunks) lies past
+chunk_ptr[num_chunks] and belongs to no segment.
 
 Layout recap (see the reference module for the design): 128 rows form
 a chunk (one row per lane), a chunk's nonzeros are stored slot-major as
@@ -33,6 +43,14 @@ SUBLANES = 8
 # picks the ranked layout's tile (and so its tail padding) from it, and
 # the layouts of the two packages must stay identical.
 _UNROLL_BUDGET = 6144
+# Sub-tiles per segment of the spmv_ranked/spmv_sell walk: one block
+# walks at most this many in series (kernels/csrc/sell.cu). On an H100,
+# 4, 8 and 16 time the same within noise on banded_1m
+# (tpu_spmv_torch/bench/walk_times.py; PERF.md).
+SEGMENT_SUBTILES = 8
+# seg_chunk flag: the segment's chunk has more than one segment, so the
+# segment writes a row of partials instead of y.
+SPLIT_BIT = 1 << 30
 
 
 def _round_up(x: int, m: int) -> int:
@@ -58,6 +76,52 @@ def _chunk_ptr(sub_chunk: np.ndarray, num_chunks: int) -> np.ndarray:
     return np.searchsorted(
         np.asarray(sub_chunk), np.arange(num_chunks + 1), side="left"
     ).astype(np.int32)
+
+
+def segment_fields(chunk_ptr) -> dict:
+    """The segment table of a chunk_ptr, as the containers' fields:
+
+      seg_ptr      ((G+1,) int32) first sub-tile of each segment; each
+                   chunk's range [chunk_ptr[c], chunk_ptr[c+1]) is cut in
+                   order into segments of SEGMENT_SUBTILES sub-tiles, the
+                   last one shorter; a chunk without sub-tiles gets one
+                   empty segment (its rows are written as 0); seg_ptr[G]
+                   = chunk_ptr[num_chunks];
+      seg_chunk    ((G,) int32) the chunk of a segment whose chunk has no
+                   other segment (it writes y), else SPLIT_BIT | p: the
+                   segment writes its partial row sums into row p of a
+                   (P, 128) scratch, the split chunks' segments numbered
+                   in order (P = G - num_chunks + K);
+      split_seg    ((3, K) int32) for each of the K split chunks, in
+                   order: the chunk, its first partial row and one past
+                   its last; the second launch adds those rows, in
+                   order, into y.
+
+    Raises ValueError when SEGMENT_SUBTILES exceeds the 16 sub-tiles
+    whose bases a block of the kernel stages."""
+    q = SEGMENT_SUBTILES
+    if not 1 <= q <= LANES // SUBLANES:
+        raise ValueError(f"segments of {q} sub-tiles: the walk stages "
+                         f"1 to {LANES // SUBLANES}")
+    ptr = np.asarray(chunk_ptr).astype(np.int64)
+    nseg = np.maximum(-(-np.diff(ptr) // q), 1)
+    first = np.cumsum(nseg) - nseg
+    G = int(nseg.sum())
+    chunk = np.repeat(np.arange(nseg.shape[0], dtype=np.int64), nseg)
+    seg_ptr = np.empty(G + 1, np.int64)
+    seg_ptr[:G] = ptr[chunk] + (np.arange(G) - first[chunk]) * q
+    seg_ptr[G] = ptr[-1]
+    split = nseg > 1
+    end = np.cumsum(nseg[split])  # one past each split chunk's last row
+    seg_chunk = chunk.copy()
+    P = G - nseg.shape[0] + end.size  # every other chunk has one segment
+    seg_chunk[split[chunk]] = np.arange(P) | SPLIT_BIT
+    split_seg = np.stack([np.flatnonzero(split), end - nseg[split], end])
+    return dict(
+        seg_ptr=torch.from_numpy(seg_ptr.astype(np.int32)),
+        seg_chunk=torch.from_numpy(seg_chunk.astype(np.int32)),
+        split_seg=torch.from_numpy(split_seg.astype(np.int32)),
+    )
 
 
 def _aligned_slots(mat: CSRMatrix, gap: int = LANES, cap_factor: float = 2.0):
@@ -401,6 +465,9 @@ class SellSlabs(TensorLayout):
     sub_nb: torch.Tensor  # (S,) int32 x blocks per sub-tile
     sub_chunk: torch.Tensor  # (S,) int32 owning chunk (sorted)
     chunk_ptr: torch.Tensor  # (num_chunks+1,) int32 sub-tile range per chunk
+    seg_ptr: torch.Tensor  # (G+1,) int32 segment_fields: first sub-tile
+    seg_chunk: torch.Tensor  # (G,) int32 chunk, or SPLIT_BIT | partial row
+    split_seg: torch.Tensor  # (3, K) int32 chunk, partial rows per split chunk
     m: int
     n: int
     nnz: int
@@ -430,15 +497,15 @@ class SellSlabs(TensorLayout):
     ) -> "SellSlabs":
         host = cls._host_build(mat, tile_k, align, bin_blocks)
         sub_nb = host["sub_nb"]
+        chunk_ptr = _chunk_ptr(host["sub_chunk"], host["num_chunks"])
         return cls(
             vals=to_tensor(host["vals"]),
             cols=to_tensor(host["cols"].astype(np.int32)),
             sub_b0=to_tensor(host["sub_b0"].astype(np.int32)),
             sub_nb=to_tensor(sub_nb.astype(np.int32)),
             sub_chunk=to_tensor(host["sub_chunk"].astype(np.int32)),
-            chunk_ptr=to_tensor(
-                _chunk_ptr(host["sub_chunk"], host["num_chunks"])
-            ),
+            chunk_ptr=to_tensor(chunk_ptr),
+            **segment_fields(chunk_ptr),
             m=host["m"],
             n=host["n"],
             nnz=mat.nnz,
@@ -548,6 +615,9 @@ class RankedSlabs(TensorLayout):
     grp_b0: torch.Tensor  # (S*G,) int32, empty when ungrouped
     chunk_ptr: torch.Tensor  # (num_chunks+1,) int32
     win_b0: torch.Tensor  # (T,) int32, real_windows: the port's windows
+    seg_ptr: torch.Tensor  # (G+1,) int32 segment_fields (see SellSlabs)
+    seg_chunk: torch.Tensor  # (G,) int32
+    split_seg: torch.Tensor  # (3, K) int32
     m: int
     n: int
     nnz: int
@@ -692,6 +762,7 @@ class RankedSlabs(TensorLayout):
             sub_b0, sub_dlo, sub_dhi, host["sub_chunk"], host["num_chunks"],
             tile_eff, rank_nb,
         )
+        chunk_ptr = _chunk_ptr(host["sub_chunk"], host["num_chunks"])
 
         return cls(
             vals=to_tensor(vals, val_dtype or torch.float32),
@@ -702,10 +773,9 @@ class RankedSlabs(TensorLayout):
             sub_chunk=to_tensor(host["sub_chunk"].astype(np.int32)),
             tile_b0=to_tensor(tile_b0.astype(np.int32)),
             grp_b0=to_tensor(grp_b0.astype(np.int32)),
-            chunk_ptr=to_tensor(
-                _chunk_ptr(host["sub_chunk"], host["num_chunks"])
-            ),
+            chunk_ptr=to_tensor(chunk_ptr),
             win_b0=to_tensor(win_b0),
+            **segment_fields(chunk_ptr),
             m=host["m"],
             n=host["n"],
             nnz=mat.nnz,

@@ -45,12 +45,15 @@ _SIGNATURES = {
     # val_kind, vals, offs, D, rb, x, y, m, n, stream
     "tsp_spmv_dia": (_I, _P, _P, _I, _I, _P, _P, _LL, _LL, _P),
     # val_kind, lcol_kind, vals, lcols, sub_b0, sub_dlo, sub_dhi,
-    # grp_b0, G, gmap, chunk_ptr, x, y, m, n, stream
+    # grp_b0, G, gmap, seg_ptr, seg_chunk, num_segments, split_seg,
+    # num_split, x, y, part, m, n, stream
     "tsp_spmv_ranked": (
-        _I, _I, _P, _P, _P, _P, _P, _P, _I, _U, _P, _P, _P, _LL, _LL, _P,
+        _I, _I, _P, _P, _P, _P, _P, _P, _I, _U, _P, _P, _I, _P, _I, _P, _P,
+        _P, _LL, _LL, _P,
     ),
-    # vals, cols, chunk_ptr, x, y, m, n, stream
-    "tsp_spmv_sell": (_P, _P, _P, _P, _P, _LL, _LL, _P),
+    # vals, cols, seg_ptr, seg_chunk, num_segments, split_seg,
+    # num_split, x, y, part, m, n, stream
+    "tsp_spmv_sell": (_P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _LL, _LL, _P),
     # val_kind, lcol_kind, vals, lcols, sub_b0, sub_dlo, sub_dhi,
     # grp_b0, G, gmap, chunk_koff, x, y, m, n, stream
     "tsp_spmv_packed": (

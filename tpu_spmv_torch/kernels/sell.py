@@ -13,9 +13,13 @@ Counterpart of `tpu_spmv/kernels/pallas_sell.py`:
 On a CPU tensor each runs its plain version (`*_reference`: a gather,
 a reshape-sum over the 8 slots of each sub-tile, then `index_add_` of
 the sub-tile sums into their chunks); on a CUDA tensor it launches the
-kernel or raises. `<wrapper>.launches` counts calls that launched the
-kernel (spmv_ranked_windowed's call is two launches: the windowed pass
-and the reduction of its partials).
+kernel or raises. spmv_ranked and spmv_sell walk the layout's segment
+table (formats/sell.segment_fields), one block per segment. `<wrapper>
+.launches` counts calls that launched the kernel, once per call: a call
+of spmv_ranked_windowed is two launches (the windowed pass and the
+reduction of its partials), and so is a call of spmv_ranked or
+spmv_sell on a layout with split chunks (the walk, then the fix-up that
+adds their segments' partials).
 """
 
 from __future__ import annotations
@@ -184,6 +188,34 @@ def _check_slabs(layout, what: str) -> None:
         raise ValueError(f"{what}: fewer chunks than rows need")
 
 
+def _segment_args(layout, x: torch.Tensor, what: str) -> tuple:
+    """Checks of the segment table, then the walk's arguments: seg_ptr,
+    seg_chunk, the segment count G, split_seg, the split-chunk count K
+    and the partials scratch: one row of 128 per segment of a split
+    chunk, G - num_chunks + K rows, as every other chunk has one
+    segment."""
+    seg_ptr = getattr(layout, "seg_ptr", None)
+    if seg_ptr is None:
+        raise ValueError(
+            f"{what}: layout has no segment table (seg_ptr); build it with "
+            "from_csr or formats.convert.from_reference"
+        )
+    G = layout.seg_chunk.numel()
+    if (seg_ptr.dtype != torch.int32 or seg_ptr.numel() != G + 1
+            or layout.seg_chunk.dtype != torch.int32
+            or layout.split_seg.dtype != torch.int32
+            or layout.split_seg.dim() != 2 or layout.split_seg.shape[0] != 3):
+        raise ValueError(
+            f"{what}: the segment table must be int32 seg_ptr (G+1,), "
+            "seg_chunk (G,) and split_seg (3, K)"
+        )
+    K = layout.split_seg.shape[1]
+    part = torch.empty((G - layout.num_chunks + K) * LANES,
+                       dtype=torch.float32, device=x.device)
+    return (seg_ptr.data_ptr(), layout.seg_chunk.data_ptr(), G,
+            layout.split_seg.data_ptr(), K, part)
+
+
 def spmv_ranked(layout: RankedSlabs, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x with A in rank-windowed SELL layout (grouped or not).
     x: (n,) float32 -> y: (m,) float32."""
@@ -200,6 +232,8 @@ def spmv_ranked(layout: RankedSlabs, x: torch.Tensor) -> torch.Tensor:
     G = layout.num_groups
     if G and layout.grp_b0.numel() != layout.num_subtiles * G:
         raise ValueError("spmv_ranked: grp_b0 must hold G bases per sub-tile")
+    seg_ptr, seg_chunk, nseg, split_seg, nsplit, part = _segment_args(
+        layout, x, "spmv_ranked")
     y = torch.empty(layout.m, dtype=torch.float32, device=x.device)
     if layout.m == 0:
         return y
@@ -208,9 +242,9 @@ def spmv_ranked(layout: RankedSlabs, x: torch.Tensor) -> torch.Tensor:
         layout.vals.data_ptr(), layout.lcols.data_ptr(),
         layout.sub_b0.data_ptr(), layout.sub_dlo.data_ptr(),
         layout.sub_dhi.data_ptr(), layout.grp_b0.data_ptr(), G,
-        layout.group_code & 0xFFFFFFFF, layout.chunk_ptr.data_ptr(),
-        x.data_ptr(), y.data_ptr(), layout.m, layout.n,
-        _build.stream_of(x),
+        layout.group_code & 0xFFFFFFFF, seg_ptr, seg_chunk, nseg, split_seg,
+        nsplit, x.data_ptr(), y.data_ptr(), part.data_ptr(), layout.m,
+        layout.n, _build.stream_of(x),
     )
     _build.check(rc, "spmv_ranked")
     spmv_ranked.launches += 1
@@ -226,12 +260,14 @@ def spmv_sell(layout: SellSlabs, x: torch.Tensor) -> torch.Tensor:
     _check_slabs(layout, "spmv_sell")
     if layout.vals.dtype != torch.float32 or layout.cols.dtype != torch.int32:
         raise ValueError("spmv_sell: vals must be float32 and cols int32")
+    seg_ptr, seg_chunk, nseg, split_seg, nsplit, part = _segment_args(
+        layout, x, "spmv_sell")
     y = torch.empty(layout.m, dtype=torch.float32, device=x.device)
     if layout.m == 0:
         return y
     rc = _build.library().tsp_spmv_sell(
-        layout.vals.data_ptr(), layout.cols.data_ptr(),
-        layout.chunk_ptr.data_ptr(), x.data_ptr(), y.data_ptr(),
+        layout.vals.data_ptr(), layout.cols.data_ptr(), seg_ptr, seg_chunk,
+        nseg, split_seg, nsplit, x.data_ptr(), y.data_ptr(), part.data_ptr(),
         layout.m, layout.n, _build.stream_of(x),
     )
     _build.check(rc, "spmv_sell")

@@ -31,23 +31,26 @@ import sys
 import numpy as np
 import torch
 
-from tpu_spmv_torch.tools.spmv import fit_window, load_input, x_budget
+from tpu_spmv_torch.tools.spmv import (
+    fit_window, load_input, target_device, x_budget,
+)
 
 # Options of the JAX CLI that the port does not run yet, and the
 # ROADMAP.md queue-A item that ports each.
 REFUSED_DISTRIBUTED = "A13 (distributed layer)"
 
 
-def build_spmm(mat, kernel: str, B: int, val_dtype=None, device="cpu"):
+def build_spmm(mat, kernel: str, B: int, val_dtype=None, device=None):
     """(layout on `device`, spmm function, passes over the slabs), as
-    tpu_spmv/tools/spmm.py:85-192 chooses them. auto takes packed when
-    the planner picks it, the build succeeds and X passes the residency
-    gate (resident_x_fits at batch=B); otherwise the ranked layout, with
-    spmm_ranked when X passes the gate (or under resident) and
-    spmm_ranked_windowed past it (or under windowed). The windowed route
-    fits the window to shared memory (tools/spmv.fit_window) and runs
-    B/B' column passes when B' < B. A ranked build that fails ends the
-    run: SpMM has no sell kernel."""
+    tpu_spmv/tools/spmm.py:85-192 chooses them; device defaults to the
+    card (tools/spmv.target_device). auto takes packed when the planner
+    picks it for SpMM (gpu_plan(spmm=True)), the build succeeds and X
+    passes the residency gate (resident_x_fits at batch=B); otherwise
+    the ranked layout, with spmm_ranked when X passes the gate (or under
+    resident) and spmm_ranked_windowed past it (or under windowed). The
+    windowed route fits the window to shared memory (tools/spmv.
+    fit_window) and runs B/B' column passes when B' < B. A ranked build
+    that fails ends the run: SpMM has no sell kernel."""
     from tpu_spmv_torch.formats.packed import PackedRanked
     from tpu_spmv_torch.formats.sell import RankedSlabs
     from tpu_spmv_torch.kernels.sell import resident_x_fits, window_bytes
@@ -56,8 +59,8 @@ def build_spmm(mat, kernel: str, B: int, val_dtype=None, device="cpu"):
     )
     from tpu_spmv_torch.tune.plan import gpu_plan
 
-    device = torch.device(device)
-    plan = gpu_plan(mat, assume_rcm=True)
+    device = target_device(device)
+    plan = gpu_plan(mat, assume_rcm=True, spmm=True)
     if kernel == "auto" and plan.kernel == "packed":
         try:
             layout = PackedRanked.from_csr(

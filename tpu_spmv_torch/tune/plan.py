@@ -1,4 +1,4 @@
-"""A reduced planner for the port: `gpu_plan(mat, assume_rcm)`.
+"""A reduced planner for the port: `gpu_plan(mat, assume_rcm, spmm)`.
 
 It keeps the structural tests of `tpu_spmv.tune.model.tpu_plan` and
 none of its cost constants, which were measured on a TPU v5e:
@@ -12,13 +12,14 @@ none of its cost constants, which were measured on a TPU v5e:
     spaced sample of at most 256 chunks, the ranked layout's sub-tiles
     (each chunk rounded up to whole 8-slot sub-tiles) are weighed
     against the packed layout's (chunks of max(kc, 4) slots back to
-    back), and packed is taken when s_packed * PACKED_OVER_RANKED <
-    s_ranked and x passes the residency gate (kernels/sell.
-    resident_x_fits): spmv_packed has no windowed variant, so past the
-    gate the plan is ranked, which the CLI then runs windowed (the
-    reference planner's _packed_x_fits). The CLI falls back from packed
-    to ranked, and from ranked to sell, when a build rejects a
-    packed-delta span.
+    back), and packed is taken when s_packed * R < s_ranked, with R the
+    measured ratio of the two kernels that will run (PACKED_OVER_RANKED
+    for SpMV, SPMM_PACKED_OVER_RANKED for SpMM), and x passes the
+    residency gate (kernels/sell.resident_x_fits): the packed kernels
+    have no windowed variant, so past the gate the plan is ranked, which
+    the CLI then runs windowed (the reference planner's _packed_x_fits).
+    The CLI falls back from packed to ranked, and from ranked to sell,
+    when a build rejects a packed-delta span.
 
 needs_rcm comes from the 95th-percentile row band (tpu_plan's estimate
 without its sampled exact span, so the two can differ near the 8-block
@@ -40,11 +41,20 @@ from tpu_spmv_torch.formats.sell import LANES, SUBLANES, _aligned_slots
 
 # Device time per walked sub-tile of spmv_packed over that of
 # spmv_ranked, both grouped, on lap2d_1024 after RCM, warm (CUDA-graph
-# timing): (25.12 us / 5122) / (27.26 us / 8192) = 1.474, measured by
-# chip_smoke.py on an NVIDIA H100 80GB HBM3 at a 700.00 W power limit.
-# A packed sub-tile costs more because chunks share sub-tiles, and the
-# shared sub-tiles' slots run one at a time.
-PACKED_OVER_RANKED = 1.47
+# timing): (24.06 us / 5122) / (18.81 us / 8192) = 2.046, measured by
+# chip_smoke.py on an NVIDIA H100 80GB HBM3 at a 700.00 W power limit,
+# with spmv_ranked's segment walk. A packed sub-tile costs more because
+# chunks share sub-tiles, and the shared sub-tiles' slots run one at a
+# time. Above 2 no matrix is planned packed for SpMV: packed pads a chunk
+# to at least MIN_KC = 4 slots and ranked to 8, so packed walks at least
+# half of ranked's sub-tiles.
+PACKED_OVER_RANKED = 2.046
+# The same ratio for SpMM (spmm_packed over spmm_ranked, B = 5 columns,
+# the same matrix, card and timing, printed by chip_smoke.py):
+# (47.27 us / 5122) / (50.06 us / 8192) = 1.510. Both SpMM kernels still
+# give a thread a row (kernels/csrc/slot_walk.cuh), so the ratio is the
+# slot walk's, and packed's fewer sub-tiles win on lap2d_1024 after RCM.
+SPMM_PACKED_OVER_RANKED = 1.510
 
 # tpu_plan's gate for its sampled slot statistics.
 _MAX_ROW_FOR_SAMPLING = 2048
@@ -112,7 +122,11 @@ def packed_x_fits(mat) -> bool:
     return resident_x_fits(types.SimpleNamespace(n=mat.n, vals=None))
 
 
-def gpu_plan(mat, assume_rcm: bool = False) -> GpuPlan:
+def gpu_plan(mat, assume_rcm: bool = False, spmm: bool = False) -> GpuPlan:
+    """The plan for y = A @ x, or with spmm for Y = A @ X: the packed
+    candidate is weighed by PACKED_OVER_RANKED or SPMM_PACKED_OVER_RANKED,
+    the ratio of the kernels that will run."""
+    r = SPMM_PACKED_OVER_RANKED if spmm else PACKED_OVER_RANKED
     d_s, _ = diagonal_profile(mat, sample_rows=256)
     if d_s <= DIA_MAX_DIAGS:
         d, fill = diagonal_profile(mat)
@@ -130,23 +144,23 @@ def gpu_plan(mat, assume_rcm: bool = False) -> GpuPlan:
         sampled, scale = sample_chunks(mat)
         s_ali, s_pk = subtile_counts(_aligned_slots(sampled)[1])
         s_ali, s_pk = s_ali * scale, s_pk * scale
-        if s_pk * PACKED_OVER_RANKED < s_ali and not packed_x_fits(mat):
+        if s_pk * r < s_ali and not packed_x_fits(mat):
             return GpuPlan(
                 "ranked", needs_rcm,
                 f"aligned rank windows: packed would walk {s_pk:.0f} "
-                f"sub-tiles x R={PACKED_OVER_RANKED:.2f} < {s_ali:.0f}, but "
+                f"sub-tiles x R={r:.2f} < {s_ali:.0f}, but "
                 f"x is past the L2 residency gate and packed has no "
                 f"windowed variant ({span})",
             )
-        if s_pk * PACKED_OVER_RANKED < s_ali:
+        if s_pk * r < s_ali:
             return GpuPlan(
                 "packed", needs_rcm,
                 f"packed mixed-height slabs: {s_pk:.0f} sub-tiles x "
-                f"R={PACKED_OVER_RANKED:.2f} < {s_ali:.0f} ranked ({span})",
+                f"R={r:.2f} < {s_ali:.0f} ranked ({span})",
             )
         return GpuPlan(
             "ranked", needs_rcm,
             f"aligned rank windows: {s_ali:.0f} sub-tiles <= {s_pk:.0f} "
-            f"packed x R={PACKED_OVER_RANKED:.2f} ({span})",
+            f"packed x R={r:.2f} ({span})",
         )
     return GpuPlan("ranked", needs_rcm, f"aligned rank windows ({span})")
