@@ -43,12 +43,19 @@ x is past the L2 residency gate):
      lower_solve_blocks) against their plain versions (RelL2 <= 1e-5)
      and a float64 forward substitution (RelL2 <= 1e-5, Number Wrong 0
      at 0.01 for x = ones), and times them warm and cold (the plain
-     versions, a host loop over the packs, eagerly), on lap2d_1024 in
-     level (LS) and COLOR order, lap3d_101 LS and banded_1m LS (the
-     column-binned rank windows); it prints the host set-up seconds
-     and each system's dependency depth, by rows and by chunks (the
-     kernel waits on whole chunks), also for lap2d_1024 k=3, and the time
-     of torch.triangular_solve on the system as a sparse CSR tensor;
+     versions, a host loop over the packs, eagerly), first on the
+     bidiagonal chain of 4096 rows (4096 chunks, each reading only the
+     one before: the least a dependency level costs, printed as us per
+     link), then on lap2d_1024 in level (LS) and COLOR order, lap3d_101
+     LS and banded_1m LS (the column-binned rank windows); it prints the
+     host set-up seconds and each system's dependency depth, by rows and
+     by chunks (the kernel waits on whole chunks), also for lap2d_1024
+     k=3, the solve's bound by bytes beside the floor of this design
+     (chunk levels times the kernel's own us per link: a floor of the
+     design, not of the card), the wait table's size, and
+     the time of torch.triangular_solve on the system as a sparse CSR
+     tensor; on lap2d_1024 LS two replays of one captured call of each
+     kernel must give the same bits;
   4. on lap3d_101 and lap2d_1024 checks IC0Preconditioner.apply against
      its plain version, times one CUDA-graph-captured PCG iteration and
      prints the residual as lap3d_101 converges;
@@ -288,29 +295,36 @@ def _segments(label, lay):
           "partial rows)", flush=True)
 
 
-def _replay_check(label, kernel, layout, mat, perm):
-    """Two replays of one captured call of `kernel` on the card give the
-    same bits (prints max |y1 - y2|, fails unless it is 0)."""
+def _replay_check(label, name, call):
+    """Two replays of one captured call() on the card give the same bits
+    (prints max |y1 - y2|, fails unless it is 0)."""
+    import torch
+
+    call()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    graph.replay()
+    y1 = out.clone()
+    graph.replay()
+    torch.cuda.synchronize()
+    diff = float((out - y1).abs().max())
+    print(f"    [{label}] two CUDA-graph replays of {name}: "
+          f"max |y1 - y2| = {diff}", flush=True)
+    if diff != 0.0:
+        raise SmokeFailure(f"{label}: graph replays differ by {diff}")
+
+
+def _spmv_replay_check(label, kernel, layout, mat, perm):
+    """_replay_check of one SpMV kernel on the layout, at x = X_SEED's."""
     import numpy as np
     import torch
 
     lay = layout.to(torch.device("cuda"))
     x = np.random.default_rng(X_SEED).standard_normal(mat.n).astype(np.float32)
     xt = torch.from_numpy(x[perm]).to(lay.vals.device)
-    kernel(lay, xt)
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        out = kernel(lay, xt)
-    graph.replay()
-    y1 = out.clone()
-    graph.replay()
-    torch.cuda.synchronize()
-    diff = float((out - y1).abs().max())
-    print(f"    [{label}] two CUDA-graph replays of {kernel.__name__}: "
-          f"max |y1 - y2| = {diff}", flush=True)
-    if diff != 0.0:
-        raise SmokeFailure(f"{label}: graph replays differ by {diff}")
+    _replay_check(label, kernel.__name__, lambda: kernel(lay, xt))
 
 
 def _phases(stats):
@@ -406,12 +420,12 @@ def _phases(stats):
     _segments(f"banded_1m ranked grouped G={ranked.num_groups}", ranked)
     _check_kernel("banded_1m ranked", spmv_ranked, spmv_ranked_reference,
                   ranked, mat, perm, mat, stats, csr=ck.matrix)
-    _replay_check("banded_1m ranked", spmv_ranked, ranked, mat, perm)
+    _spmv_replay_check("banded_1m ranked", spmv_ranked, ranked, mat, perm)
     sell = SellSlabs.from_csr(ck.matrix)
     _segments("banded_1m sell", sell)
     _check_kernel("banded_1m sell", spmv_sell, spmv_sell_reference,
                   sell, mat, perm, mat, stats, csr=ck.matrix)
-    _replay_check("banded_1m sell", spmv_sell, sell, mat, perm)
+    _spmv_replay_check("banded_1m sell", spmv_sell, sell, mat, perm)
     del sell
     packed = PackedRanked.from_csr(ck.matrix)
     _check_kernel("banded_1m packed", spmv_packed, spmv_packed_reference,
@@ -617,11 +631,15 @@ def _time_solve_library(label, sys_, b):
     return t
 
 
-def _check_solve(label, sys_, b, ranked, stats, setup, library_s):
+def _check_solve(label, sys_, b, ranked, stats, setup, library_s,
+                 link_us=None, replay=False):
     """One solve phase: build the layout (timed), kernel vs plain on the
     card, the float64 oracle, then warm and cold times (kernel from a
     CUDA graph, plain eagerly). library_s: the library solve's time on
-    the same system. Returns the layout (on the card)."""
+    the same system. link_us: kernel name -> its us per link on the
+    chain, for the bound by depth. replay: also _replay_check the
+    kernel. Returns the layout (on the card) and the kernel's warm
+    TimeMin in seconds."""
     import numpy as np
     import torch
 
@@ -640,7 +658,6 @@ def _check_solve(label, sys_, b, ranked, stats, setup, library_s):
     lay = LowerSolveLayout.build(sys_, b, ranked=ranked)
     setup = dict(setup, layout=time.perf_counter() - t0)
     chunk_depth = _chunk_depth(sys_, lay)
-    lay = lay.to(torch.device("cuda"))
     if lay.ranked is not None:
         kernel, plain = lower_solve_ranked, lower_solve_ranked_reference
         slabs, steps = lay.ranked, lay.ranked_steps
@@ -672,9 +689,14 @@ def _check_solve(label, sys_, b, ranked, stats, setup, library_s):
 
     nnz = sys_.lower.nnz
     bflat = bs.reshape(-1)
-    # Slabs read once, b read and x written once; the dependency depth
-    # (printed) bounds it from the other side.
+    # The bound: slabs read once, b read and x written once. Beside it,
+    # the floor of this design: each chunk level costs at least a link of
+    # this kernel's own chain (a floor of the design, not of the card).
     bound_ms, bound_by = _bound(slabs.nbytes + 8 * bs.numel(), 2 * nnz)
+    link = (link_us or {}).get(kernel.__name__)
+    depth_txt = "no chain link measured" if link is None else (
+        f"floor of this design (depth x own link) {chunk_depth} chunk "
+        f"levels x {link:.3f} us = {chunk_depth * link:.2f} us")
 
     def kfn(sl, bf):
         return kernel(sl, bf.view(-1, 128))
@@ -682,6 +704,8 @@ def _check_solve(label, sys_, b, ranked, stats, setup, library_s):
     def pfn(sl, bf):
         return plain(sl, bf.view(-1, 128), steps)
 
+    if replay:
+        _replay_check(label, kernel.__name__, lambda: kernel(slabs, bs))
     t0 = time.perf_counter()
     warm = bench_spmv(kfn, slabs, bflat, nnz=nnz)
     cold = bench_spmv_cold(kfn, slabs.clone, bflat, nnz=nnz,
@@ -696,9 +720,10 @@ def _check_solve(label, sys_, b, ranked, stats, setup, library_s):
         f"{rel_plain:.3g} (max abs {err:.3g}), Number Wrong {wrong}, RelL2 "
         f"vs f64 oracle {rel:.3g} | packs {sys_.num_packs}, dependency "
         f"levels {depth} (rows) / {chunk_depth} (chunks), chunks "
-        f"{slabs.num_chunks}, {shape}, slabs {slabs.nbytes / 2**20:.1f} MB | "
-        "host set-up s: " + ", ".join(f"{k_} {v:.2f}" for k_, v in
-                                      setup.items()),
+        f"{slabs.num_chunks}, {shape}, slabs {slabs.nbytes / 2**20:.1f} MB, "
+        f"wait table {slabs.wait_chunk.numel()} entries (at most "
+        f"{int(slabs.wait_ptr.diff().max())} a chunk) | host set-up s: "
+        + ", ".join(f"{k_} {v:.2f}" for k_, v in setup.items()),
         flush=True,
     )
     print(f"    kernel TimeMin/TimeAvg us (CUDA graph): warm "
@@ -710,22 +735,39 @@ def _check_solve(label, sys_, b, ranked, stats, setup, library_s):
           f"{1e6 * warm.time_min / chunk_depth:.3f} us per chunk level",
           flush=True)
     print(f"    plain  us per solve (eager host loop over the packs): warm "
-          f"{us(p_warm)}, cold {us(p_cold)} | bound {bound_ms * 1e3:.2f} us "
-          f"({bound_by}) | timing wall {time.perf_counter() - t0:.1f} s",
-          flush=True)
+          f"{us(p_warm)}, cold {us(p_cold)} | bound by bytes "
+          f"{bound_ms * 1e3:.2f} us ({bound_by}), {depth_txt} | timing wall "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     stats.setdefault(kernel.__name__, []).append(
         dict(label=label, err=err, ms=warm.time_min * 1e3,
              plain_ms=p_warm * 1e3, bound_ms=bound_ms, bound_by=bound_by,
              library_ms=library_s * 1e3)
     )
-    return lay
+    return lay, warm.time_min
 
 
 def _solve_phases(stats):
-    """Both solve kernels at full size, on the schedules users run."""
+    """Both solve kernels at full size, on the schedules users run, after
+    the bidiagonal chain that measures a link."""
+    from tpu_spmv_torch.bench.solve_times import CHAIN_ROWS, system
     from tpu_spmv_torch.sts.host import build_sts, compute_b, find_levels
     from tpu_spmv_torch.sts.solve import RANKED_SOLVE_MAX_NB, LowerSolveLayout
     from tpu_spmv_torch.tools.spmv import load_input
+
+    sys_ = system("chain")
+    b = compute_b(sys_.lower)
+    library_s = _time_solve_library("chain LS", sys_, b)
+    link_us = {}
+    for ranked in (True, False):
+        label = f"chain {CHAIN_ROWS} LS {'ranked' if ranked else 'blocks'}"
+        lay, t = _check_solve(label, sys_, b, ranked, stats, {}, library_s)
+        name = "lower_solve_ranked" if ranked else "lower_solve_blocks"
+        if ranked and lay.ranked is None:
+            raise SmokeFailure(f"{label}: no rank-windowed layout built")
+        link_us[name] = t * 1e6 / CHAIN_ROWS
+        print(f"    [{label}] {name}: {link_us[name]:.3f} us per link "
+              f"({CHAIN_ROWS} chunks in a chain, one real slot each)",
+              flush=True)
 
     for name, order, variants in (
         ("lap2d_1024", "LS", (True, False)),
@@ -742,8 +784,9 @@ def _solve_phases(stats):
         library_s = _time_solve_library(f"{name} {order}", sys_, b)
         for ranked in variants:
             label = f"{name} {order} {'ranked' if ranked else 'blocks'}"
-            lay = _check_solve(label, sys_, b, ranked, stats, setup,
-                               library_s)
+            lay, _ = _check_solve(label, sys_, b, ranked, stats, setup,
+                                  library_s, link_us,
+                                  replay=(name, order) == ("lap2d_1024", "LS"))
             if ranked and lay.ranked is None:
                 raise SmokeFailure(f"{label}: no rank-windowed layout built")
             if name == "banded_1m":
@@ -784,7 +827,6 @@ def _ic0_phases():
         t0 = time.perf_counter()
         pre = IC0Preconditioner.build(mat)
         build_s = time.perf_counter() - t0
-        pre = pre.to(dev)
         lay = RankedSlabs.from_csr(mat).to(dev)
         r = torch.from_numpy(np.random.default_rng(X_SEED).standard_normal(
             mat.m).astype(np.float32)).to(dev)
@@ -885,10 +927,9 @@ def _drive(steps):
 
 
 def _library_blocks():
-    """Launch counts of the library's lower_solve on layouts built (on
-    the host, before the counters are zeroed) with ranked=False."""
+    """Launch counts of the library's lower_solve on layouts built
+    (before the counters are zeroed) with ranked=False."""
     import numpy as np
-    import torch
 
     from tpu_spmv_torch.sts.host import build_sts, compute_b
     from tpu_spmv_torch.sts.solve import LowerSolveLayout, lower_solve
@@ -909,7 +950,7 @@ def _library_blocks():
     for name in ("lap2d_1024", "lap3d_101"):
         sys_ = build_sts(load_input(f"synthetic:{name}"), order_type="LS")
         lay = LowerSolveLayout.build(sys_, compute_b(sys_.lower), ranked=False)
-        steps.append(solve(name, lay.to(torch.device("cuda"))))
+        steps.append(solve(name, lay))
     return _drive(steps)
 
 

@@ -51,7 +51,8 @@ from tpu_spmv_torch.kernels.sts import (
     lower_solve_blocks, lower_solve_blocks_reference, lower_solve_ranked,
     lower_solve_ranked_reference,
 )
-from tpu_spmv_torch.sts.host import build_sts, compute_b
+from tpu_spmv_torch.bench.solve_times import bidiagonal_chain
+from tpu_spmv_torch.sts.host import build_sts, compute_b, split_lu
 from tpu_spmv_torch.sts.ic0 import (
     IC0Preconditioner, capture_pcg_step, pcg_ic0_init, pcg_ic0_solve,
 )
@@ -409,12 +410,105 @@ _SOLVES = {
 }
 
 
+def arrow_lower(n=3000, dense=3, seed=0):
+    """The lower triangle of random_banded(n, 20, 5) with its last
+    `dense` rows made full (diagonal 4, the rest 0.001). In level order
+    with sort_packs=False, which keeps a triangular input, each full
+    row's chunk holds about n / 8 sub-tiles (375 at n = 3000) and waits
+    on up to 530 chunks."""
+    lower, _ = split_lu(random_banded(n, 20, 5, seed=seed))
+    rows = np.repeat(np.arange(n), np.diff(lower.indptr))
+    keep = rows < n - dense
+    full = np.arange(n - dense, n)
+    R = np.concatenate([np.full(d + 1, d) for d in full])
+    C = np.concatenate([np.arange(d + 1) for d in full])
+    return CSRMatrix.from_coo(
+        np.concatenate([rows[keep], R]),
+        np.concatenate([lower.indices[keep], C]),
+        np.concatenate([lower.data[keep],
+                        np.where(R == C, 4.0, 0.001).astype(np.float32)]),
+        (n, n),
+    )
+
+
 def _solve_pair(lay):
     if lay.ranked is not None:
         return (lower_solve_ranked, lower_solve_ranked_reference, lay.ranked,
                 lay.ranked_steps)
     return (lower_solve_blocks, lower_solve_blocks_reference, lay.slabs,
             lay.slab_steps)
+
+
+def _check_solve_kernel(sys_, b, ranked):
+    """The solve kernel the layout picks (ranked or blocks) against its
+    plain version and the f64 oracle; returns the layout."""
+    lay = LowerSolveLayout.build(sys_, b, ranked=ranked)
+    assert lay.b_scale.device.type == "cuda"  # built for the card
+    kernel, plain, slabs, steps = _solve_pair(lay)
+    assert (kernel is lower_solve_ranked) == ranked
+    before = kernel.launches
+    xk = kernel(slabs, lay.b_scale)
+    xp = plain(slabs, lay.b_scale, steps)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert _rel(xk.cpu(), xp.cpu()) <= 1e-5
+    x = xk.reshape(-1)[lay.pad_index].cpu().numpy()
+    assert _rel(x, lower_solve_reference(sys_, b)) <= 1e-5
+    assert int(np.sum(np.abs(x - 1.0) > 0.01)) == 0
+    return lay
+
+
+@pytest.mark.parametrize("ranked", [True, False], ids=["ranked", "blocks"])
+def test_solve_kernels_on_chunks_past_the_prefetch(cuda, ranked):
+    """Full rows: chunks of up to 375 sub-tiles (the kernels hold 4
+    before their wait and stream the rest) waiting on up to 530 chunks
+    (a warp takes them 32 at a time)."""
+    sys_ = build_sts(arrow_lower(), order_type="LS", sort_packs=False)
+    lay = _check_solve_kernel(sys_, compute_b(sys_.lower), ranked)
+    slabs = _solve_pair(lay)[2]
+    assert int(slabs.chunk_ptr.diff().max()) > 4
+    assert int(slabs.wait_ptr.diff().max()) > 32
+
+
+@pytest.mark.parametrize("ranked", [True, False], ids=["ranked", "blocks"])
+def test_solve_kernels_on_a_chain(cuda, ranked):
+    """A bidiagonal chain of 3000 rows: 3000 chunks, each waiting on the
+    one before."""
+    sys_ = build_sts(bidiagonal_chain(3000), order_type="LS")
+    assert sys_.num_packs == 3000
+    _check_solve_kernel(sys_, compute_b(sys_.lower), ranked)
+
+
+def test_solve_kernels_refuse_a_layout_without_a_wait_table(cuda):
+    sys_ = build_sts(laplacian_2d(60), order_type="LS")
+    lay = LowerSolveLayout.build(sys_, compute_b(sys_.lower))
+    for kernel, slabs in ((lower_solve_ranked, lay.ranked),
+                          (lower_solve_blocks, lay.slabs)):
+        bare = dataclasses.replace(slabs, wait_ptr=None, wait_chunk=None)
+        before = kernel.launches
+        with pytest.raises(ValueError, match="no wait table"):
+            kernel(bare, lay.b_scale)
+        assert kernel.launches == before
+
+
+def test_solve_replays_bit_identical_past_the_prefetch(cuda):
+    """Two calls, and three replays of a captured call, on the full-row
+    system give the same bits: the streamed sub-tiles too are summed in
+    a fixed order."""
+    sys_ = build_sts(arrow_lower(), order_type="LS", sort_packs=False)
+    b = compute_b(sys_.lower)
+    for ranked in (True, False):
+        lay = LowerSolveLayout.build(sys_, b, ranked=ranked)
+        x1, x2 = lower_solve(lay), lower_solve(lay)
+        torch.cuda.synchronize()
+        assert torch.equal(x1, x2)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = lower_solve(lay)
+        for _ in range(3):
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out, x1)
 
 
 @pytest.mark.parametrize("ranked", [True, False], ids=["ranked", "blocks"])

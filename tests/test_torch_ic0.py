@@ -77,7 +77,7 @@ def test_ic0_systems_keep_their_raises(monkeypatch):
 
 def test_ic0_apply_matches_pallas_and_scipy():
     mat = random_banded(700, 30, 8, seed=5)
-    pre = tic0.IC0Preconditioner.build(mat)
+    pre = tic0.IC0Preconditioner.build(mat, device="cpu")
     jpre = jic0.IC0Preconditioner.build(mat)
     assert pre.breakdowns == jpre.breakdowns == 0
     _assert_same_solve_layout(jpre.lay_l, pre.lay_l)
@@ -101,7 +101,7 @@ def test_pcg_matches_jax_loop():
     mat = laplacian_2d(12)
     mat = mat.permuted(rcm(mat.indptr, mat.indices))
     b = np.random.default_rng(3).standard_normal(mat.m).astype(np.float32)
-    pre = tic0.IC0Preconditioner.build(mat)
+    pre = tic0.IC0Preconditioner.build(mat, device="cpu")
     x, rz = tic0.pcg_ic0_solve(RankedSlabs.from_csr(mat),
                                torch.from_numpy(b), pre, iters=10)
     xj, rzj = jic0.pcg_ic0_solve(
@@ -118,7 +118,7 @@ def test_pcg_step_state_and_guards():
     """pcg_ic0_step takes and returns (x, r, p, rz) as tensors, and once
     the residual is exactly zero the guards keep every value finite."""
     mat = laplacian_2d(10)
-    pre = tic0.IC0Preconditioner.build(mat)
+    pre = tic0.IC0Preconditioner.build(mat, device="cpu")
     lay = RankedSlabs.from_csr(mat)
     state = tic0.pcg_ic0_init(torch.zeros(mat.m), pre)
     assert float(state[3]) == 0.0

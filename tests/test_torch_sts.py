@@ -119,10 +119,10 @@ def test_solve_layout_matches_reference(case, ranked):
     sys_ = thost.build_sts(MATS[name](), **kw)
     b = thost.compute_b(sys_.lower)
     ref = jsolve.LowerSolveLayout.build(sys_, b, ranked=ranked)
-    port = tsolve.LowerSolveLayout.build(sys_, b, ranked=ranked)
+    port = tsolve.LowerSolveLayout.build(sys_, b, ranked=ranked, device="cpu")
     _assert_same_solve_layout(ref, port)
     assert port.kernel == ("ranked" if ranked else "blocks")
-    _assert_same_solve_layout(ref, tsolve.lower_solve_layout_from_jax(ref))
+    _assert_same_solve_layout(ref, tsolve.lower_solve_layout_from_jax(ref, device="cpu"))
 
 
 def test_binned_choice_matches_reference():
@@ -130,7 +130,7 @@ def test_binned_choice_matches_reference():
     weigh the binned widths by the same cost and keep the same one."""
     sys_ = thost.build_sts(_binned(), order_type="LS")
     b = thost.compute_b(sys_.lower)
-    port = tsolve.LowerSolveLayout.build(sys_, b)
+    port = tsolve.LowerSolveLayout.build(sys_, b, device="cpu")
     ref = jsolve.LowerSolveLayout.build(sys_, b)
     _assert_same_solve_layout(ref, port)
     assert port.ranked is not None
@@ -161,7 +161,7 @@ def test_plain_solve_matches_pallas_and_oracle(case, ranked):
     name, kw = _SOLVES[case]
     sys_ = thost.build_sts(MATS[name](), **kw)
     b = thost.compute_b(sys_.lower)
-    port = tsolve.LowerSolveLayout.build(sys_, b, ranked=ranked)
+    port = tsolve.LowerSolveLayout.build(sys_, b, ranked=ranked, device="cpu")
     assert port.kernel == ("ranked" if ranked else "blocks")
     x = tsolve.lower_solve(port).numpy()
     x_ref = tsolve.lower_solve_reference(sys_, b)
@@ -172,7 +172,7 @@ def test_plain_solve_matches_pallas_and_oracle(case, ranked):
     assert int(np.sum(np.abs(x - 1.0) > 0.01)) == 0
     # The JAX layout carried across solves to the same x.
     x_conv = tsolve.lower_solve(
-        tsolve.lower_solve_layout_from_jax(ref, sys_)
+        tsolve.lower_solve_layout_from_jax(ref, sys_, device="cpu")
     ).numpy()
     assert _rel(x_conv, x) <= 1e-6
 
@@ -183,12 +183,12 @@ def test_binned_plain_solve_matches_oracle():
     sys_ = thost.build_sts(_binned(), order_type="LS")
     b = np.random.default_rng(0).standard_normal(sys_.lower.m).astype(
         np.float32)
-    lay = tsolve.LowerSolveLayout.build(sys_, b)
+    lay = tsolve.LowerSolveLayout.build(sys_, b, device="cpu")
     assert lay.kernel == "ranked"
     x = tsolve.lower_solve(lay).numpy()
     x_ref = tsolve.lower_solve_reference(sys_, b)
     assert _rel(x, x_ref) <= 1e-5
-    blocks = tsolve.LowerSolveLayout.build(sys_, b, ranked=False)
+    blocks = tsolve.LowerSolveLayout.build(sys_, b, ranked=False, device="cpu")
     assert _rel(tsolve.lower_solve(blocks).numpy(), x_ref) <= 1e-5
 
 
@@ -196,7 +196,7 @@ def test_steps_by_pack_and_by_chunk_agree():
     """The plain versions give the same x stepping pack by pack (the
     layout's schedule) or chunk by chunk (no schedule)."""
     sys_ = thost.build_sts(MATS["banded"](), order_type="LS")
-    lay = tsolve.LowerSolveLayout.build(sys_, thost.compute_b(sys_.lower))
+    lay = tsolve.LowerSolveLayout.build(sys_, thost.compute_b(sys_.lower), device="cpu")
     assert lay.num_packs == sys_.num_packs
     steps = lay.ranked_steps
     assert steps.shape == (sys_.num_packs + 1, 2)
@@ -223,7 +223,7 @@ def test_padding_only_first_chunk():
     matrix makes every chunk so."""
     sys_ = thost.build_sts(MATS["lap2d"](), order_type="LS")
     lay = tsolve.LowerSolveLayout.build(sys_, thost.compute_b(sys_.lower),
-                                        ranked=False)
+                                        ranked=False, device="cpu")
     k = lay.slabs.chunk_ptr.numpy()
     first = slice(k[0] * 8, k[1] * 8)
     assert not lay.slabs.vals.numpy()[first].any()
@@ -238,7 +238,7 @@ def test_padding_only_first_chunk():
     assert dsys.num_packs == 1
     b = np.random.default_rng(1).standard_normal(n).astype(np.float32)
     for ranked in (True, False):
-        dl = tsolve.LowerSolveLayout.build(dsys, b, ranked=ranked)
+        dl = tsolve.LowerSolveLayout.build(dsys, b, ranked=ranked, device="cpu")
         x = tsolve.lower_solve(dl).numpy()
         assert _rel(x, b / diag.data[dsys.perm]) <= 1e-6
 
@@ -259,7 +259,7 @@ def test_upper_solve_scipy_parity():
     assert sys_.lower.nnz == mat.nnz
     for ranked in (True, False):
         lay = tsolve.LowerSolveLayout.build(sys_, b[rev][sys_.perm],
-                                            ranked=ranked)
+                                            ranked=ranked, device="cpu")
         x_r = np.zeros(mat.m, np.float32)
         x_r[sys_.perm] = tsolve.lower_solve(lay).numpy()
         assert _rel(x_r[rev], x_ref) <= 1e-5
@@ -267,7 +267,7 @@ def test_upper_solve_scipy_parity():
 
 def test_layout_moves_with_its_nested_slabs():
     sys_ = thost.build_sts(MATS["banded"](), order_type="LS")
-    lay = tsolve.LowerSolveLayout.build(sys_, thost.compute_b(sys_.lower))
+    lay = tsolve.LowerSolveLayout.build(sys_, thost.compute_b(sys_.lower), device="cpu")
     copy = lay.clone()
     assert copy.ranked.vals.data_ptr() != lay.ranked.vals.data_ptr()
     assert copy.slabs.cols.data_ptr() != lay.slabs.cols.data_ptr()

@@ -17,10 +17,17 @@ arrays alone:
              long row no longer leaves one thread walking all of it while
              the card idles. A chunk of one segment writes its rows
              directly; the segments of a split chunk write partials that
-             a second launch adds in segment order.
+             a second launch adds in segment order;
+  wait_ptr, wait_chunk
+             the wait table of a strict-L solve layout (`wait_fields`,
+             None on other layouts): the earlier chunks whose rows each
+             chunk's slots read, on which the solve kernels wait.
 
 The all-pad tail (sentinel chunk id num_chunks) lies past
-chunk_ptr[num_chunks] and belongs to no segment.
+chunk_ptr[num_chunks] and belongs to no segment. A container checks
+its tables once on the host when it is made (`_check_tables`), so a
+table built by hand raises before any launch; a move or a clone copies
+checked tables and checks nothing.
 
 Layout recap (see the reference module for the design): 128 rows form
 a chunk (one row per lane), a chunk's nonzeros are stored slot-major as
@@ -30,6 +37,7 @@ and an in-range column, so they are inert.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 
 import numpy as np
@@ -48,6 +56,12 @@ _UNROLL_BUDGET = 6144
 # 4, 8 and 16 time the same within noise on banded_1m
 # (tpu_spmv_torch/bench/walk_times.py; PERF.md).
 SEGMENT_SUBTILES = 8
+# The most sub-tiles a segment may hold: a block of the walk stages the
+# window bases of this many sub-tiles, one per thread (kMaxSegSubtiles
+# in kernels/csrc/sell.cu).
+MAX_SEGMENT_SUBTILES = LANES // SUBLANES
+# Sub-tiles per batch of the wait-table build (8M slots).
+_WAIT_BATCH = 8192
 # seg_chunk flag: the segment's chunk has more than one segment, so the
 # segment writes a row of partials instead of y.
 SPLIT_BIT = 1 << 30
@@ -97,12 +111,12 @@ def segment_fields(chunk_ptr) -> dict:
                    its last; the second launch adds those rows, in
                    order, into y.
 
-    Raises ValueError when SEGMENT_SUBTILES exceeds the 16 sub-tiles
-    whose bases a block of the kernel stages."""
+    Raises ValueError when SEGMENT_SUBTILES exceeds the
+    MAX_SEGMENT_SUBTILES whose bases a block of the kernel stages."""
     q = SEGMENT_SUBTILES
-    if not 1 <= q <= LANES // SUBLANES:
+    if not 1 <= q <= MAX_SEGMENT_SUBTILES:
         raise ValueError(f"segments of {q} sub-tiles: the walk stages "
-                         f"1 to {LANES // SUBLANES}")
+                         f"1 to {MAX_SEGMENT_SUBTILES}")
     ptr = np.asarray(chunk_ptr).astype(np.int64)
     nseg = np.maximum(-(-np.diff(ptr) // q), 1)
     first = np.cumsum(nseg) - nseg
@@ -122,6 +136,91 @@ def segment_fields(chunk_ptr) -> dict:
         seg_chunk=torch.from_numpy(seg_chunk.astype(np.int32)),
         split_seg=torch.from_numpy(split_seg.astype(np.int32)),
     )
+
+
+def _slot_blocks(layout, s0: int, s1: int) -> np.ndarray:
+    """(s1 - s0, 1024) int64 x block of every slot of sub-tiles s0..s1,
+    as the solve kernels decode it: cols >> 7 for SellSlabs, base(s, r)
+    from sub_b0 and the packed deltas plus lcols >> 7 for RankedSlabs
+    (the deltas also hold a grouped layout's group bases)."""
+    k0, k1 = s0 * SUBLANES, s1 * SUBLANES
+    if isinstance(layout, RankedSlabs):
+        bases = delta_bases_np(layout.sub_b0[s0:s1].cpu().numpy(),
+                               layout.sub_dlo[s0:s1].cpu().numpy(),
+                               layout.sub_dhi[s0:s1].cpu().numpy())
+        lcols = layout.lcols[k0:k1].cpu().numpy().astype(np.int64)
+        blk = bases[:, :, None] + (lcols.reshape(-1, SUBLANES, LANES) >> 7)
+    else:
+        blk = layout.cols[k0:k1].cpu().numpy().astype(np.int64) >> 7
+    return blk.reshape(s1 - s0, SUBLANES * LANES)
+
+
+def wait_fields(layout) -> dict:
+    """The wait table of a strict-L solve layout (SellSlabs or
+    RankedSlabs over the padded rows of sts/solve.LowerSolveLayout), as
+    the containers' fields:
+
+      wait_ptr    ((num_chunks+1,) int32) chunk c's entries are
+                  wait_chunk[wait_ptr[c]:wait_ptr[c+1]];
+      wait_chunk  ((W,) int32) the distinct blocks b < c that any slot
+                  of chunk c reads, latest first.
+
+    Derived from the slabs themselves, padding slots included, so it
+    covers exactly what the solve kernels gather (a slot whose block is
+    >= c, or whose column is negative, is padding they skip) and is the
+    same for a layout built on either package. The solve kernels wait
+    on these chunks' ready flags, each once, before their gathers."""
+    C = layout.num_chunks
+    cp = layout.chunk_ptr.cpu().numpy().astype(np.int64)
+    owner = np.repeat(np.arange(C, dtype=np.int64), np.diff(cp))
+    keys = [np.zeros(0, np.int64)]
+    for s0 in range(0, owner.size, _WAIT_BATCH):
+        s1 = min(s0 + _WAIT_BATCH, owner.size)
+        blk = _slot_blocks(layout, s0, s1)
+        c = owner[s0:s1, None]
+        keys.append(np.unique((c * C + blk)[(blk >= 0) & (blk < c)]))
+    key = np.unique(np.concatenate(keys))
+    chunk, blk = np.divmod(key, C)
+    order = np.lexsort((-blk, chunk))  # by chunk, latest block first
+    ptr = np.zeros(C + 1, np.int64)
+    np.cumsum(np.bincount(chunk, minlength=C), out=ptr[1:])
+    return dict(
+        wait_ptr=torch.from_numpy(ptr.astype(np.int32)),
+        wait_chunk=torch.from_numpy(blk[order].astype(np.int32)),
+    )
+
+
+def _check_tables(layout) -> None:
+    """Host checks of a container's derived tables, once when it is
+    made (not when moved or cloned), never per call: no segment longer
+    than MAX_SEGMENT_SUBTILES (a longer one would read past the bases
+    the walk stages), and a wait table that ends at its length and
+    names only earlier chunks (a later one could deadlock the solve).
+    Raises ValueError."""
+    seg_ptr = layout.seg_ptr
+    if seg_ptr is not None and seg_ptr.numel() > 1:
+        longest = int(seg_ptr.diff().max())
+        if longest > MAX_SEGMENT_SUBTILES:
+            raise ValueError(
+                f"a segment of {longest} sub-tiles: the walk stages the "
+                f"bases of at most {MAX_SEGMENT_SUBTILES}; build the table "
+                "with segment_fields"
+            )
+    ptr, chunks = layout.wait_ptr, layout.wait_chunk
+    if ptr is None and chunks is None:
+        return
+    if ptr is None or chunks is None or ptr.numel() != layout.num_chunks + 1:
+        raise ValueError("the wait table needs wait_ptr (num_chunks+1,) and "
+                         "wait_chunk together; build it with wait_fields")
+    counts = ptr.long().diff()
+    if int(ptr[0]) != 0 or int(ptr[-1]) != chunks.numel() or bool(
+            (counts < 0).any()):
+        raise ValueError("wait_ptr must rise from 0 to wait_chunk.numel()")
+    owner = torch.repeat_interleave(
+        torch.arange(layout.num_chunks, device=ptr.device), counts)
+    if bool(((chunks < 0) | (chunks.long() >= owner)).any()):
+        raise ValueError("the wait table names a chunk that is not earlier "
+                         "than its waiter")
 
 
 def _aligned_slots(mat: CSRMatrix, gap: int = LANES, cap_factor: float = 2.0):
@@ -367,6 +466,17 @@ def group_windows(sub_base, hi_units, rank_nb0: int):
     return gb, gmat.T.reshape(-1).astype(np.int32), group_code
 
 
+def delta_bases_np(sub_b0, sub_dlo, sub_dhi) -> np.ndarray:
+    """(S, 8) int64 window base per (sub-tile, sublane) from sub_b0 and
+    the packed deltas, each byte read as unsigned (the host twin of
+    kernels/sell.delta_bases)."""
+    shifts = np.arange(0, 32, 8, dtype=np.uint32)
+    lo = (np.asarray(sub_dlo).view(np.uint32)[:, None] >> shifts) & 255
+    hi = (np.asarray(sub_dhi).view(np.uint32)[:, None] >> shifts) & 255
+    return (np.asarray(sub_b0).astype(np.int64)[:, None]
+            + np.concatenate([lo, hi], 1).astype(np.int64))
+
+
 def real_windows(sub_b0, sub_dlo, sub_dhi, sub_chunk, num_chunks: int,
                  tile_k: int, rank_nb: int):
     """(win_b0, win_span): the x window of each tile of tile_k sublanes
@@ -380,11 +490,7 @@ def real_windows(sub_b0, sub_dlo, sub_dhi, sub_chunk, num_chunks: int,
     kernels read 0 for a slot outside its tile's window. win_span is the
     widest tile's span plus the paired-read blocks, rounded up to 8, as
     win_w is."""
-    sub_b0 = np.asarray(sub_b0).astype(np.int64)
-    shifts = np.arange(0, 32, 8, dtype=np.uint32)
-    lo = (np.asarray(sub_dlo).view(np.uint32)[:, None] >> shifts) & 255
-    hi = (np.asarray(sub_dhi).view(np.uint32)[:, None] >> shifts) & 255
-    bases = sub_b0[:, None] + np.concatenate([lo, hi], 1).astype(np.int64)
+    bases = delta_bases_np(sub_b0, sub_dlo, sub_dhi)
     real = np.asarray(sub_chunk) < num_chunks
     spt = tile_k // SUBLANES
     T = bases.shape[0] // spt if spt else 0
@@ -433,11 +539,15 @@ class TensorLayout:
         }
 
     def _map(self, fn):
-        return dataclasses.replace(
-            self,
-            **{k: fn(v) for k, v in self.tensors().items()},
-            **{k: v._map(fn) for k, v in self._nested().items()},
-        )
+        # A shallow copy, not dataclasses.replace: the mapped tensors hold
+        # the same values, so the copy skips __post_init__'s host checks
+        # (no device-to-host sync on a move or a clone).
+        out = copy.copy(self)
+        for k, v in self.tensors().items():
+            setattr(out, k, fn(v))
+        for k, v in self._nested().items():
+            setattr(out, k, v._map(fn))
+        return out
 
     def to(self, device):
         return self._map(lambda t: t.to(device))
@@ -474,6 +584,11 @@ class SellSlabs(TensorLayout):
     num_chunks: int
     max_nb: int
     chunk_q: int = 0
+    wait_ptr: torch.Tensor | None = None  # (num_chunks+1,) int32 wait_fields
+    wait_chunk: torch.Tensor | None = None  # (W,) int32 earlier chunks read
+
+    def __post_init__(self):
+        _check_tables(self)
 
     @property
     def num_subtiles(self) -> int:
@@ -628,6 +743,11 @@ class RankedSlabs(TensorLayout):
     tile_k: int = 2048
     group_code: int = 0
     win_span: int = 0  # real_windows: blocks per window of the port's kernels
+    wait_ptr: torch.Tensor | None = None  # (num_chunks+1,) int32 wait_fields
+    wait_chunk: torch.Tensor | None = None  # (W,) int32 earlier chunks read
+
+    def __post_init__(self):
+        _check_tables(self)
 
     @property
     def groups(self) -> tuple:

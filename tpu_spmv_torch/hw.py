@@ -78,6 +78,19 @@ def _on_card(device) -> bool:
     return torch.cuda.is_available()
 
 
+def target_device(device=None) -> torch.device:
+    """The device a layout is built for: `device`, or the card when None.
+    Raises RuntimeError for a CUDA device when no card is present (pass
+    device="cpu" for the plain versions)."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on a CUDA card (pass "
+            'device="cpu" for the plain PyTorch versions)'
+        )
+    return device
+
+
 def l2_bytes(device=None) -> int:
     """L2 bytes of the CUDA card `device` (a CUDA device, or None for the
     current card when one is present); H100_L2_BYTES for a CPU device or

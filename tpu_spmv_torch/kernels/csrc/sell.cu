@@ -65,7 +65,8 @@ namespace {
 constexpr int kLanes = 128;
 constexpr int kSublanes = 8;
 // Bases staged per segment: 16 sub-tiles x 8 sublanes, one per thread.
-// formats/sell.segment_fields refuses longer segments.
+// Nothing here checks a segment's length: the containers do, on the
+// host, once (formats/sell.MAX_SEGMENT_SUBTILES, _check_tables).
 constexpr int kMaxSegSubtiles = kLanes / kSublanes;
 constexpr int kSplitBit = 1 << 30;
 

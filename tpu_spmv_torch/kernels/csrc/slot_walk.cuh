@@ -1,7 +1,6 @@
 // One thread per row, walking that row's slots of a rank-windowed slab
 // layout: the body shared by csrc/packed.cu (spmv_packed) and
-// csrc/spmm.cu (spmm_ranked, spmm_packed). csrc/sts.cu (the ranked
-// solve) reuses its column decode, SubTile and slot_base.
+// csrc/spmm.cu (spmm_ranked, spmm_packed).
 //
 // Layout (tpu_spmv_torch/formats/{sell,packed}.py): 128 rows form a
 // chunk, one row per lane; slot k of the slabs holds, at lane l, a

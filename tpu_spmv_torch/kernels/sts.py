@@ -19,23 +19,23 @@ sub-tile, an accumulating `index_put_` into the chunks, then
 x[chunks] = b_scale - acc.
 A step is a run of chunks whose rows are mutually independent: one pack
 of the schedule (`steps` from `solve_steps(chunk_ptr, pack_chunk_ptr)`),
-or one chunk when no schedule is given. The kernel needs no steps.
+or one chunk when no schedule is given. The kernels need no steps; they
+need the slabs' wait table (formats/sell.wait_fields, which
+LowerSolveLayout.build fills): the earlier chunks each chunk waits on.
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor
-it launches the kernel or raises. `<wrapper>.launches` counts kernel
-launches.
+it launches the kernel or raises (a layout without a wait table
+raises). `<wrapper>.launches` counts kernel launches.
 """
 
 from __future__ import annotations
-
-import dataclasses
 
 import numpy as np
 import torch
 
 from tpu_spmv_torch.formats.sell import LANES, SUBLANES, RankedSlabs, SellSlabs
 from tpu_spmv_torch.kernels import _build
-from tpu_spmv_torch.kernels.sell import _LCOL_KIND, ranked_bases
+from tpu_spmv_torch.kernels.sell import _LCOL_KIND, delta_bases
 
 
 def solve_steps(chunk_ptr, pack_chunk_ptr=None) -> np.ndarray:
@@ -94,7 +94,7 @@ def lower_solve_ranked_reference(ranked: RankedSlabs, b_scale: torch.Tensor,
     bases), as the kernels do."""
     if steps is None:
         steps = solve_steps(ranked.chunk_ptr)
-    bases = ranked_bases(dataclasses.replace(ranked, group_code=0))
+    bases = delta_bases(ranked)
     lcols = ranked.lcols.view(-1, SUBLANES, LANES)
     return _solve_plain(
         ranked.vals,
@@ -107,7 +107,8 @@ def lower_solve_ranked_reference(ranked: RankedSlabs, b_scale: torch.Tensor,
 def _check(layout, b_scale: torch.Tensor, what: str) -> None:
     """What both kernels require: b_scale float32 (num_chunks + 1, 128),
     contiguous, on a CUDA device, with every layout tensor contiguous on
-    that device; float32 values; chunk_ptr (num_chunks + 1,) int32."""
+    that device; float32 values; chunk_ptr (num_chunks + 1,) int32; and
+    the wait table."""
     if b_scale.device.type != "cuda":
         raise ValueError(f"{what}: b_scale is on {b_scale.device}, not a "
                          "CUDA device")
@@ -131,11 +132,26 @@ def _check(layout, b_scale: torch.Tensor, what: str) -> None:
         layout.chunk_ptr.numel() != layout.num_chunks + 1
     ):
         raise ValueError(f"{what}: chunk_ptr must be (num_chunks+1,) int32")
+    if layout.wait_ptr is None:
+        raise ValueError(
+            f"{what}: layout has no wait table (wait_ptr); build it with "
+            "sts.solve.LowerSolveLayout.build or lower_solve_layout_from_jax "
+            "(formats.sell.wait_fields)"
+        )
+    # Their values were checked on the host when the container was made
+    # (formats/sell._check_tables).
+    if (layout.wait_ptr.dtype != torch.int32
+            or layout.wait_chunk.dtype != torch.int32
+            or layout.wait_ptr.numel() != layout.num_chunks + 1
+            or layout.wait_chunk.dim() != 1):
+        raise ValueError(f"{what}: the wait table must be int32 wait_ptr "
+                         "(num_chunks+1,) and wait_chunk (W,)")
 
 
 def _outputs(num_chunks: int, x_blocks: int, device):
     """x and the flags (ready per chunk, then the ticket); the C entry
-    zeroes both on the launch stream."""
+    zeroes the flags and x's rows past the chunks on the launch stream,
+    and the kernel writes every chunk's rows."""
     return (
         torch.empty(x_blocks, LANES, dtype=torch.float32, device=device),
         torch.empty(num_chunks + 1, dtype=torch.int32, device=device),
@@ -155,7 +171,8 @@ def lower_solve_blocks(slabs: SellSlabs, b_scale: torch.Tensor,
     x, flags = _outputs(C, C + 1, b_scale.device)
     rc = _build.library().tsp_lower_solve_blocks(
         slabs.vals.data_ptr(), slabs.cols.data_ptr(),
-        slabs.chunk_ptr.data_ptr(), b_scale.data_ptr(), x.data_ptr(),
+        slabs.chunk_ptr.data_ptr(), slabs.wait_ptr.data_ptr(),
+        slabs.wait_chunk.data_ptr(), b_scale.data_ptr(), x.data_ptr(),
         flags.data_ptr(), C, C + 1, _build.stream_of(b_scale),
     )
     _build.check(rc, "lower_solve_blocks")
@@ -182,7 +199,8 @@ def lower_solve_ranked(ranked: RankedSlabs, b_scale: torch.Tensor,
         _LCOL_KIND[ranked.lcols.dtype], ranked.vals.data_ptr(),
         ranked.lcols.data_ptr(), ranked.sub_b0.data_ptr(),
         ranked.sub_dlo.data_ptr(), ranked.sub_dhi.data_ptr(),
-        ranked.chunk_ptr.data_ptr(), b_scale.data_ptr(), x.data_ptr(),
+        ranked.chunk_ptr.data_ptr(), ranked.wait_ptr.data_ptr(),
+        ranked.wait_chunk.data_ptr(), b_scale.data_ptr(), x.data_ptr(),
         flags.data_ptr(), C, x_blocks, _build.stream_of(b_scale),
     )
     _build.check(rc, "lower_solve_ranked")

@@ -29,6 +29,7 @@ import torch
 
 from tpu_spmv_torch.formats.csr import CSRMatrix
 from tpu_spmv_torch.formats.sell import TensorLayout
+from tpu_spmv_torch.hw import target_device
 from tpu_spmv_torch.sts.host import build_sts, reversed_for_upper, split_lu
 from tpu_spmv_torch.sts.solve import LowerSolveLayout, lower_solve
 
@@ -132,17 +133,20 @@ class IC0Preconditioner(TensorLayout):
     breakdowns: int = 0
 
     @classmethod
-    def build(cls, mat: CSRMatrix) -> "IC0Preconditioner":
+    def build(cls, mat: CSRMatrix, device=None) -> "IC0Preconditioner":
+        """Factor and both solve layouts, on `device` (default: the
+        card; raises without one, hw.target_device)."""
+        device = target_device(device)
         L, bad, sys_l, inv_l, rev, sys_u, inv_u = _build_ic0_systems(mat)
         b_dummy = np.zeros(L.m, np.float32)
         return cls(
-            lay_l=LowerSolveLayout.build(sys_l, b_dummy),
-            lay_u=LowerSolveLayout.build(sys_u, b_dummy),
+            lay_l=LowerSolveLayout.build(sys_l, b_dummy, device=device),
+            lay_u=LowerSolveLayout.build(sys_u, b_dummy, device=device),
             idx0=torch.from_numpy(np.asarray(sys_l.perm, np.int64)),
             idx1=torch.from_numpy(inv_l[rev[sys_u.perm]].astype(np.int64)),
             idx2=torch.from_numpy(inv_u[rev].astype(np.int64)),
             breakdowns=bad,
-        )
+        ).to(device)
 
     def apply(self, r: torch.Tensor, plain: bool = False) -> torch.Tensor:
         """z = (L L^T)^-1 r, on r's device (two triangular solves;

@@ -15,10 +15,16 @@ The host layout is the reference's, array for array:
 The device solve differs: the TPU kernels rely on a grid that runs in
 order on one core, while the port's kernels (kernels/sts.py,
 csrc/sts.cu) order the chunks themselves with a ticket and per-chunk
-ready flags. The layout adds what the plain versions need on the host:
-the chunk range of each pack (from `sys.pack_ptr` and the padding) and
-the sub-tile range that goes with it, for the slabs and for the ranked
-layout.
+ready flags. The layout adds what each side needs: the wait table of
+the slabs and of the ranked layout (formats/sell.wait_fields: the
+earlier chunks each chunk reads, on which the kernels wait), and on the
+host, for the plain versions, the chunk range of each pack (from
+`sys.pack_ptr` and the padding) and the sub-tile range that goes with
+it.
+
+The builders build for the card unless asked for another device
+(`device="cpu"` for the plain versions), and raise without one
+(hw.target_device).
 """
 
 from __future__ import annotations
@@ -30,8 +36,9 @@ import torch
 
 from tpu_spmv_torch.formats.csr import CSRMatrix
 from tpu_spmv_torch.formats.sell import (
-    LANES, RankedSlabs, SellSlabs, TensorLayout, to_tensor,
+    LANES, RankedSlabs, SellSlabs, TensorLayout, to_tensor, wait_fields,
 )
+from tpu_spmv_torch.hw import target_device
 from tpu_spmv_torch.kernels.sts import (
     lower_solve_blocks, lower_solve_blocks_reference, lower_solve_ranked,
     lower_solve_ranked_reference, solve_steps,
@@ -61,6 +68,12 @@ def ranked_subtile_cost(rank_nb: int) -> float:
 
 def _round_up_arr(a: np.ndarray, mult: int) -> np.ndarray:
     return -(-a // mult) * mult
+
+
+def _with_waits(slabs):
+    """The slabs (SellSlabs, RankedSlabs or None) with their wait table."""
+    return (None if slabs is None
+            else dataclasses.replace(slabs, **wait_fields(slabs)))
 
 
 @dataclasses.dataclass
@@ -97,10 +110,13 @@ class LowerSolveLayout(TensorLayout):
     @classmethod
     def build(
         cls, sys: TriangularSystem, b: np.ndarray, ranked: bool = True,
+        device=None,
     ) -> "LowerSolveLayout":
         """Build from a host TriangularSystem and right-hand side b (both
-        in the system's permuted row order). ranked=False skips the
-        rank-windowed search and always runs the blocks solve."""
+        in the system's permuted row order), on `device` (default: the
+        card; raises without one, hw.target_device). ranked=False skips
+        the rank-windowed search and always runs the blocks solve."""
+        device = target_device(device)
         L = sys.lower
         m = L.m
         lens = L.row_lengths
@@ -171,16 +187,16 @@ class LowerSolveLayout(TensorLayout):
         dpad[pad_index] = inv_diag
         pack_chunk_ptr = pad_start // LANES
         return cls(
-            slabs=slabs,
+            slabs=_with_waits(slabs),
             b_scale=to_tensor(bpad.reshape(num_chunks + 1, LANES)),
             inv_diag=to_tensor(dpad.reshape(num_chunks + 1, LANES)),
             pad_index=to_tensor(pad_index.astype(np.int32)),
             m=m,
             slab_steps=solve_steps(slabs.chunk_ptr, pack_chunk_ptr),
-            ranked=ranked,
+            ranked=_with_waits(ranked),
             ranked_steps=(None if ranked is None
                           else solve_steps(ranked.chunk_ptr, pack_chunk_ptr)),
-        )
+        ).to(device)
 
 
 def lower_solve(layout: LowerSolveLayout,
@@ -218,17 +234,19 @@ def lower_solve_reference(sys: TriangularSystem, b: np.ndarray) -> np.ndarray:
     return x
 
 
-def lower_solve_layout_from_jax(jax_layout, sys: TriangularSystem | None = None
-                                ) -> LowerSolveLayout:
+def lower_solve_layout_from_jax(jax_layout, sys: TriangularSystem | None = None,
+                                device=None) -> LowerSolveLayout:
     """The port's layout for a JAX-package LowerSolveLayout (its arrays
-    read through NumPy; JAX is never imported). With `sys`, the system
-    it was built from, the plain versions step pack by pack; without,
-    chunk by chunk."""
+    read through NumPy; JAX is never imported), with the wait tables
+    derived from its slabs, on `device` as LowerSolveLayout.build places
+    it. With `sys`, the system it was built from, the plain versions
+    step pack by pack; without, chunk by chunk."""
     from tpu_spmv_torch.formats.convert import from_reference
 
-    slabs = from_reference(jax_layout.slabs)
+    device = target_device(device)
+    slabs = _with_waits(from_reference(jax_layout.slabs))
     ranked = (None if jax_layout.ranked is None
-              else from_reference(jax_layout.ranked))
+              else _with_waits(from_reference(jax_layout.ranked)))
     pack_chunk_ptr = None
     if sys is not None:
         padded = np.maximum(_round_up_arr(np.diff(sys.pack_ptr), LANES), LANES)
@@ -243,7 +261,7 @@ def lower_solve_layout_from_jax(jax_layout, sys: TriangularSystem | None = None
         ranked=ranked,
         ranked_steps=(None if ranked is None
                       else solve_steps(ranked.chunk_ptr, pack_chunk_ptr)),
-    )
+    ).to(device)
 
 
 __all__ = [

@@ -94,12 +94,11 @@ def main(argv=None):
     b_host = np.ones(mat.m, np.float32)
     t0 = time.perf_counter()
     lay = RankedSlabs.from_csr(mat).to(device)
-    pre = IC0Preconditioner.build(mat)
+    pre = IC0Preconditioner.build(mat, device=device)
     print(f"ic0: rows={pre.lay_l.m} breakdowns={pre.breakdowns}")
     print(f"ic0 solves: L {pre.lay_l.kernel} ({pre.lay_l.num_packs} packs), "
           f"L^T {pre.lay_u.kernel} ({pre.lay_u.num_packs} packs); host "
           f"set-up {time.perf_counter() - t0:.2f}s")
-    pre = pre.to(device)
     b = torch.from_numpy(b_host).to(device)
 
     t0 = time.perf_counter()

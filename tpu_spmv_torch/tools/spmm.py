@@ -31,9 +31,8 @@ import sys
 import numpy as np
 import torch
 
-from tpu_spmv_torch.tools.spmv import (
-    fit_window, load_input, target_device, x_budget,
-)
+from tpu_spmv_torch.hw import target_device
+from tpu_spmv_torch.tools.spmv import fit_window, load_input, x_budget
 
 # Options of the JAX CLI that the port does not run yet, and the
 # ROADMAP.md queue-A item that ports each.
@@ -43,7 +42,7 @@ REFUSED_DISTRIBUTED = "A13 (distributed layer)"
 def build_spmm(mat, kernel: str, B: int, val_dtype=None, device=None):
     """(layout on `device`, spmm function, passes over the slabs), as
     tpu_spmv/tools/spmm.py:85-192 chooses them; device defaults to the
-    card (tools/spmv.target_device). auto takes packed when the planner
+    card (hw.target_device). auto takes packed when the planner
     picks it for SpMM (gpu_plan(spmm=True)), the build succeeds and X
     passes the residency gate (resident_x_fits at batch=B); otherwise
     the ranked layout, with spmm_ranked when X passes the gate (or under

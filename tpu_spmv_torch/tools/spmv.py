@@ -127,24 +127,11 @@ def fit_window(layout, batch: int, device, rebuild):
     return layout, cols
 
 
-def target_device(device=None) -> torch.device:
-    """The device a layout is built for: `device`, or the card when None.
-    Raises RuntimeError for a CUDA device when no card is present (pass
-    device="cpu" for the plain versions)."""
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device: the port runs on a CUDA card (pass "
-            'device="cpu" for the plain PyTorch versions)'
-        )
-    return device
-
-
 def build_layout(matrix, kernel: str, val_dtype=None, bin_blocks: int = 0,
                  device=None):
     """(layout on `device`, spmv function, kernel actually used) for
     kernel in dia/packed/ranked/sell; device defaults to the card
-    (target_device). Routed as tpu_spmv/tools/spmv.py
+    (hw.target_device). Routed as tpu_spmv/tools/spmv.py
     routes them: a packed build that exceeds the packed-delta range
     falls back to ranked, and a ranked one to sell, each saying so; past
     the x residency gate (kernels/dia.dia_x_fits, kernels/sell.
@@ -164,7 +151,7 @@ def build_layout(matrix, kernel: str, val_dtype=None, bin_blocks: int = 0,
         window_bytes,
     )
 
-    device = target_device(device)
+    device = hw.target_device(device)
     if kernel == "packed":
         try:
             layout = PackedRanked.from_csr(

@@ -84,12 +84,11 @@ def main(argv=None):
     )
 
     b = compute_b(sys_.lower)  # x_exact = ones
-    layout = LowerSolveLayout.build(sys_, b)
+    layout = LowerSolveLayout.build(sys_, b, device=device)
     kind = layout.kernel
     detail = (f"rank_nb {layout.ranked.rank_nb}" if layout.ranked is not None
               else f"max_nb {layout.slabs.max_nb}")
     print(f"solve kernel: {kind} ({layout.slabs.num_chunks} chunks, {detail})")
-    layout = layout.to(device)
 
     x = lower_solve(layout).cpu().numpy()
     num_wrong = int(np.sum(np.abs(x - 1.0) > args.tol))
