@@ -28,9 +28,13 @@ x is past the L2 residency gate):
      (lap2d_4096 f32 and bf16, lap2d_1024), spmv_ranked_windowed
      (lap2d_4096 and lap2d_1024 after RCM, banded_1m) and
      spmm_ranked_windowed (lap2d_1024 after RCM, B = 8 and 5 at the
-     CLI's tile and column passes) are also held to their resident
-     kernels on the same layout, and lap2d_4096's host set-up seconds
-     are printed; before each phase of spmv_ranked and spmv_sell a line
+     CLI's step and column passes) are also held to their resident
+     kernels on the same layout (spmv_ranked_windowed to spmv_ranked
+     bit for bit, and two replays of a captured call of it must give
+     the same bits), before each ring phase a line gives the ring's
+     bytes, the steps, the CTAs, the column passes and the launches per
+     call (lap2d_1024 at B = 8 must run in one pass), and lap2d_4096's
+     host set-up seconds are printed; before each phase of spmv_ranked and spmv_sell a line
      gives the segment table it walks (segments, Q, split chunks and
      their partial rows), and on banded_1m two replays of one captured
      call of each must give the same bits (max |y1 - y2| printed);
@@ -174,11 +178,12 @@ def _time_library(csr, xt, nnz):
 
 
 def _check_kernel(label, kernel, plain, layout, mat, perm, oracle, stats,
-                  batch=None, twin=None, csr=None):
+                  batch=None, twin=None, csr=None, twin_equal=False):
     """One phase: kernel vs plain on the card, oracle validation, warm
     and cold timings of both. x is (n,), or (n, batch) for an SpMM.
     twin: a windowed kernel's resident counterpart, run on the same
-    layout and x (max difference printed). csr: the matrix the layout
+    layout and x (max difference printed; with twin_equal the two must
+    give the same bits). csr: the matrix the layout
     was built from, for the library call's time (f32 layouts only).
     Appends to stats[kernel name] and returns the kernel's warm
     TimeMin in seconds."""
@@ -205,7 +210,12 @@ def _check_kernel(label, kernel, plain, layout, mat, perm, oracle, stats,
     del yp
     twin_err = None
     if twin is not None:
-        twin_err = float((yk - twin(lay, xt)).abs().max())
+        y_twin = twin(lay, xt)
+        twin_err = float((yk - y_twin).abs().max())
+        if twin_equal and not torch.equal(yk, y_twin):
+            raise SmokeFailure(f"{label}: not bit for bit {twin.__name__}'s "
+                               f"result (max difference {twin_err:.3g})")
+        del y_twin
     if delta != 1:
         raise SmokeFailure(f"{label}: launch counter moved by {delta}, not 1")
     if not err <= PLAIN_TOL * scale:
@@ -316,6 +326,23 @@ def _replay_check(label, name, call):
         raise SmokeFailure(f"{label}: graph replays differ by {diff}")
 
 
+def _ring(label, lay, batch=1, passes=1):
+    """One line on the ring a windowed phase walks (formats/sell.
+    window_fields): its shared memory (ring and stages), the steps, the
+    CTAs a launch runs, the column passes and the device launches per
+    call."""
+    from tpu_spmv_torch.kernels.sell import (
+        window_bytes, windowed_ctas, windowed_launches,
+    )
+
+    print(f"    [{label}] ring {lay.ring_blocks} blocks x {batch} column(s) "
+          f"and stages of {lay.stage_subtiles} sub-tiles = "
+          f"{window_bytes(lay, batch)} bytes of shared memory, "
+          f"{lay.step_lo.numel()} steps of {lay.step_subtiles} sub-tile(s), "
+          f"{windowed_ctas(lay, batch)} CTAs, {passes} column pass(es), "
+          f"{windowed_launches(lay, batch)} launch(es) per call", flush=True)
+
+
 def _spmv_replay_check(label, kernel, layout, mat, perm):
     """_replay_check of one SpMV kernel on the layout, at x = X_SEED's."""
     import numpy as np
@@ -377,11 +404,12 @@ def _phases(stats):
             r_times["ranked"] = (t, int(lay.chunk_ptr[-1]))
             # The same layout through the windowed kernel (x of 4 MB
             # passes the gate: a comparison, not a CLI route).
-            _check_kernel(f"lap2d_1024 rcm ranked_windowed {kind} tile "
-                          f"{lay.tile_k} win_span {lay.win_span}",
-                          spmv_ranked_windowed,
+            label = f"lap2d_1024 rcm ranked_windowed {kind}"
+            _ring(label, lay)
+            _check_kernel(label, spmv_ranked_windowed,
                           spmv_ranked_windowed_reference, lay, mat, perm,
-                          mat, stats, twin=spmv_ranked, csr=ck.matrix)
+                          mat, stats, twin=spmv_ranked, csr=ck.matrix,
+                          twin_equal=True)
     sell = SellSlabs.from_csr(ck.matrix)
     _segments("lap2d_1024 rcm sell", sell)
     _check_kernel("lap2d_1024 rcm sell", spmv_sell, spmv_sell_reference,
@@ -450,11 +478,15 @@ def _phases(stats):
                       spmm_packed_reference, packed, mat, perm, mat, stats,
                       batch=B, csr=ck.matrix)
     # spmv_ranked_windowed on the aligned (bin 0) ranked layout of this
-    # banded matrix: x of 4 MB passes the gate, so this is a comparison
-    # with the resident kernel, not a CLI route.
+    # banded matrix, whose split chunk takes the fix-up launch: x of 4 MB
+    # passes the gate, so this is a comparison with the resident kernel,
+    # not a CLI route.
+    _ring("banded_1m ranked_windowed", ranked)
     _check_kernel("banded_1m ranked_windowed", spmv_ranked_windowed,
                   spmv_ranked_windowed_reference, ranked, mat, perm, mat,
-                  stats, twin=spmv_ranked, csr=ck.matrix)
+                  stats, twin=spmv_ranked, csr=ck.matrix, twin_equal=True)
+    _spmv_replay_check("banded_1m ranked_windowed", spmv_ranked_windowed,
+                       ranked, mat, perm)
     return r_times
 
 
@@ -463,8 +495,8 @@ def _windowed_phases(stats):
     (16.8M rows, 83.9M nnz; x 67 MB, past half the 50 MB L2) in natural
     order through spmv_dia_windowed (f32 and bf16) and after RCM through
     spmv_ranked_windowed, and lap2d_1024 after RCM through
-    spmm_ranked_windowed at B = 8 and 5, at the tile and column passes B'
-    the CLI picks; plus lap2d_1024's DIA layout through
+    spmm_ranked_windowed at B = 8 and 5, at the step and column passes B'
+    the CLI picks (B = 8 must take one pass); plus lap2d_1024's DIA layout through
     spmv_dia_windowed beside spmv_dia. Each is also held to its resident
     kernel on the same layout. Prints the host set-up seconds."""
     import torch
@@ -515,13 +547,13 @@ def _windowed_phases(stats):
     setup["ranked build"] = time.perf_counter() - t0
     if resident_x_fits(lay):
         raise SmokeFailure("lap2d_4096: x passes the ranked residency gate")
-    lay, _ = fit_window(lay, 1, dev,
-                        lambda cap: RankedSlabs.from_csr(ck.matrix,
-                                                         tile_k=cap))
-    _check_kernel(f"lap2d_4096 rcm ranked_windowed (tile {lay.tile_k}, "
-                  f"win_span {lay.win_span}, {lay.win_b0.numel()} tiles)",
-                  spmv_ranked_windowed, spmv_ranked_windowed_reference, lay,
-                  mat, perm, mat, stats, twin=spmv_ranked, csr=ck.matrix)
+    lay, _ = fit_window(lay, 1, dev)
+    _ring("lap2d_4096 rcm ranked_windowed", lay)
+    _check_kernel("lap2d_4096 rcm ranked_windowed", spmv_ranked_windowed,
+                  spmv_ranked_windowed_reference, lay, mat, perm, mat, stats,
+                  twin=spmv_ranked, csr=ck.matrix, twin_equal=True)
+    _spmv_replay_check("lap2d_4096 rcm ranked_windowed", spmv_ranked_windowed,
+                       lay, mat, perm)
     del lay, ck, mat
     print("lap2d_4096 host set-up s: " + ", ".join(
         f"{k} {v:.2f}" for k, v in setup.items()), flush=True)
@@ -536,12 +568,14 @@ def _windowed_phases(stats):
         lay = RankedSlabs.from_csr(ck.matrix).to(dev)
         if resident_x_fits(lay, batch=B) != (B == 5):
             raise SmokeFailure(f"lap2d_1024 B={B}: gate not as expected")
-        lay, cols = fit_window(lay, B, dev,
-                               lambda cap: RankedSlabs.from_csr(ck.matrix,
-                                                                tile_k=cap))
-        _check_kernel(f"lap2d_1024 rcm spmm_ranked_windowed B={B} (tile "
-                      f"{lay.tile_k}, win_span {lay.win_span}, B'={cols}: "
-                      f"{-(-B // cols)} pass(es))", spmm_ranked_windowed,
+        lay, cols = fit_window(lay, B, dev)
+        passes = -(-B // cols)
+        label = f"lap2d_1024 rcm spmm_ranked_windowed B={B}"
+        _ring(label, lay, cols, passes)
+        if B == 8 and passes != 1:
+            raise SmokeFailure(f"{label}: {passes} column passes, not one")
+        _check_kernel(f"{label} (B'={cols}: {passes} pass(es))",
+                      spmm_ranked_windowed,
                       spmm_ranked_windowed_reference, lay, mat, perm, mat,
                       stats, batch=cols, twin=spmm_ranked, csr=ck.matrix)
 

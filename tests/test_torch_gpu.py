@@ -13,7 +13,9 @@ orders and with or without fused multiply-add, so they agree to
 the bar is the suite's: Number Wrong 0 at the magnitude-aware 0.01 and
 RelL2 <= 1e-6 (bf16 layouts against the bf16-rounded operator; SpMM
 column by column). A windowed kernel is also held to its resident twin
-on the same layout (same order of summation for SpMV: 1e-5 too). The triangular solves carry rounding along the
+on the same layout: spmv_ranked_windowed sums in spmv_ranked's order
+with the same fused multiply-adds, so the two give the same bits; the
+SpMM and DIA twins agree to 1e-5. The triangular solves carry rounding along the
 dependency chain, so kernel, plain version and the f64 oracle agree to
 RelL2 <= 1e-5, with Number Wrong 0 at 0.01 for x = ones.
 """
@@ -32,7 +34,7 @@ from tpu_spmv_torch.bench.matrices import (
 from tpu_spmv_torch.formats.csr import CSRMatrix
 from tpu_spmv_torch.formats.dia import DiaSlabs
 from tpu_spmv_torch.formats.packed import PackedRanked
-from tpu_spmv_torch.formats.sell import RankedSlabs, SellSlabs, segment_fields
+from tpu_spmv_torch.formats.sell import RankedSlabs, SellSlabs
 from tpu_spmv_torch.kernels.dia import (
     spmv_dia, spmv_dia_reference, spmv_dia_windowed,
     spmv_dia_windowed_reference,
@@ -41,6 +43,7 @@ from tpu_spmv_torch.kernels.packed import spmv_packed, spmv_packed_reference
 from tpu_spmv_torch.kernels.sell import (
     spmv_ranked, spmv_ranked_reference, spmv_ranked_windowed,
     spmv_ranked_windowed_reference, spmv_sell, spmv_sell_reference,
+    window_bytes,
 )
 from tpu_spmv_torch.kernels.spmm import (
     spmm_packed, spmm_packed_reference, spmm_ranked, spmm_ranked_reference,
@@ -91,9 +94,31 @@ def _long_row(row=1500, length=400, seed=0):
     )
 
 
-def _run(kernel, plain, layout, mat, oracle, dev, batch=None, twin=None):
+def _jumping(chunks=48, seed=2):
+    """random_banded(128 * chunks, 90, 11) with its 128-row chunks in a
+    random order (rows only): consecutive chunks read far-apart x
+    blocks, so step ranges jump, backwards too."""
+    mat = random_banded(128 * chunks, 90, 11, seed=1)
+    perm = np.random.default_rng(seed).permutation(chunks)
+    rows = np.repeat(np.arange(mat.m), np.diff(mat.indptr))
+    return CSRMatrix.from_coo(perm[rows // 128] * 128 + rows % 128,
+                              mat.indices, mat.data, mat.shape)
+
+
+def _fit(lay, batch):
+    """The layout with its window table cut at fewer sub-tiles a step
+    until the ring and stages, batch columns wide, fit the card's shared
+    memory (tools/spmv.fit_window's first remedy)."""
+    while window_bytes(lay, batch) > hw.smem_per_block():
+        lay = lay.with_steps(lay.step_subtiles // 2)
+    return lay
+
+
+def _run(kernel, plain, layout, mat, oracle, dev, batch=None, twin=None,
+         twin_equal=False):
     """kernel vs plain and the oracle; with twin (the resident kernel of
-    a windowed one), kernel vs twin on the same layout as well."""
+    a windowed one), kernel vs twin on the same layout as well, bit for
+    bit with twin_equal."""
     lay = layout.to(dev)
     shape = (mat.n,) if batch is None else (mat.n, batch)
     x = np.random.default_rng(3).standard_normal(shape).astype(np.float32)
@@ -112,7 +137,10 @@ def _run(kernel, plain, layout, mat, oracle, dev, batch=None, twin=None):
         wrong, rel = validate(y[:, b], oracle.matvec(xs[:, b]))
         assert wrong == 0 and rel <= 1e-6, (b, wrong, rel)
     if twin is not None:
-        assert float((yk - twin(lay, xt)).abs().max()) <= 1e-5 * scale
+        y_twin = twin(lay, xt)
+        if twin_equal:
+            assert torch.equal(yk, y_twin)
+        assert float((yk - y_twin).abs().max()) <= 1e-5 * scale
 
 
 @pytest.mark.parametrize("mat", [laplacian_2d(70), variable_stencil(53)],
@@ -219,7 +247,7 @@ def test_segment_walk_at_any_segment_length(cuda, case, q, monkeypatch):
     mat = _long_row()
     lay = build(mat)
     monkeypatch.setattr(fsell, "SEGMENT_SUBTILES", q)
-    lay = dataclasses.replace(lay, **segment_fields(lay.chunk_ptr))
+    lay = fsell.with_segments(lay)
     assert int(lay.seg_ptr.diff().max()) == q
     plain = spmv_sell_reference if fn is spmv_sell else spmv_ranked_reference
     oracle = mat.rounded() if lay.vals.dtype == torch.bfloat16 else mat
@@ -296,25 +324,59 @@ _WINDOWED = {
 
 @pytest.mark.parametrize("case,batch", [
     (case, batch) for case in sorted(_WINDOWED)
-    for batch in ((None, 1, 5, 13) if case != "lap2d_u8" else (None, 5))
+    for batch in (None, 1, 5, 8, 13)
 ])
 def test_ranked_windowed_kernels_match_plain(cuda, case, batch):
     """spmv_ranked_windowed (batch None) and spmm_ranked_windowed against
-    their plain versions and their resident twins; B = 13 takes two
-    column tiles, the second one partial. (lap2d_u8's window, 72 blocks,
-    holds at most 6 columns in 227 KB; no int32-lcols layout has a
-    window that fits: their windows span more than 256 blocks.)"""
+    their plain versions and their resident twins (spmv_ranked bit for
+    bit); B = 13 takes two column groups, 8 and 5."""
     make, kw = _WINDOWED[case]
     mat = make()
-    lay = RankedSlabs.from_csr(mat, **kw)
-    assert lay.win_b0.numel() > 1
+    lay = _fit(RankedSlabs.from_csr(mat, **kw), batch or 1)
+    assert lay.step_lo.numel() > 1
     oracle = mat.rounded() if kw.get("val_dtype") else mat
     if batch is None:
         _run(spmv_ranked_windowed, spmv_ranked_windowed_reference, lay, mat,
-             oracle, cuda, twin=spmv_ranked)
+             oracle, cuda, twin=spmv_ranked, twin_equal=True)
     else:
         _run(spmm_ranked_windowed, spmm_ranked_windowed_reference, lay, mat,
              oracle, cuda, batch, twin=spmm_ranked)
+
+
+@pytest.mark.parametrize("case", ["split_chunk", "jumping", "lap2d_steps_2"])
+def test_ranked_windowed_equals_ranked_bit_for_bit(cuda, case):
+    """spmv_ranked_windowed gives spmv_ranked's bits on one layout: with a
+    split chunk (the fix-up launch), on step ranges that jump backwards
+    past the ring (the restage path), and on a ring that wraps."""
+    if case == "split_chunk":
+        mat = _long_row()
+        lay = RankedSlabs.from_csr(mat)
+        assert lay.split_seg.shape[1] > 0
+    elif case == "jumping":
+        mat = _jumping()
+        lay = RankedSlabs.from_csr(mat).with_steps(1)
+        lo, hi = lay.step_lo.long(), lay.step_hi.long()
+        assert bool((lo.diff() < 0).any())
+        span = torch.maximum(hi[1:], hi[:-1]) - torch.minimum(lo[1:], lo[:-1])
+        assert bool((span > lay.ring_blocks).any())  # restaged steps
+    else:
+        mat = _rcm(laplacian_2d(200))
+        lay = RankedSlabs.from_csr(mat).with_steps(2)
+    lo, hi = lay.step_lo.long(), lay.step_hi.long()
+    R = lay.ring_blocks
+    assert bool((lo // R != (hi - 1) // R).any())  # a step wraps the ring
+    _run(spmv_ranked_windowed, spmv_ranked_windowed_reference, lay, mat,
+         mat, cuda, twin=spmv_ranked, twin_equal=True)
+    _run(spmm_ranked_windowed, spmm_ranked_windowed_reference, _fit(lay, 5),
+         mat, mat, cuda, 5, twin=spmm_ranked)
+
+
+def test_windowed_kernels_refuse_an_unaligned_x(cuda):
+    mat = _rcm(laplacian_2d(40))
+    lay = RankedSlabs.from_csr(mat).to(cuda)
+    x = torch.zeros(mat.n + 1, device=cuda)[1:]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        spmv_ranked_windowed(lay, x)
 
 
 def test_windowed_kernels_replay_from_a_graph(cuda):
@@ -345,6 +407,17 @@ def test_windowed_kernels_replay_from_a_graph(cuda):
         assert fn.launches == before + 2  # the eager calls only
 
 
+def test_windowed_plain_version_times_from_a_graph(cuda):
+    """chip_smoke times each plain version from a CUDA graph
+    (bench/harness.bench_spmv): the windowed one does no host sync, so
+    its launches capture."""
+    mat = _rcm(random_banded(20000, 90, 11, seed=1))
+    lay = RankedSlabs.from_csr(mat).to(cuda)
+    x = torch.ones(mat.n, device=cuda)
+    res = bench_spmv(spmv_ranked_windowed_reference, lay, x, samples=2)
+    assert res.launch == "graph" and 0 < res.time_min <= res.time_max
+
+
 def test_windowed_kernels_refuse_an_oversize_window(cuda, monkeypatch):
     mat = _rcm(random_banded(20000, 90, 11, seed=1))
     ranked = RankedSlabs.from_csr(mat, tile_k=512).to(cuda)
@@ -353,7 +426,8 @@ def test_windowed_kernels_refuse_an_oversize_window(cuda, monkeypatch):
     x = torch.zeros(mat.n, device=cuda)
     before = (spmv_ranked_windowed.launches, spmm_ranked_windowed.launches,
               spmv_dia_windowed.launches)
-    with pytest.raises(ValueError, match="shared-memory budget"):
+    need = window_bytes(ranked, 1)
+    with pytest.raises(ValueError, match=f"= {need} bytes, beyond the 1024"):
         spmv_ranked_windowed(ranked, x)
     with pytest.raises(ValueError, match="shared-memory budget"):
         spmm_ranked_windowed(ranked, torch.zeros(mat.n, 2, device=cuda))

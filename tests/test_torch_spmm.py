@@ -137,7 +137,7 @@ def test_cli_windowed_validates(spec, capsys):
                    "windowed", *CPU])
     out = capsys.readouterr().out
     assert rc == 0, out
-    assert "windowed SpMM: tile" in out and "auto kernel" not in out
+    assert "windowed SpMM: ring" in out and "auto kernel" not in out
     assert "Number Wrong: 0 " in out
 
 

@@ -35,7 +35,7 @@ from tpu_spmv_torch.bench.matrices import random_banded
 from tpu_spmv_torch.formats import sell as tsell
 from tpu_spmv_torch.formats.sell import (
     LANES, MAX_SEGMENT_SUBTILES, SUBLANES, RankedSlabs, segment_fields,
-    wait_fields,
+    wait_fields, window_fields,
 )
 from tpu_spmv_torch.kernels.sell import delta_bases
 from tpu_spmv_torch.kernels.sts import (
@@ -249,6 +249,9 @@ def test_segment_longer_than_the_walk_stages_raises(kind, length,
     k = int(np.flatnonzero(sp.diff().numpy() == MAX_SEGMENT_SUBTILES)[0])
     sp[k + 1] += length - MAX_SEGMENT_SUBTILES
     t["seg_ptr"] = sp
+    if kind == "ranked":  # the window table names the new segments
+        t.update(window_fields(sp, lay.sub_b0, lay.sub_dlo, lay.sub_dhi,
+                               lay.rank_nb))
     assert int(sp.diff().max()) == length
     if length > MAX_SEGMENT_SUBTILES:
         with pytest.raises(ValueError, match=f"segment of {length} sub-tiles"):

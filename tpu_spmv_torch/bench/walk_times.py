@@ -19,7 +19,6 @@ layouts with their segment table cut at each Q in turn
 from __future__ import annotations
 
 import argparse
-import dataclasses
 
 import numpy as np
 import torch
@@ -71,8 +70,7 @@ def main(argv=None) -> int:
             try:
                 for q in args.segment_subtiles:
                     fsell.SEGMENT_SUBTILES = q
-                    at_q = dataclasses.replace(
-                        lay, **fsell.segment_fields(lay.chunk_ptr))
+                    at_q = fsell.with_segments(lay)
                     print(f"{args.tag} {name} {kind} Q={q} "
                           f"({at_q.seg_chunk.numel()} segments, "
                           f"{at_q.split_seg.shape[1]} split chunks): warm "

@@ -6,8 +6,8 @@ port's container, so a layout built once can be run through both
 packages' kernels. It reads the arrays through NumPy and never imports
 JAX. The port's derived fields come from the reference's arrays alone:
 chunk_ptr from sub_chunk, the segment table from chunk_ptr
-(formats/sell.segment_fields), RankedSlabs' win_b0/win_span from the
-bases and sub_chunk (formats/sell.real_windows), and PackedRanked's
+(formats/sell.segment_fields), RankedSlabs' window table from the
+segment table and the bases (formats/sell.window_fields), and PackedRanked's
 chunk_koff from out_row and bmeta.
 
 Two encodings need care: numpy has no bf16 of its own and
@@ -24,8 +24,8 @@ import torch
 from tpu_spmv_torch.formats.dia import DiaSlabs
 from tpu_spmv_torch.formats.packed import PackedRanked, chunk_koff_from_segments
 from tpu_spmv_torch.formats.sell import (
-    RankedSlabs, SellSlabs, _chunk_ptr, real_windows, segment_fields,
-    to_tensor,
+    RankedSlabs, SellSlabs, _chunk_ptr, segment_fields, to_tensor,
+    window_fields,
 )
 
 
@@ -76,10 +76,6 @@ def from_reference(layout):
             chunk_q=layout.chunk_q,
         )
     if kind == "RankedSlabs":
-        win_b0, win_span = real_windows(
-            layout.sub_b0, layout.sub_dlo, layout.sub_dhi, sub_chunk,
-            layout.num_chunks, layout.tile_k, layout.rank_nb,
-        )
         return RankedSlabs(
             vals=to_tensor(layout.vals),
             lcols=to_tensor(layout.lcols),
@@ -90,13 +86,13 @@ def from_reference(layout):
             tile_b0=to_tensor(layout.tile_b0),
             grp_b0=to_tensor(layout.grp_b0),
             chunk_ptr=chunk_ptr,
-            win_b0=torch.from_numpy(win_b0),
             **segments,
             m=layout.m, n=layout.n, nnz=layout.nnz,
             num_chunks=layout.num_chunks, rank_nb=layout.rank_nb,
             chunk_q=layout.chunk_q, win_w=layout.win_w,
             tile_k=layout.tile_k, group_code=layout.group_code,
-            win_span=win_span,
+            **window_fields(segments["seg_ptr"], layout.sub_b0,
+                            layout.sub_dlo, layout.sub_dhi, layout.rank_nb),
         )
     raise TypeError(f"no port container for a {kind}")
 

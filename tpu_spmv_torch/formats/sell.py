@@ -21,10 +21,16 @@ arrays alone:
   wait_ptr, wait_chunk
              the wait table of a strict-L solve layout (`wait_fields`,
              None on other layouts): the earlier chunks whose rows each
-             chunk's slots read, on which the solve kernels wait.
+             chunk's slots read, on which the solve kernels wait;
+  step_seg, step_lo, step_hi, ring_blocks
+             the window table of RankedSlabs (`window_fields`): the
+             segments cut, in order, into steps of about STEP_SUBTILES
+             sub-tiles, the x blocks [step_lo, step_hi) each step reads,
+             and the ring of x blocks that spmv_ranked_windowed and
+             spmm_ranked_windowed keep in shared memory.
 
 The all-pad tail (sentinel chunk id num_chunks) lies past
-chunk_ptr[num_chunks] and belongs to no segment. A container checks
+chunk_ptr[num_chunks] and belongs to no segment or step. A container checks
 its tables once on the host when it is made (`_check_tables`), so a
 table built by hand raises before any launch; a move or a clone copies
 checked tables and checks nothing.
@@ -60,6 +66,14 @@ SEGMENT_SUBTILES = 8
 # window bases of this many sub-tiles, one per thread (kMaxSegSubtiles
 # in kernels/csrc/sell.cu).
 MAX_SEGMENT_SUBTILES = LANES // SUBLANES
+# The steps of the windowed kernels' window table: a step takes
+# consecutive segments until it holds at least STEP_SUBTILES sub-tiles and
+# STEP_SEGMENTS segments (one for each 128-thread group of a CTA of
+# kernels/csrc/windowed.cu, which stages a step's slabs and x one step
+# ahead), and never more than twice STEP_SUBTILES sub-tiles past its first
+# segment (tpu_spmv_torch/bench/window_times.py times other step sizes).
+STEP_SUBTILES = 8
+STEP_SEGMENTS = 4
 # Sub-tiles per batch of the wait-table build (8M slots).
 _WAIT_BATCH = 8192
 # seg_chunk flag: the segment's chunk has more than one segment, so the
@@ -190,12 +204,151 @@ def wait_fields(layout) -> dict:
     )
 
 
+def with_segments(layout):
+    """The layout (SellSlabs or RankedSlabs) with its segment table cut
+    anew at SEGMENT_SUBTILES, and a RankedSlabs' window table cut anew
+    over the new segments at its step: the window table names segments,
+    so the two change together."""
+    fields = {k: v.to(layout.vals.device)
+              for k, v in segment_fields(layout.chunk_ptr.cpu()).items()}
+    if isinstance(layout, RankedSlabs):
+        fields.update(window_fields(
+            fields["seg_ptr"], layout.sub_b0, layout.sub_dlo, layout.sub_dhi,
+            layout.rank_nb, layout.step_subtiles))
+        fields = {k: v.to(layout.vals.device) if isinstance(v, torch.Tensor)
+                  else v for k, v in fields.items()}
+    return dataclasses.replace(layout, **fields)
+
+
+def _host(a) -> np.ndarray:
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def window_fields(seg_ptr, sub_b0, sub_dlo, sub_dhi, rank_nb: int,
+                  step_subtiles: int | None = None) -> dict:
+    """The window table of a RankedSlabs, as the container's fields:
+
+      step_seg       ((T+1,) int32) first segment of each step: from its
+                     first segment on, a step takes segments until it
+                     holds at least step_subtiles sub-tiles and
+                     STEP_SEGMENTS segments, but stops before one that
+                     would take it past 2 * step_subtiles sub-tiles (or
+                     when the segments run out); step_seg[T] = G;
+      step_lo, step_hi
+                     ((T,) int32) the x blocks [lo, hi) the step's slots
+                     read, by the rule of the reference's tile windows
+                     over the walked sub-tiles only: the least and the
+                     greatest window base (base(s, r), all 8 sublanes),
+                     plus the paired-read blocks 2 * ceil(rank_nb / 2)
+                     past the greatest; [0, 0) for a step without
+                     sub-tiles. The all-pad tail lies past every segment;
+      ring_blocks    the most blocks two consecutive steps read together
+                     (the union of their ranges), at least 1: the ring of
+                     x blocks the windowed kernels keep in shared memory.
+                     Two consecutive steps whose ranges span more than the
+                     ring are staged one after the other;
+      step_subtiles  the step size the table was cut at (default
+                     STEP_SUBTILES);
+      stage_subtiles the most sub-tiles a step holds: the kernels stage
+                     a step's slabs in shared memory, two steps at a time.
+
+    seg_ptr is the segment table's (segment_fields); the other arrays
+    are the layout's, as arrays or tensors."""
+    q = STEP_SUBTILES if step_subtiles is None else int(step_subtiles)
+    if q < 1:
+        raise ValueError(f"steps of {q} sub-tiles: at least 1")
+    ptr = _host(seg_ptr).astype(np.int64)
+    G = ptr.size - 1
+    first = [0]
+    while first[-1] < G:
+        j = first[-1]
+        enough = int(np.searchsorted(ptr, ptr[j] + q, side="left"))
+        most = int(np.searchsorted(ptr, ptr[j] + 2 * q, side="right")) - 1
+        first.append(min(max(enough, j + STEP_SEGMENTS), max(most, j + 1), G))
+    step_seg = np.asarray(first, np.int64)
+    T = step_seg.size - 1
+    walked = int(ptr[-1])
+    bases = delta_bases_np(_host(sub_b0)[:walked], _host(sub_dlo)[:walked],
+                           _host(sub_dhi)[:walked])
+    bounds = ptr[step_seg]  # (T+1,) sub-tile range of each step
+    lo = np.zeros(T, np.int64)
+    hi = np.zeros(T, np.int64)
+    full = bounds[1:] > bounds[:-1]
+    if full.any():
+        starts = bounds[:-1][full]
+        lo[full] = np.minimum.reduceat(bases.min(1), starts)
+        hi[full] = (np.maximum.reduceat(bases.max(1), starts)
+                    + 2 * max((rank_nb + 1) // 2, 1))
+    width = hi - lo
+    overlap = np.maximum(
+        np.minimum(hi[:-1], hi[1:]) - np.maximum(lo[:-1], lo[1:]), 0)
+    union = width[:-1] + width[1:] - overlap
+    ring = max(int(width.max(initial=0)), int(union.max(initial=0)), 1)
+    return dict(
+        step_seg=torch.from_numpy(step_seg.astype(np.int32)),
+        step_lo=torch.from_numpy(lo.astype(np.int32)),
+        step_hi=torch.from_numpy(hi.astype(np.int32)),
+        ring_blocks=ring,
+        step_subtiles=q,
+        stage_subtiles=max(int(np.diff(bounds).max(initial=0)), 1),
+    )
+
+
+def _check_windows(layout) -> None:
+    """The window table's host check (see _check_tables): steps that
+    cover the segments in order, each within the ring, and every slot of
+    every walked sub-tile (padding included) reading a block of its
+    step's range. Raises ValueError."""
+    fields = (layout.step_seg, layout.step_lo, layout.step_hi)
+    if all(f is None for f in fields) or layout.seg_ptr is None:
+        return  # no table, or no segments (the walks refuse the layout)
+    step_seg, lo, hi = fields
+    if any(f is None for f in fields) or lo.numel() != hi.numel() or (
+            step_seg.numel() != lo.numel() + 1):
+        raise ValueError("the window table needs step_seg (T+1,), step_lo "
+                         "and step_hi (T,) together; build it with "
+                         "window_fields")
+    G = layout.seg_chunk.numel()
+    ss, lo, hi = step_seg.long().cpu(), lo.long().cpu(), hi.long().cpu()
+    if int(ss[0]) != 0 or int(ss[-1]) != G or bool((ss.diff() < 1).any()):
+        raise ValueError("step_seg must rise strictly from 0 to the "
+                         "segment count")
+    width = hi - lo
+    if bool((lo < 0).any() | (width < 0).any()) or int(
+            width.max()) > layout.ring_blocks:
+        raise ValueError(
+            f"a step reads {int(width.max())} blocks, past the ring of "
+            f"{layout.ring_blocks}, or a step range is negative")
+    bounds = layout.seg_ptr.long().cpu()[ss]
+    if int(bounds.diff().max()) > layout.stage_subtiles:
+        raise ValueError(
+            f"a step holds {int(bounds.diff().max())} sub-tiles, past the "
+            f"{layout.stage_subtiles} a stage holds")
+    step = torch.repeat_interleave(torch.arange(lo.numel()), bounds.diff())
+    walked = int(bounds[-1])
+    base = torch.from_numpy(delta_bases_np(
+        _host(layout.sub_b0)[:walked], _host(layout.sub_dlo)[:walked],
+        _host(layout.sub_dhi)[:walked]))
+    lc = layout.lcols[: walked * SUBLANES].view(walked, SUBLANES, LANES)
+    first = base + (lc.amin(-1).long().cpu() >> 7)
+    last = base + (lc.amax(-1).long().cpu() >> 7)
+    miss = (first < lo[step][:, None]) | (last >= hi[step][:, None])
+    if bool(miss.any()):
+        s = int(miss.any(1).nonzero()[0])
+        raise ValueError(
+            f"sub-tile {s} reads x blocks [{int(first[s].min())}, "
+            f"{int(last[s].max()) + 1}) outside its step's range "
+            f"[{int(lo[step[s]])}, {int(hi[step[s]])}); build the table "
+            "with window_fields")
+
+
 def _check_tables(layout) -> None:
     """Host checks of a container's derived tables, once when it is
     made (not when moved or cloned), never per call: no segment longer
     than MAX_SEGMENT_SUBTILES (a longer one would read past the bases
-    the walk stages), and a wait table that ends at its length and
-    names only earlier chunks (a later one could deadlock the solve).
+    the walk stages), a wait table that ends at its length and names
+    only earlier chunks (a later one could deadlock the solve), and a
+    window table whose steps read only their ranges (_check_windows).
     Raises ValueError."""
     seg_ptr = layout.seg_ptr
     if seg_ptr is not None and seg_ptr.numel() > 1:
@@ -206,6 +359,8 @@ def _check_tables(layout) -> None:
                 f"bases of at most {MAX_SEGMENT_SUBTILES}; build the table "
                 "with segment_fields"
             )
+    if isinstance(layout, RankedSlabs):
+        _check_windows(layout)
     ptr, chunks = layout.wait_ptr, layout.wait_chunk
     if ptr is None and chunks is None:
         return
@@ -477,33 +632,6 @@ def delta_bases_np(sub_b0, sub_dlo, sub_dhi) -> np.ndarray:
             + np.concatenate([lo, hi], 1).astype(np.int64))
 
 
-def real_windows(sub_b0, sub_dlo, sub_dhi, sub_chunk, num_chunks: int,
-                 tile_k: int, rank_nb: int):
-    """(win_b0, win_span): the x window of each tile of tile_k sublanes
-    over its real sub-tiles only, for the port's windowed kernels.
-
-    The reference's tile_b0/win_w also span the all-pad sub-tiles
-    (sub_chunk == num_chunks: the tail that rounds total_k up), whose
-    bases are 0, so the last tile's window can reach from block 0 to the
-    end of x (n / 128 blocks on lap2d_4096, far past shared memory).
-    No chunk reduces those sub-tiles, so the windows leave them out: the
-    kernels read 0 for a slot outside its tile's window. win_span is the
-    widest tile's span plus the paired-read blocks, rounded up to 8, as
-    win_w is."""
-    bases = delta_bases_np(sub_b0, sub_dlo, sub_dhi)
-    real = np.asarray(sub_chunk) < num_chunks
-    spt = tile_k // SUBLANES
-    T = bases.shape[0] // spt if spt else 0
-    big = np.iinfo(np.int64).max
-    tile_lo = np.where(real[:, None], bases, big).reshape(T, -1).min(1)
-    tile_hi = np.where(real[:, None], bases, -1).reshape(T, -1).max(1)
-    empty = tile_hi < 0
-    tile_lo[empty], tile_hi[empty] = 0, 0
-    reads_nb = 2 * max((rank_nb + 1) // 2, 1)
-    span = int((tile_hi - tile_lo).max()) + reads_nb if T else 2
-    return tile_lo.astype(np.int32), _round_up(max(span, SUBLANES), SUBLANES)
-
-
 def to_tensor(a, dtype=None) -> torch.Tensor:
     """Host array (anything np.asarray reads) -> CPU tensor. bf16, which
     torch.from_numpy rejects in its ml_dtypes form, crosses as its uint16
@@ -729,7 +857,6 @@ class RankedSlabs(TensorLayout):
     tile_b0: torch.Tensor  # (T,) int32 (windowed variant's metadata)
     grp_b0: torch.Tensor  # (S*G,) int32, empty when ungrouped
     chunk_ptr: torch.Tensor  # (num_chunks+1,) int32
-    win_b0: torch.Tensor  # (T,) int32, real_windows: the port's windows
     seg_ptr: torch.Tensor  # (G+1,) int32 segment_fields (see SellSlabs)
     seg_chunk: torch.Tensor  # (G,) int32
     split_seg: torch.Tensor  # (3, K) int32
@@ -742,12 +869,28 @@ class RankedSlabs(TensorLayout):
     win_w: int = 0
     tile_k: int = 2048
     group_code: int = 0
-    win_span: int = 0  # real_windows: blocks per window of the port's kernels
     wait_ptr: torch.Tensor | None = None  # (num_chunks+1,) int32 wait_fields
     wait_chunk: torch.Tensor | None = None  # (W,) int32 earlier chunks read
+    step_seg: torch.Tensor | None = None  # (T+1,) int32 window_fields
+    step_lo: torch.Tensor | None = None  # (T,) int32 first x block per step
+    step_hi: torch.Tensor | None = None  # (T,) int32 one past its last
+    ring_blocks: int = 0  # window_fields: x blocks of the kernels' ring
+    step_subtiles: int = 0  # window_fields: the step size it was cut at
+    stage_subtiles: int = 0  # window_fields: the most sub-tiles a step holds
 
     def __post_init__(self):
         _check_tables(self)
+
+    def with_steps(self, step_subtiles: int) -> "RankedSlabs":
+        """This layout with its window table cut anew at step_subtiles
+        sub-tiles a step (window_fields), on the layout's device: fewer
+        sub-tiles a step, a smaller ring."""
+        fields = window_fields(self.seg_ptr, self.sub_b0, self.sub_dlo,
+                               self.sub_dhi, self.rank_nb, step_subtiles)
+        dev = self.vals.device
+        return dataclasses.replace(self, **{
+            k: v.to(dev) if isinstance(v, torch.Tensor) else v
+            for k, v in fields.items()})
 
     @property
     def groups(self) -> tuple:
@@ -878,11 +1021,8 @@ class RankedSlabs(TensorLayout):
             int((base_t.max(axis=1) - tile_b0).max()) + reads_nb if T else 2
         )
         win_w = _round_up(max(win_w, SUBLANES), SUBLANES)
-        win_b0, win_span = real_windows(
-            sub_b0, sub_dlo, sub_dhi, host["sub_chunk"], host["num_chunks"],
-            tile_eff, rank_nb,
-        )
         chunk_ptr = _chunk_ptr(host["sub_chunk"], host["num_chunks"])
+        segments = segment_fields(chunk_ptr)
 
         return cls(
             vals=to_tensor(vals, val_dtype or torch.float32),
@@ -894,8 +1034,7 @@ class RankedSlabs(TensorLayout):
             tile_b0=to_tensor(tile_b0.astype(np.int32)),
             grp_b0=to_tensor(grp_b0.astype(np.int32)),
             chunk_ptr=to_tensor(chunk_ptr),
-            win_b0=to_tensor(win_b0),
-            **segment_fields(chunk_ptr),
+            **segments,
             m=host["m"],
             n=host["n"],
             nnz=mat.nnz,
@@ -905,5 +1044,6 @@ class RankedSlabs(TensorLayout):
             win_w=win_w,
             tile_k=tile_eff,
             group_code=group_code,
-            win_span=win_span,
+            **window_fields(segments["seg_ptr"], sub_b0, sub_dlo, sub_dhi,
+                            rank_nb),
         )

@@ -83,13 +83,17 @@ _SIGNATURES = {
     "tsp_spmv_dia_windowed": (
         _I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _LL, _LL, _I, _P,
     ),
-    # val_kind, lcol_kind, vals, lcols, sub_b0, sub_dlo, sub_dhi, win_b0,
-    # num_tiles, subs_per_tile, win_span, chunk_ptr, X, part, Y, m, n, B,
-    # smem, stream
+    # val_kind, lcol_kind, vals, lcols, sub_b0, sub_dlo, sub_dhi,
+    # num_subtiles, seg_ptr, seg_chunk, split_seg, num_split, step_seg,
+    # step_lo, step_hi, num_steps, ring, stage_subtiles, X, Y, part, m, n,
+    # B, stream
     "tsp_ranked_windowed": (
-        _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _LL, _LL,
-        _I, _I, _P,
+        _I, _I, _P, _P, _P, _P, _P, _LL, _P, _P, _P, _I, _P, _P, _P, _I, _I,
+        _I, _P, _P, _P, _LL, _LL, _I, _P,
     ),
+    # val_kind, lcol_kind, num_steps, ring, stage_subtiles, B -> CTAs
+    # (or minus the CUDA error)
+    "tsp_ranked_windowed_ctas": (_I, _I, _I, _I, _I, _I),
 }
 
 _lib = None

@@ -14,10 +14,12 @@
 // Design: the segment walk. One block of 128 threads (4 warps) owns one
 // segment, thread l lane l of it. The thread walks the segment's
 // sub-tiles and their 8 slots, gathers x at each slot's column, sums the
-// 8 slots of a sub-tile into `part` and adds `part` into its total, the
-// order of spmv_ranked_windowed (csrc/windowed.cu), so a chunk that is
-// not split gives the same bits as that kernel. A chunk of one segment
-// writes y[row] directly: no partials, no epilogue. The segments of a
+// 8 slots of a sub-tile into `part` with fused multiply-adds and adds
+// `part` into its total, the order of spmv_ranked_windowed
+// (csrc/windowed.cu), so the two give the same bits on one layout, split
+// chunks included (both fix-ups add the partial rows in segment order).
+// A chunk of one segment writes y[row] directly: no partials, no
+// epilogue. The segments of a
 // split chunk (SPLIT_BIT in seg_chunk) write one partial row each, into
 // a scratch of one row per such segment, and a second, small launch adds
 // a split chunk's rows into y in segment order: no float atomics, the
@@ -52,8 +54,8 @@
 //   read-only path (__ldg) and stays in the 50 MB L2 on banded_1m and
 //   lap2d_1024 (4 MB). The slab padding (1.72 slots per nonzero on
 //   banded_1m) is the layout's and bounds sell above cuSPARSE's time.
-// wgmma has no dense product to serve here; TMA or cp.async staging of
-// x and vector loads of several lanes per thread are left for later.
+// wgmma has no dense product to serve here. x is gathered from L2, not
+// staged: the TMA ring of csrc/windowed.cu serves an x past the L2.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -171,11 +173,13 @@ __global__ void __launch_bounds__(kLanes, 8)
 #pragma unroll
       for (int r = 0; r < kSublanes; ++r) col[r] = cur.c[r];
     }
+    // An explicit fused multiply-add, as csrc/windowed.cu's walk, so
+    // the two kernels give the same bits on one layout.
     float p = 0.f;
 #pragma unroll
     for (int r = 0; r < kSublanes; ++r) {
       const float xv = (col[r] >= 0 && col[r] < n) ? __ldg(x + col[r]) : 0.f;
-      p += cur.v[r] * xv;
+      p = __fmaf_rn(cur.v[r], xv, p);
     }
     acc += p;
     cur = nxt;

@@ -6,20 +6,22 @@ Counterpart of `tpu_spmv/kernels/pallas_sell.py`:
   spmv_ranked           replaces spmv_ranked (ungrouped and grouped
                         bodies) and its _reduce_partials epilogue;
   spmv_ranked_windowed  replaces spmv_ranked_windowed, the route for an
-                        x past `resident_x_fits`: x staged in shared
-                        memory, one window per layout tile;
+                        x past `resident_x_fits`: the same segment walk
+                        over a ring of x blocks in shared memory, filled
+                        a step ahead (formats/sell.window_fields);
   spmv_sell             replaces spmv_sell and its epilogue.
 
 On a CPU tensor each runs its plain version (`*_reference`: a gather,
 a reshape-sum over the 8 slots of each sub-tile, then `index_add_` of
 the sub-tile sums into their chunks); on a CUDA tensor it launches the
-kernel or raises. spmv_ranked and spmv_sell walk the layout's segment
-table (formats/sell.segment_fields), one block per segment. `<wrapper>
-.launches` counts calls that launched the kernel, once per call: a call
-of spmv_ranked_windowed is two launches (the windowed pass and the
-reduction of its partials), and so is a call of spmv_ranked or
-spmv_sell on a layout with split chunks (the walk, then the fix-up that
-adds their segments' partials).
+kernel or raises. All three walk the layout's segment table
+(formats/sell.segment_fields) in the same order of summation, so
+spmv_ranked_windowed gives spmv_ranked's bits on one layout.
+`<wrapper>.launches` counts calls that launched the kernel, once per
+call: a call is one device launch, or two on a layout with split chunks
+(the walk, then the fix-up that adds their segments' partial rows), and
+an SpMM through the ring walks its columns in groups of at most 8, one
+launch each.
 """
 
 from __future__ import annotations
@@ -67,31 +69,51 @@ def resident_x_fits(layout, budget_frac: float = 0.5, batch: int = 1) -> bool:
     return 4 * n_pad * batch <= budget_frac * hw.l2_bytes(device)
 
 
+# Static shared memory of a CTA of the ring walk: its four mbarriers
+# (csrc/windowed.cu).
+RING_STATIC_BYTES = 32
+
+
+def _align128(b: int) -> int:
+    return _round_up(b, 128)
+
+
 def window_bytes(layout: RankedSlabs, batch: int = 1) -> int:
-    """Shared memory of one block of the windowed kernels: the tile's
-    window of win_span blocks of 128 rows of x, batch columns wide."""
-    return layout.win_span * LANES * batch * 4
+    """Shared memory of one CTA of the windowed kernels
+    (formats/sell.window_fields; csrc/windowed.cu's Stage): the ring of
+    ring_blocks blocks of 128 rows of x, batch columns wide, two stages of
+    stage_subtiles sub-tiles' slabs (values and local columns, 1024 slots
+    each) and window bases (sub_b0 and the two delta words, 4 more
+    sub-tiles each for alignment), and the mbarriers."""
+    cap = layout.stage_subtiles
+    slots = cap * SUBLANES * LANES
+    stage = (_align128(slots * layout.vals.element_size())
+             + _align128(slots * layout.lcols.element_size())
+             + 3 * _align128((cap + 4) * 4))
+    return (_align128(layout.ring_blocks * LANES * batch * 4) + 2 * stage
+            + RING_STATIC_BYTES)
 
 
 def check_window(layout: RankedSlabs, batch: int = 1,
                  budget: int | None = None) -> None:
-    """Raise ValueError when the layout has no per-tile windows or its
-    window, batch columns wide, exceeds `budget` bytes of shared memory
+    """Raise ValueError when the layout has no window table or its ring,
+    batch columns wide, exceeds `budget` bytes of shared memory
     (default: what a block may use on the current card, hw.smem_per_block).
     The counterpart of the VMEM refusal of tpu_spmv/kernels/dia.py:206."""
-    if layout.win_span <= 0:
+    if layout.step_seg is None or layout.ring_blocks <= 0:
         raise ValueError(
-            "layout has no per-tile windows (win_span == 0); rebuild it "
-            "with RankedSlabs.from_csr before using a windowed kernel"
+            "layout has no window table (step_seg); build it with "
+            "RankedSlabs.from_csr or formats.convert.from_reference"
         )
     budget = hw.smem_per_block() if budget is None else budget
     need = window_bytes(layout, batch)
     if need > budget:
         raise ValueError(
-            f"windowed x-window is {layout.win_span} blocks x {batch} "
-            f"column(s) = {need} bytes, beyond the {budget}-byte "
-            "shared-memory budget; rebuild at a smaller tile_k or split "
-            "the columns"
+            f"windowed x ring of {layout.ring_blocks} blocks x {batch} "
+            f"column(s) and stages of {layout.stage_subtiles} sub-tiles = "
+            f"{need} bytes, beyond the {budget}-byte shared-memory budget; "
+            "cut the window table at a smaller step (RankedSlabs.with_steps) "
+            "or split the columns"
         )
 
 
@@ -145,29 +167,29 @@ def spmv_ranked_reference(layout: RankedSlabs, x: torch.Tensor) -> torch.Tensor:
 
 def spmv_ranked_windowed_reference(layout: RankedSlabs,
                                    x: torch.Tensor) -> torch.Tensor:
-    """Plain version of the windowed kernels, for x (n,) or X (n, B): x
-    padded with win_span zero guard blocks, tile t's window the win_span
-    blocks from block win_b0[t] of it (formats/sell.real_windows), and
-    each slot reading its tile's window at (base(s, r) - win_b0[t]) *
-    128 + lcols, never x itself, and 0 where that falls outside the
-    window (the kernel's predicate; only the all-pad tail, which no chunk
-    reduces, lies outside); then the sums of spmv_ranked_reference."""
+    """Plain version of the windowed kernels, for x (n,) or X (n, B):
+    each slot of a walked sub-tile reads its step's range [step_lo,
+    step_hi) of x (formats/sell.window_fields) at (base(s, r) - step_lo)
+    * 128 + lcols, and 0 where that falls outside the range (the
+    kernel's predicate) or past x (the kernel's zero rows); then the sums
+    of spmv_ranked_reference. The all-pad tail, which no step walks,
+    reads 0. No host sync, so a CUDA graph can capture it for timing."""
     S = layout.num_subtiles
-    W = layout.win_span * LANES
-    blocks = (_round_up(max(layout.n, LANES), LANES) // LANES
-              + layout.win_span)
-    xp = torch.zeros(blocks * LANES, *x.shape[1:], dtype=torch.float32,
-                     device=x.device)
-    xp[: layout.n] = x
-    tile_b0 = layout.win_b0.long()
-    wins = xp[(tile_b0 * LANES)[:, None]
-              + torch.arange(W, device=x.device)]  # (T, W[, B])
-    tile = torch.arange(S, device=x.device) // (layout.tile_k // SUBLANES)
-    local = ((delta_bases(layout) - tile_b0[tile][:, None]) * LANES)[
-        :, :, None
-    ] + layout.lcols.view(S, SUBLANES, LANES).long()
-    inside = (local >= 0) & (local < W)
-    xg = wins[tile[:, None, None], local.clamp(0, W - 1)]
+    T = layout.step_lo.numel()
+    dev = x.device
+    bounds = layout.seg_ptr.long()[layout.step_seg.long()]  # (T+1,)
+    step = torch.searchsorted(bounds, torch.arange(S, device=dev),
+                              right=True) - 1
+    walked = (step < T)[:, None, None]
+    step = step.clamp(max=T - 1)
+    first = layout.step_lo.long()[step][:, None, None]
+    width = ((layout.step_hi.long() - layout.step_lo.long())[step]
+             * LANES)[:, None, None]
+    local = (delta_bases(layout)[:, :, None] - first) * LANES + (
+        layout.lcols.view(S, SUBLANES, LANES).long())
+    rows = first * LANES + local
+    inside = walked & (local >= 0) & (local < width) & (rows < layout.n)
+    xg = x[rows.clamp(0, max(layout.n - 1, 0))]
     if x.dim() == 2:
         inside = inside[..., None]
     return _subtile_sums(layout, torch.where(inside, xg, 0.0), x)
@@ -188,11 +210,12 @@ def _check_slabs(layout, what: str) -> None:
         raise ValueError(f"{what}: fewer chunks than rows need")
 
 
-def _segment_args(layout, x: torch.Tensor, what: str) -> tuple:
+def _segment_args(layout, x: torch.Tensor, what: str,
+                  batch: int = 1) -> tuple:
     """Checks of the segment table, then the walk's arguments: seg_ptr,
     seg_chunk, the segment count G, split_seg, the split-chunk count K
-    and the partials scratch: one row of 128 per segment of a split
-    chunk, G - num_chunks + K rows, as every other chunk has one
+    and the partials scratch: one row of 128 x batch per segment of a
+    split chunk, G - num_chunks + K rows, as every other chunk has one
     segment."""
     seg_ptr = getattr(layout, "seg_ptr", None)
     if seg_ptr is None:
@@ -210,7 +233,7 @@ def _segment_args(layout, x: torch.Tensor, what: str) -> tuple:
             "seg_chunk (G,) and split_seg (3, K)"
         )
     K = layout.split_seg.shape[1]
-    part = torch.empty((G - layout.num_chunks + K) * LANES,
+    part = torch.empty((G - layout.num_chunks + K) * LANES * batch,
                        dtype=torch.float32, device=x.device)
     return (seg_ptr.data_ptr(), layout.seg_chunk.data_ptr(), G,
             layout.split_seg.data_ptr(), K, part)
@@ -275,12 +298,28 @@ def spmv_sell(layout: SellSlabs, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def _window_args(layout: RankedSlabs, what: str) -> tuple:
+    """The window table's arguments (step_seg, step_lo, step_hi, steps,
+    ring, stage size), after the checks a hand-built table can fail on
+    the card."""
+    T = layout.step_lo.numel()
+    if any(t.dtype != torch.int32 for t in (
+            layout.step_seg, layout.step_lo, layout.step_hi)) or (
+            layout.step_seg.numel() != T + 1 or layout.step_hi.numel() != T):
+        raise ValueError(f"{what}: the window table must be int32 step_seg "
+                         "(T+1,), step_lo and step_hi (T,)")
+    return (layout.step_seg.data_ptr(), layout.step_lo.data_ptr(),
+            layout.step_hi.data_ptr(), T, layout.ring_blocks,
+            layout.stage_subtiles)
+
+
 def launch_ranked_windowed(layout: RankedSlabs, x: torch.Tensor,
                            what: str) -> torch.Tensor:
-    """Checks, then the two launches of csrc/windowed.cu's
-    tsp_ranked_windowed for x (n,) or X (n, B) on the card: the
-    windowed pass into per-sub-tile partials (S, 128, B), then their
-    reduction into y (m,) or Y (m, B)."""
+    """Checks, then csrc/windowed.cu's tsp_ranked_windowed for x (n,) or
+    X (n, B) on the card: the ring walk into y (m,) or Y (m, B), one
+    launch per group of at most 8 columns, then the fix-up of the split
+    chunks' partial rows when the layout has any. X must be 16-byte
+    aligned (the ring is filled by bulk copies)."""
     matrix = x.dim() == 2
     _build.check_operands(layout, x, what, matrix=matrix)
     _check_slabs(layout, what)
@@ -288,39 +327,58 @@ def launch_ranked_windowed(layout: RankedSlabs, x: torch.Tensor,
         raise ValueError(f"{what}: unsupported vals dtype {layout.vals.dtype}")
     if layout.lcols.dtype not in _LCOL_KIND:
         raise ValueError(f"{what}: unsupported lcols dtype {layout.lcols.dtype}")
-    total_k = int(layout.vals.shape[0])
-    T = int(layout.win_b0.numel())
-    if layout.tile_k % SUBLANES or T * layout.tile_k != total_k:
-        raise ValueError(
-            f"{what}: win_b0 holds {T} tiles of {layout.tile_k} sublanes "
-            f"for {total_k} slots"
-        )
+    if x.data_ptr() % 16:
+        raise ValueError(f"{what}: x must be 16-byte aligned (a view at an "
+                         "offset is not); pass a copy")
+    if layout.num_subtiles % 4:
+        raise ValueError(f"{what}: the layout's sub-tile count must be a "
+                         "multiple of 4 (the bases are bulk-copied)")
     B = x.shape[1] if matrix else 1
     check_window(layout, B, hw.smem_per_block(x.device))
+    steps = _window_args(layout, what)
+    seg_ptr, seg_chunk, _, split_seg, nsplit, part = _segment_args(
+        layout, x, what, B)
     y = torch.empty(layout.m, *x.shape[1:], dtype=torch.float32,
                     device=x.device)
     if layout.m == 0:
         return y
-    part = torch.empty(layout.num_subtiles * LANES * B, dtype=torch.float32,
-                       device=x.device)
     rc = _build.library().tsp_ranked_windowed(
         _VAL_KIND[layout.vals.dtype], _LCOL_KIND[layout.lcols.dtype],
         layout.vals.data_ptr(), layout.lcols.data_ptr(),
         layout.sub_b0.data_ptr(), layout.sub_dlo.data_ptr(),
-        layout.sub_dhi.data_ptr(), layout.win_b0.data_ptr(), T,
-        layout.tile_k // SUBLANES, layout.win_span,
-        layout.chunk_ptr.data_ptr(),
-        x.data_ptr(), part.data_ptr(), y.data_ptr(), layout.m, layout.n, B,
-        window_bytes(layout, B), _build.stream_of(x),
+        layout.sub_dhi.data_ptr(), layout.num_subtiles, seg_ptr, seg_chunk,
+        split_seg, nsplit, *steps, x.data_ptr(), y.data_ptr(),
+        part.data_ptr(), layout.m,
+        layout.n, B, _build.stream_of(x),
     )
     _build.check(rc, what)
     return y
 
 
+def windowed_ctas(layout: RankedSlabs, batch: int = 1) -> int:
+    """CTAs each launch of the windowed kernels runs on the current card
+    for this layout and batch columns (its first group of at most 8): as
+    many as fit at once at its shared memory, at most one per step.
+    Raises like a launch."""
+    ctas = _build.library().tsp_ranked_windowed_ctas(
+        _VAL_KIND[layout.vals.dtype], _LCOL_KIND[layout.lcols.dtype],
+        layout.step_lo.numel(), layout.ring_blocks, layout.stage_subtiles,
+        batch)
+    if ctas < 0:
+        _build.check(-ctas, "windowed_ctas")
+    return ctas
+
+
+def windowed_launches(layout: RankedSlabs, batch: int = 1) -> int:
+    """Device launches of one call of the windowed kernels: one per group
+    of at most 8 columns, plus the split fix-up when a chunk is split."""
+    return -(-batch // 8) + (layout.split_seg.shape[1] > 0)
+
+
 def spmv_ranked_windowed(layout: RankedSlabs, x: torch.Tensor) -> torch.Tensor:
-    """y = A @ x with x staged in shared memory, one window of win_span
-    blocks per layout tile; same layout and results as spmv_ranked.
-    Raises ValueError when the window exceeds the card's shared memory
+    """y = A @ x with x staged in shared memory, a ring of ring_blocks
+    blocks filled a step ahead; same layout and bits as spmv_ranked.
+    Raises ValueError when the ring exceeds the card's shared memory
     (hw.smem_per_block). x: (n,) float32 -> y: (m,) float32."""
     if x.device.type == "cpu":
         return spmv_ranked_windowed_reference(layout, x)

@@ -7,9 +7,12 @@ Counterpart of `tpu_spmv/kernels/spmm.py`:
                         per-column segment-sum of partials;
   spmm_ranked_windowed  replaces spmm_ranked_windowed, the route for an X
                         past `resident_x_fits(layout, batch=B)`: the
-                        tile's rows of X staged in shared memory (the
-                        CLI picks the tile and the column chunks B' so
-                        the window fits), partials reduced per column;
+                        segment walk of spmv_ranked_windowed over a ring
+                        of X blocks (128 rows, B columns) in shared
+                        memory, one launch per group of at most 8
+                        columns, each group's width compiled in (the CLI
+                        cuts the window table's step, then the columns
+                        into passes of B', until the ring fits);
   spmm_packed           replaces spmm_packed (PackedRanked, delta and
                         grouped bases) and its out_row gather.
 
@@ -86,9 +89,9 @@ def spmm_ranked(layout: RankedSlabs, X: torch.Tensor) -> torch.Tensor:
 
 
 def spmm_ranked_windowed(layout: RankedSlabs, X: torch.Tensor) -> torch.Tensor:
-    """Y = A @ X with the tile's rows of X (win_span blocks of 128, B
-    columns) staged in shared memory per layout tile; same results as
-    spmm_ranked. Raises ValueError when that window exceeds the card's
+    """Y = A @ X with X staged in shared memory, a ring of ring_blocks
+    blocks of 128 rows and B columns filled a step ahead; same results
+    as spmm_ranked. Raises ValueError when the ring exceeds the card's
     shared memory (kernels/sell.check_window)."""
     if X.device.type == "cpu":
         return spmm_ranked_windowed_reference(layout, X)

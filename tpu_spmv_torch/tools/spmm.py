@@ -12,8 +12,8 @@ auto takes packed when the planner picks it and X (n x B floats) passes
 the L2 residency gate, else the ranked layout, resident or windowed by
 the same gate; `--kernel windowed` forces the windowed kernel (e.g.
 `synthetic:lap2d_1024 --batch 8`, X 33.5 MB, is windowed under auto).
-The windowed route rebuilds the layout at a smaller tile and then
-splits B into column passes until the per-tile window fits shared
+The windowed route cuts the window table at a smaller step and then
+splits B into column passes until the ring of X blocks fits shared
 memory.
 
 Usage:
@@ -47,7 +47,7 @@ def build_spmm(mat, kernel: str, B: int, val_dtype=None, device=None):
     passes the residency gate (resident_x_fits at batch=B); otherwise
     the ranked layout, with spmm_ranked when X passes the gate (or under
     resident) and spmm_ranked_windowed past it (or under windowed). The
-    windowed route fits the window to shared memory (tools/spmv.
+    windowed route fits the ring to shared memory (tools/spmv.
     fit_window) and runs B/B' column passes when B' < B. A ranked build
     that fails ends the run: SpMM has no sell kernel."""
     from tpu_spmv_torch.formats.packed import PackedRanked
@@ -92,21 +92,17 @@ def build_spmm(mat, kernel: str, B: int, val_dtype=None, device=None):
     if kernel == "resident":
         return layout, spmm_ranked, 1
     try:
-        layout, cols = fit_window(
-            layout, B, device, lambda cap: RankedSlabs.from_csr(
-                mat, bin_blocks=plan.bin_blocks, val_dtype=val_dtype,
-                tile_k=cap,
-            ),
-        )
+        layout, cols = fit_window(layout, B, device)
     except ValueError as e:
         raise SystemExit(
             f"no windowed SpMM path: {e}, even at one column per pass. "
             "Options: --kernel resident, or B columns of single-vector "
             "spmv_packed."
         )
-    print(f"windowed SpMM: tile {layout.tile_k}, window {layout.win_span} blocks"
-          f" x {cols} column(s) = {window_bytes(layout, cols) / 1024:.0f} KB "
-          f"of shared memory, {-(-B // cols)} column pass(es) of B'={cols}")
+    print(f"windowed SpMM: ring {layout.ring_blocks} blocks x {cols} "
+          f"column(s) = {window_bytes(layout, cols) / 1024:.0f} KB of shared "
+          f"memory, {layout.step_lo.numel()} steps of {layout.step_subtiles} "
+          f"sub-tile(s), {-(-B // cols)} column pass(es) of B'={cols}")
     if cols == B:
         return layout, spmm_ranked_windowed, 1
 

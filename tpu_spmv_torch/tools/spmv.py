@@ -95,34 +95,37 @@ def x_budget(n: int, device, batch: int = 1) -> str:
             f"{hw.l2_bytes(device) / 2**20:.0f} MB L2")
 
 
-def fit_window(layout, batch: int, device, rebuild):
-    """(layout, B'): the windowed kernels' per-tile window, `batch`
-    columns wide, held to the shared memory of one block
-    (hw.smem_per_block). While it does not fit, the layout is rebuilt by
-    `rebuild(tile_k cap)` at half its tile, down to 512 sublanes; then
-    the columns are split into passes of B' (halved while the window
-    still does not fit). Raises ValueError, naming the sizes, when B' = 1
-    at the smallest tile cannot fit (tpu_spmv/tools/spmm.py:133-176's
-    steps, against shared memory in place of the VMEM scratch)."""
+def fit_window(layout, batch: int, device):
+    """(layout, B'): the windowed kernels' ring of x blocks
+    (kernels/sell.window_bytes), `batch` columns wide, held to the shared
+    memory of one block (hw.smem_per_block). While it does not fit, the
+    window table is cut anew at half its step (RankedSlabs.with_steps),
+    down to one sub-tile a step: the ring does not depend on the layout's
+    tile, so the layout itself is not rebuilt. Then the columns are split
+    into passes of B' (halved while the ring still does not fit). Raises
+    ValueError, naming the sizes, when B' = 1 at one sub-tile a step
+    cannot fit (tpu_spmv/tools/spmm.py:133-176's steps, against shared
+    memory in place of the VMEM scratch)."""
     from tpu_spmv_torch import hw
     from tpu_spmv_torch.kernels.sell import window_bytes
 
     budget = hw.smem_per_block(device)
-    while window_bytes(layout, batch) > budget and layout.tile_k > 512:
-        cap = layout.tile_k // 2
-        print(f"rebuilding layout at tile {cap}: window {layout.win_span} blocks"
-              f" x {batch} column(s) = {window_bytes(layout, batch) / 1024:.0f}"
-              f" KB > {budget / 1024:.0f} KB of shared memory")
-        layout = rebuild(cap).to(device)
+    while window_bytes(layout, batch) > budget and layout.step_subtiles > 1:
+        q = layout.step_subtiles // 2
+        print(f"cutting the window table at {q} sub-tile(s) a step: ring "
+              f"{layout.ring_blocks} blocks x {batch} column(s) = "
+              f"{window_bytes(layout, batch) / 1024:.0f} KB > "
+              f"{budget / 1024:.0f} KB of shared memory")
+        layout = layout.with_steps(q)
     cols = batch
     while cols > 1 and window_bytes(layout, cols) > budget:
         cols = (cols + 1) // 2
     if window_bytes(layout, cols) > budget:
         raise ValueError(
-            f"the per-tile x window is {layout.win_span} blocks "
-            f"({window_bytes(layout) / 1024:.0f} KB at one column, tile "
-            f"{layout.tile_k}), beyond the {budget / 1024:.0f} KB "
-            "shared-memory budget"
+            f"the x ring is {layout.ring_blocks} blocks "
+            f"({window_bytes(layout) / 1024:.0f} KB at one column, "
+            f"{layout.step_subtiles} sub-tile(s) a step), beyond the "
+            f"{budget / 1024:.0f} KB shared-memory budget"
         )
     return layout, cols
 
@@ -198,21 +201,18 @@ def build_layout(matrix, kernel: str, val_dtype=None, bin_blocks: int = 0,
                     f"(ROADMAP.md item {REFUSED_KERNELS['striped']})"
                 )
             try:
-                layout, _ = fit_window(
-                    layout, 1, device, lambda cap: RankedSlabs.from_csr(
-                        matrix, bin_blocks=bin_blocks, val_dtype=val_dtype,
-                        tile_k=cap,
-                    ),
-                )
+                layout, _ = fit_window(layout, 1, device)
             except ValueError as e:
                 raise SystemExit(
                     f"no windowed SpMV path: {e}. Use --kernel packed or "
                     "--kernel sell, which gather x from device memory"
                 )
             print(f"x exceeds the L2 residency budget ({x_budget(matrix.n, device)}"
-                  f"); using the HBM-windowed kernel: tile {layout.tile_k}, "
-                  f"window {layout.win_span} blocks "
-                  f"({window_bytes(layout) / 1024:.0f} KB of shared memory)")
+                  f"); using the HBM-windowed kernel: ring "
+                  f"{layout.ring_blocks} blocks "
+                  f"({window_bytes(layout) / 1024:.0f} KB of shared memory), "
+                  f"{layout.step_lo.numel()} steps of "
+                  f"{layout.step_subtiles} sub-tile(s)")
             return layout, spmv_ranked_windowed, "ranked"
     layout = SellSlabs.from_csr(matrix, bin_blocks=bin_blocks).to(device)
     if not resident_x_fits(layout):
