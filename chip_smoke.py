@@ -37,7 +37,12 @@ x is past the L2 residency gate):
      host set-up seconds are printed; before each phase of spmv_ranked and spmv_sell a line
      gives the segment table it walks (segments, Q, split chunks and
      their partial rows), and on banded_1m two replays of one captured
-     call of each must give the same bits (max |y1 - y2| printed);
+     call of each must give the same bits (max |y1 - y2| printed); so too
+     for the packed walk of spmv_packed and spmm_packed (its segment
+     table in slots, the runs a block walks and the device launches per
+     call, on lap2d_1024 after RCM and banded_1m, whose chunk of an
+     887-nonzero row is split; replays of spmv_packed and of spmm_packed
+     at B = 8 on both);
   2. prints R, the packed-to-ranked time per walked sub-tile measured in
      step 1 on lap2d_1024 after RCM, for SpMV and for SpMM (B = 5),
      beside the planner's constants, and the plan auto takes on each
@@ -290,19 +295,37 @@ def _check_kernel(label, kernel, plain, layout, mat, perm, oracle, stats,
 
 
 def _segments(label, lay):
-    """One line on the segment table that spmv_ranked and spmv_sell walk
-    (formats/sell.segment_fields)."""
+    """One line on the segment table that spmv_ranked and spmv_sell
+    (formats/sell.segment_fields) or spmv_packed and spmm_packed (the
+    same cut in slots, and the runs a block walks: formats/packed.
+    walk_fields) walk, with a packed layout's device launches per call."""
     import numpy as np
 
+    from tpu_spmv_torch.formats import packed as fpacked
     from tpu_spmv_torch.formats.sell import SEGMENT_SUBTILES
+    from tpu_spmv_torch.kernels.packed import packed_launches
 
-    cp = np.diff(lay.chunk_ptr.cpu().numpy())
     ss = lay.split_seg.cpu().numpy()
+    split = (f"split chunks {ss.shape[1]} ({int((ss[2] - ss[1]).sum())} "
+             "partial rows)")
+    if isinstance(lay, fpacked.PackedRanked):
+        koff = lay.chunk_koff.cpu().numpy().astype(np.int64)
+        touched = -(-koff[1:] // 8) - koff[:-1] // 8
+        runs = lay.run_ptr.shape[1] - 1
+        print(f"    [{label}] segments {lay.seg_chunk.numel()} of at most "
+              f"Q={SEGMENT_SUBTILES} sub-tiles over {lay.num_chunks} chunks "
+              f"({int(koff[-1])} slots, longest chunk {int(np.diff(koff).max())}"
+              f" slots touching {int(touched.max())} sub-tiles); {split}; "
+              f"{runs} runs of at most {fpacked.RUN_SUBTILES} sub-tiles and "
+              f"{fpacked.RUN_SEGMENTS} segments, one block each; device "
+              f"launches per call: {packed_launches(lay)} (B <= 8), "
+              f"{packed_launches(lay, 13)} (B = 13)", flush=True)
+        return
+    cp = np.diff(lay.chunk_ptr.cpu().numpy())
     print(f"    [{label}] segments {lay.seg_chunk.numel()} of at most "
           f"Q={SEGMENT_SUBTILES} sub-tiles over {lay.num_chunks} chunks "
           f"({int(cp.sum())} sub-tiles, longest chunk {int(cp.max())}); "
-          f"split chunks {ss.shape[1]} ({int((ss[2] - ss[1]).sum())} "
-          "partial rows)", flush=True)
+          f"{split}", flush=True)
 
 
 def _replay_check(label, name, call):
@@ -343,13 +366,15 @@ def _ring(label, lay, batch=1, passes=1):
           f"{windowed_launches(lay, batch)} launch(es) per call", flush=True)
 
 
-def _spmv_replay_check(label, kernel, layout, mat, perm):
-    """_replay_check of one SpMV kernel on the layout, at x = X_SEED's."""
+def _spmv_replay_check(label, kernel, layout, mat, perm, batch=None):
+    """_replay_check of one SpMV kernel (or, with batch, SpMM kernel) on
+    the layout, at x = X_SEED's."""
     import numpy as np
     import torch
 
     lay = layout.to(torch.device("cuda"))
-    x = np.random.default_rng(X_SEED).standard_normal(mat.n).astype(np.float32)
+    shape = (mat.n,) if batch is None else (mat.n, batch)
+    x = np.random.default_rng(X_SEED).standard_normal(shape).astype(np.float32)
     xt = torch.from_numpy(x[perm]).to(lay.vals.device)
     _replay_check(label, kernel.__name__, lambda: kernel(lay, xt))
 
@@ -423,6 +448,8 @@ def _phases(stats):
                                "requested")
         kind = ("bf16 " if vdt else "f32 ") + (
             f"grouped G={lay.num_groups}" if groups else "delta")
+        if groups and vdt is None:
+            _segments(f"lap2d_1024 rcm packed {kind}", lay)
         t = _check_kernel(f"lap2d_1024 rcm packed {kind}", spmv_packed,
                           spmv_packed_reference, lay, mat, perm,
                           mat.rounded() if vdt else mat, stats,
@@ -438,6 +465,10 @@ def _phases(stats):
         t_pk = _check_kernel(f"lap2d_1024 rcm spmm_packed B={B}", spmm_packed,
                              spmm_packed_reference, lap_layouts[1], mat, perm,
                              mat, stats, batch=B, csr=ck.matrix)
+    _spmv_replay_check("lap2d_1024 rcm packed", spmv_packed, lap_layouts[1],
+                       mat, perm)
+    _spmv_replay_check("lap2d_1024 rcm spmm_packed B=8", spmm_packed,
+                       lap_layouts[1], mat, perm, batch=8)
     r_times["spmm ranked"] = (t_rk, r_times["ranked"][1])
     r_times["spmm packed"] = (t_pk, r_times["packed"][1])
     del lap_layouts
@@ -456,8 +487,10 @@ def _phases(stats):
     _spmv_replay_check("banded_1m sell", spmv_sell, sell, mat, perm)
     del sell
     packed = PackedRanked.from_csr(ck.matrix)
+    _segments(f"banded_1m packed grouped G={packed.num_groups}", packed)
     _check_kernel("banded_1m packed", spmv_packed, spmv_packed_reference,
                   packed, mat, perm, mat, stats, csr=ck.matrix)
+    _spmv_replay_check("banded_1m packed", spmv_packed, packed, mat, perm)
     binned = None
     for w in (4, 2, 1):
         try:
@@ -477,6 +510,8 @@ def _phases(stats):
         _check_kernel(f"banded_1m spmm_packed B={B}", spmm_packed,
                       spmm_packed_reference, packed, mat, perm, mat, stats,
                       batch=B, csr=ck.matrix)
+    _spmv_replay_check("banded_1m spmm_packed B=8", spmm_packed, packed, mat,
+                       perm, batch=8)
     # spmv_ranked_windowed on the aligned (bin 0) ranked layout of this
     # banded matrix, whose split chunk takes the fix-up launch: x of 4 MB
     # passes the gate, so this is a comparison with the resident kernel,
@@ -1049,7 +1084,7 @@ _KERNELS = {
     "spmm_ranked": ("tpu_spmv_torch/kernels/csrc/spmm.cu",
                     "tpu_spmv/kernels/spmm.py:183",
                     "lap2d_1024 rcm spmm_ranked B=8"),
-    "spmm_packed": ("tpu_spmv_torch/kernels/csrc/spmm.cu",
+    "spmm_packed": ("tpu_spmv_torch/kernels/csrc/packed.cu",
                     "tpu_spmv/kernels/spmm.py:691",
                     "lap2d_1024 rcm spmm_packed B=8"),
     "lower_solve_ranked": ("tpu_spmv_torch/kernels/csrc/sts.cu",

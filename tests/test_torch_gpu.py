@@ -274,24 +274,32 @@ _PACKED = {
                           dict(bin_blocks=4)),
     "lap2d_u8_delta": (lambda: _rcm(laplacian_2d(60)),
                        dict(allow_groups=False)),
+    "long_row_grouped": (_long_row, {}),
+    "long_row_bf16_delta": (_long_row, dict(val_dtype=torch.bfloat16,
+                                            allow_groups=False)),
 }
 
 
 @pytest.mark.parametrize("case", sorted(_PACKED))
 def test_packed_kernel_matches_plain(cuda, case):
+    """The long-row cases split a chunk into several segments, whose
+    partial rows the fix-up launch adds."""
     make, kw = _PACKED[case]
     mat = make()
     lay = PackedRanked.from_csr(mat, **kw)
+    if case.startswith("long_row"):
+        assert lay.split_seg.shape[1] >= 1
     oracle = mat.rounded() if kw.get("val_dtype") else mat
     _run(spmv_packed, spmv_packed_reference, lay, mat, oracle, cuda)
 
 
 @pytest.mark.parametrize("batch", [1, 5, 8, 13])
 @pytest.mark.parametrize("case", ["banded_grouped", "banded_bf16",
-                                  "general_binned_w4", "lap2d_u8_delta"])
+                                  "general_binned_w4", "lap2d_u8_delta",
+                                  "long_row_grouped"])
 def test_spmm_kernels_match_plain(cuda, case, batch):
     """Both SpMM kernels on the same matrix; B = 13 takes two column
-    tiles, the second one partial."""
+    tiles, the second one partial; long_row_grouped splits a chunk."""
     make, kw = _PACKED[case]
     mat = make()
     oracle = mat.rounded() if kw.get("val_dtype") else mat
@@ -299,6 +307,51 @@ def test_spmm_kernels_match_plain(cuda, case, batch):
          mat, oracle, cuda, batch)
     _run(spmm_ranked, spmm_ranked_reference, RankedSlabs.from_csr(mat, **kw),
          mat, oracle, cuda, batch)
+
+
+@pytest.mark.parametrize("batch", [None, 5, 8])
+def test_packed_walk_replays_bit_identical(cuda, batch):
+    """Two replays of a captured spmv_packed (batch None) or spmm_packed
+    call on a layout with a split chunk give the same bits, and so does
+    an eager call: the fix-up adds the partial rows in segment order."""
+    mat = _long_row()
+    lay = PackedRanked.from_csr(mat).to(cuda)
+    assert lay.split_seg.shape[1] >= 1
+    fn = spmv_packed if batch is None else spmm_packed
+    shape = (mat.n,) if batch is None else (mat.n, batch)
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        shape).astype(np.float32)).to(cuda)
+    fn(lay, x)  # eager first: builds the library
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(lay, x)
+    before = fn.launches
+    graph.replay()
+    y1 = out.clone()
+    graph.replay()
+    y2 = out.clone()
+    expect = fn(lay, x)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and torch.equal(y1, expect)
+    assert fn.launches == before + 1  # the eager call only
+
+
+@pytest.mark.parametrize("batch", [None, 5])
+@pytest.mark.parametrize("q", [1, 16])
+def test_packed_walk_at_any_segment_length(cuda, q, batch, monkeypatch):
+    """Packed tables cut at 1 sub-tile a segment (every chunk that
+    touches two sub-tiles split) and at 16, the most whose bases a block
+    stages, match the plain version."""
+    from tpu_spmv_torch.formats import packed as fpacked
+    from tpu_spmv_torch.formats import sell as fsell
+
+    mat = _long_row()
+    monkeypatch.setattr(fsell, "SEGMENT_SUBTILES", q)
+    lay = fpacked.with_segments(PackedRanked.from_csr(mat))
+    fn, plain = ((spmv_packed, spmv_packed_reference) if batch is None
+                 else (spmm_packed, spmm_packed_reference))
+    _run(fn, plain, lay, mat, mat, cuda, batch)
 
 
 @pytest.mark.parametrize("mat", [laplacian_2d(300), variable_stencil(97)],

@@ -114,13 +114,19 @@ def test_cli_follows_the_plan(monkeypatch, capsys):
     assert "auto kernel: resident (ranked" in capsys.readouterr().out
 
 
-def test_spmm_plan_weighs_its_own_ratio(capsys):
+def test_spmm_plan_weighs_its_own_ratio(capsys, monkeypatch):
     """On a 5-point stencil after RCM (ranked walks 1.6x packed's
-    sub-tiles) the measured ratios send SpMV to ranked and SpMM to
-    packed, and the CLI's auto takes spmm_packed there."""
+    sub-tiles) the measured ratios, both below 1.6 since the packed
+    kernels walk their segment and run tables, send SpMV and SpMM to
+    packed; each operation weighs its own ratio (a SpMV ratio above 1.6
+    sends SpMV to ranked and leaves SpMM on packed), and the CLI's auto
+    takes spmm_packed there."""
     mat = laplacian_2d(64)
     mat = mat.permuted(rcm(mat.indptr, mat.indices))
-    assert plan.SPMM_PACKED_OVER_RANKED < 1.6 < plan.PACKED_OVER_RANKED
+    assert max(plan.SPMM_PACKED_OVER_RANKED, plan.PACKED_OVER_RANKED) < 1.6
+    assert plan.gpu_plan(mat, assume_rcm=True).kernel == "packed"
+    assert plan.gpu_plan(mat, assume_rcm=True, spmm=True).kernel == "packed"
+    monkeypatch.setattr(plan, "PACKED_OVER_RANKED", 1.7)
     assert plan.gpu_plan(mat, assume_rcm=True).kernel == "ranked"
     assert plan.gpu_plan(mat, assume_rcm=True, spmm=True).kernel == "packed"
     assert cli.main(["synthetic:lap2d_256", "3", "--batch", "5", "--rcm",

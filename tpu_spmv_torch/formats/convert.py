@@ -8,7 +8,8 @@ JAX. The port's derived fields come from the reference's arrays alone:
 chunk_ptr from sub_chunk, the segment table from chunk_ptr
 (formats/sell.segment_fields), RankedSlabs' window table from the
 segment table and the bases (formats/sell.window_fields), and PackedRanked's
-chunk_koff from out_row and bmeta.
+chunk_koff from out_row and bmeta, and its segment and run tables from
+chunk_koff (formats/packed.walk_fields).
 
 Two encodings need care: numpy has no bf16 of its own and
 torch.from_numpy rejects ml_dtypes' bfloat16, so bf16 crosses as its
@@ -22,7 +23,9 @@ import numpy as np
 import torch
 
 from tpu_spmv_torch.formats.dia import DiaSlabs
-from tpu_spmv_torch.formats.packed import PackedRanked, chunk_koff_from_segments
+from tpu_spmv_torch.formats.packed import (
+    PackedRanked, chunk_koff_from_segments, walk_fields,
+)
 from tpu_spmv_torch.formats.sell import (
     RankedSlabs, SellSlabs, _chunk_ptr, segment_fields, to_tensor,
     window_fields,
@@ -42,6 +45,7 @@ def from_reference(layout):
             rows_per_tile=layout.rows_per_tile,
         )
     if kind == "PackedRanked":
+        koff = chunk_koff_from_segments(layout.out_row, layout.bmeta)
         return PackedRanked(
             vals=to_tensor(layout.vals),
             lcols=to_tensor(layout.lcols),
@@ -51,9 +55,8 @@ def from_reference(layout):
             bmeta=to_tensor(layout.bmeta),
             out_row=to_tensor(layout.out_row),
             grp_b0=to_tensor(layout.grp_b0),
-            chunk_koff=torch.from_numpy(
-                chunk_koff_from_segments(layout.out_row, layout.bmeta)
-            ),
+            chunk_koff=torch.from_numpy(koff),
+            **walk_fields(koff),
             m=layout.m, n=layout.n, nnz=layout.nnz,
             num_chunks=layout.num_chunks, rank_nb=layout.rank_nb,
             tile_k=layout.tile_k, group_code=layout.group_code,

@@ -10,12 +10,31 @@ package's `PackedRanked` on the same matrix (tests hold them equal),
 including the TPU kernel's segment metadata (`bmeta`, `out_row`), which
 the port carries but does not read.
 
-The port adds one derived field, `chunk_koff` ((num_chunks+1,) int32):
-chunk c's slots are [chunk_koff[c], chunk_koff[c+1]). A GPU thread that
-owns a row sums that row's slots itself, so the TPU kernel's
-cross-sub-tile carry, its two partial rows per sub-tile and the
-`out_row` gather do not exist in the port. Slots past
-chunk_koff[num_chunks] are padding and are never read.
+The port adds derived fields, built from the reference's arrays alone:
+
+  chunk_koff ((num_chunks+1,) int32) chunk c's slots are
+             [chunk_koff[c], chunk_koff[c+1]);
+  seg_ptr, seg_chunk, split_seg
+             the segment table (formats/sell.segment_fields over
+             chunk_koff, in slots): each chunk's slots cut, in order, at
+             sub-tile boundaries inside the chunk into segments that
+             touch at most SEGMENT_SUBTILES sub-tiles, so only a
+             segment's first and last sub-tile can be shared with another
+             chunk. A chunk of one segment writes y directly, the
+             segments of a split chunk write partial rows that a second
+             launch adds in segment order;
+  run_ptr    the run table (`run_fields`): consecutive segments grouped
+             into runs of at most RUN_SUBTILES sub-tiles and RUN_SEGMENTS
+             segments. spmv_packed and spmm_packed give each run one block
+             of 128 threads, thread l row l of each of its segments'
+             chunks.
+
+The TPU kernel's cross-sub-tile carry, its two partial rows per sub-tile
+and the `out_row` gather do not exist in the port.
+
+Slots past chunk_koff[num_chunks] are padding and are never read. The
+container checks the tables once on the host when it is made
+(`_check_segments`), so a table built by hand raises before any launch.
 """
 
 from __future__ import annotations
@@ -28,6 +47,8 @@ import torch
 from tpu_spmv_torch.formats.csr import CSRMatrix
 from tpu_spmv_torch.formats.sell import (
     LANES,
+    MAX_SEGMENT_SUBTILES,
+    SPLIT_BIT,
     SUBLANES,
     TensorLayout,
     _aligned_slots,
@@ -35,12 +56,23 @@ from tpu_spmv_torch.formats.sell import (
     _round_up,
     group_windows,
     pad_up_tile,
+    segment_fields,
     to_tensor,
 )
 
 # Minimum slab height: bounds chunk ends per 8-slot sub-tile to two
 # (consecutive ends are >= MIN_KC apart; a sub-tile spans 7 positions).
 MIN_KC = 4
+# The runs of the packed walk: a block of kernels/csrc/packed.cu walks a
+# run of consecutive segments, taking the next one while the run still
+# touches at most RUN_SUBTILES sub-tiles (a segment alone may touch
+# SEGMENT_SUBTILES) and holds at most RUN_SEGMENTS segments; 0 sub-tiles
+# gives every segment a block of its own.
+RUN_SUBTILES = 8
+RUN_SEGMENTS = 8
+# The most segments a run may hold: a block stages each segment's end and
+# output, one per thread.
+MAX_RUN_SEGMENTS = LANES - 1
 
 
 @dataclasses.dataclass
@@ -62,6 +94,10 @@ class PackedRanked(TensorLayout):
     out_row: torch.Tensor  # (num_chunks,) int32 partial row (TPU kernel's)
     grp_b0: torch.Tensor  # (S*G,) int32, empty when ungrouped
     chunk_koff: torch.Tensor  # (num_chunks+1,) int32 slot range per chunk
+    seg_ptr: torch.Tensor  # (G+1,) int32 segment_fields: first slot
+    seg_chunk: torch.Tensor  # (G,) int32 chunk, or SPLIT_BIT | partial row
+    split_seg: torch.Tensor  # (3, K) int32 chunk, partial rows per split chunk
+    run_ptr: torch.Tensor  # (2, R+1) int32 run_fields: first segment, slot
     m: int
     n: int
     nnz: int
@@ -69,6 +105,9 @@ class PackedRanked(TensorLayout):
     rank_nb: int
     tile_k: int
     group_code: int = 0
+
+    def __post_init__(self):
+        _check_segments(self)
 
     @property
     def groups(self) -> tuple:
@@ -236,6 +275,7 @@ class PackedRanked(TensorLayout):
             out_row=to_tensor(out_row.astype(np.int32)),
             grp_b0=to_tensor(grp_b0.astype(np.int32)),
             chunk_koff=to_tensor(koff.astype(np.int32)),
+            **walk_fields(koff),
             m=m,
             n=n,
             nnz=mat.nnz,
@@ -258,3 +298,111 @@ def chunk_koff_from_segments(out_row, bmeta) -> np.ndarray:
     koff = np.zeros(out_row.shape[0] + 1, np.int64)
     koff[1:] = SUBLANES * s + pos
     return koff.astype(np.int32)
+
+
+def run_fields(seg_ptr) -> dict:
+    """The run table over a packed segment table's seg_ptr (in slots):
+
+      run_ptr  ((2, R+1) int32) the first segment of each run, and its
+               first slot (seg_ptr at that segment, so a block reads its
+               slot range without a second round trip): from its first
+               segment on, a run takes the next segment while the
+               sub-tiles its segments touch together number at most
+               RUN_SUBTILES and it holds at most RUN_SEGMENTS segments;
+               run_ptr[:, R] = (G, seg_ptr[G]).
+
+    A block of the packed walk walks one run. Raises ValueError when
+    RUN_SEGMENTS exceeds the MAX_RUN_SEGMENTS a block stages."""
+    if not 1 <= RUN_SEGMENTS <= MAX_RUN_SEGMENTS:
+        raise ValueError(f"runs of {RUN_SEGMENTS} segments: the walk "
+                         f"stages 1 to {MAX_RUN_SEGMENTS}")
+    ptr = np.asarray(seg_ptr).astype(np.int64)
+    G = ptr.size - 1
+    first = ptr[:-1] // SUBLANES  # first sub-tile of each segment
+    end = -(-ptr[1:] // SUBLANES)  # one past its last
+    runs = [0]
+    while runs[-1] < G:
+        j = runs[-1]
+        fits = int(np.searchsorted(end, first[j] + RUN_SUBTILES, "right"))
+        runs.append(min(max(fits, j + 1), j + RUN_SEGMENTS, G))
+    runs = np.asarray(runs, np.int64)
+    return dict(run_ptr=torch.from_numpy(
+        np.stack([runs, ptr[runs]]).astype(np.int32)))
+
+
+def walk_fields(chunk_koff) -> dict:
+    """The segment and run tables of a chunk_koff, as the container's
+    fields (segment_fields in slots, then run_fields)."""
+    segments = segment_fields(chunk_koff, SUBLANES)
+    return dict(segments, **run_fields(segments["seg_ptr"]))
+
+
+def with_segments(layout: "PackedRanked") -> "PackedRanked":
+    """The layout with its segment and run tables cut anew at
+    SEGMENT_SUBTILES, RUN_SUBTILES and RUN_SEGMENTS, on its device."""
+    fields = walk_fields(layout.chunk_koff.cpu())
+    return dataclasses.replace(layout, **{
+        k: v.to(layout.vals.device) for k, v in fields.items()})
+
+
+def _check_segments(layout) -> None:
+    """The segment table's host check, once when the container is made
+    (not when moved or cloned), never per call: segments that walk every
+    slot of [0, chunk_koff[-1]) once, in order, each inside its own
+    chunk's range and touching at most MAX_SEGMENT_SUBTILES sub-tiles
+    (the walk stages the window bases of that many), and each chunk's
+    rows written once: by its one segment, or by the fix-up of a split
+    chunk whose partial rows are its segments. Raises ValueError."""
+    ptr = layout.seg_ptr.cpu().numpy().astype(np.int64)
+    tag = layout.seg_chunk.cpu().numpy().astype(np.int64)
+    ss = layout.split_seg.cpu().numpy().astype(np.int64)
+    koff = layout.chunk_koff.cpu().numpy().astype(np.int64)
+    G = tag.size
+    if ptr.shape != (G + 1,) or ss.ndim != 2 or ss.shape[0] != 3:
+        raise ValueError("the segment table needs seg_ptr (G+1,), seg_chunk "
+                         "(G,) and split_seg (3, K); build it with "
+                         "segment_fields(chunk_koff, SUBLANES)")
+    if ptr[0] != 0 or ptr[-1] != koff[-1] or (np.diff(ptr) < 1).any():
+        raise ValueError("the segment table leaves slots of [0, "
+                         f"{koff[-1]}) unwalked or walks one twice: seg_ptr "
+                         "must rise strictly from 0 to chunk_koff[-1]")
+    touched = -(-ptr[1:] // SUBLANES) - ptr[:-1] // SUBLANES
+    if int(touched.max(initial=0)) > MAX_SEGMENT_SUBTILES:
+        raise ValueError(
+            f"a segment of {int(touched.max())} sub-tiles: the walk stages "
+            f"the bases of at most {MAX_SEGMENT_SUBTILES}; build the table "
+            "with segment_fields")
+    split = (tag & SPLIT_BIT) != 0
+    row_chunk = np.repeat(ss[0], ss[2] - ss[1])
+    rows = tag[split] & ~SPLIT_BIT
+    whole = tag[~split]
+    if (rows.size != row_chunk.size
+            or not np.array_equal(rows, np.arange(rows.size))
+            or np.unique(whole).size != whole.size
+            or np.isin(whole, ss[0]).any()
+            or not np.array_equal(ss[1][1:], ss[2][:-1])
+            or (ss.shape[1] and ss[1][0] != 0)):
+        raise ValueError("seg_chunk and split_seg must write each chunk's "
+                         "rows once: one whole segment, or the partial rows "
+                         "of a split chunk, numbered in order")
+    chunk = tag.copy()
+    chunk[split] = row_chunk
+    if ((chunk < 0) | (chunk >= layout.num_chunks)).any() or (
+            (ptr[:-1] < koff[chunk]) | (ptr[1:] > koff[chunk + 1])).any():
+        raise ValueError("a segment lies outside its chunk's slots")
+    run_ptr = layout.run_ptr.cpu().numpy().astype(np.int64)
+    runs = run_ptr[0] if run_ptr.ndim == 2 else run_ptr
+    if run_ptr.ndim != 2 or run_ptr.shape[0] != 2 or runs.size < 2 or (
+            runs[0] != 0 or runs[-1] != G or (np.diff(runs) < 1).any()
+            or not np.array_equal(run_ptr[1], ptr[runs])):
+        raise ValueError("run_ptr must be (2, R+1): segments rising strictly "
+                         "from 0 to the segment count, and their first "
+                         "slots; build it with run_fields")
+    span = -(-ptr[runs[1:]] // SUBLANES) - ptr[runs[:-1]] // SUBLANES
+    if int(span.max()) > MAX_SEGMENT_SUBTILES or int(
+            np.diff(runs).max()) > MAX_RUN_SEGMENTS:
+        raise ValueError(
+            f"a run touches {int(span.max())} sub-tiles or holds "
+            f"{int(np.diff(runs).max())} segments: the walk stages at most "
+            f"{MAX_SEGMENT_SUBTILES} and {MAX_RUN_SEGMENTS}; build the "
+            "table with run_fields")

@@ -106,7 +106,7 @@ def _chunk_ptr(sub_chunk: np.ndarray, num_chunks: int) -> np.ndarray:
     ).astype(np.int32)
 
 
-def segment_fields(chunk_ptr) -> dict:
+def segment_fields(chunk_ptr, unit: int = 1) -> dict:
     """The segment table of a chunk_ptr, as the containers' fields:
 
       seg_ptr      ((G+1,) int32) first sub-tile of each segment; each
@@ -114,7 +114,12 @@ def segment_fields(chunk_ptr) -> dict:
                    order into segments of SEGMENT_SUBTILES sub-tiles, the
                    last one shorter; a chunk without sub-tiles gets one
                    empty segment (its rows are written as 0); seg_ptr[G]
-                   = chunk_ptr[num_chunks];
+                   = chunk_ptr[num_chunks]. With unit = SUBLANES,
+                   chunk_ptr and seg_ptr count slots (PackedRanked's
+                   chunk_koff, whose chunks share sub-tiles): a segment
+                   starts at its chunk's first slot or at a sub-tile
+                   boundary inside the chunk and touches at most
+                   SEGMENT_SUBTILES sub-tiles, shared ones included;
       seg_chunk    ((G,) int32) the chunk of a segment whose chunk has no
                    other segment (it writes y), else SPLIT_BIT | p: the
                    segment writes its partial row sums into row p of a
@@ -132,12 +137,14 @@ def segment_fields(chunk_ptr) -> dict:
         raise ValueError(f"segments of {q} sub-tiles: the walk stages "
                          f"1 to {MAX_SEGMENT_SUBTILES}")
     ptr = np.asarray(chunk_ptr).astype(np.int64)
-    nseg = np.maximum(-(-np.diff(ptr) // q), 1)
+    sub0 = ptr[:-1] // unit  # each chunk's first sub-tile
+    nseg = np.maximum(-(-(-(-ptr[1:] // unit) - sub0) // q), 1)
     first = np.cumsum(nseg) - nseg
     G = int(nseg.sum())
     chunk = np.repeat(np.arange(nseg.shape[0], dtype=np.int64), nseg)
     seg_ptr = np.empty(G + 1, np.int64)
-    seg_ptr[:G] = ptr[chunk] + (np.arange(G) - first[chunk]) * q
+    seg_ptr[:G] = np.maximum(
+        ptr[chunk], (sub0[chunk] + (np.arange(G) - first[chunk]) * q) * unit)
     seg_ptr[G] = ptr[-1]
     split = nseg > 1
     end = np.cumsum(nseg[split])  # one past each split chunk's last row

@@ -55,19 +55,16 @@ _SIGNATURES = {
     # num_split, x, y, part, m, n, stream
     "tsp_spmv_sell": (_P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _LL, _LL, _P),
     # val_kind, lcol_kind, vals, lcols, sub_b0, sub_dlo, sub_dhi,
-    # grp_b0, G, gmap, chunk_koff, x, y, m, n, stream
-    "tsp_spmv_packed": (
-        _I, _I, _P, _P, _P, _P, _P, _P, _I, _U, _P, _P, _P, _LL, _LL, _P,
+    # grp_b0, G, gmap, seg_ptr, seg_chunk, run_ptr, num_runs, split_seg,
+    # num_split, X, Y, part, m, n, B, stream
+    "tsp_packed": (
+        _I, _I, _P, _P, _P, _P, _P, _P, _I, _U, _P, _P, _P, _I, _P, _I, _P,
+        _P, _P, _LL, _LL, _I, _P,
     ),
     # val_kind, lcol_kind, vals, lcols, sub_b0, sub_dlo, sub_dhi,
     # chunk_ptr, X, Y, m, n, B, stream
     "tsp_spmm_ranked": (
         _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, _P,
-    ),
-    # val_kind, lcol_kind, vals, lcols, sub_b0, sub_dlo, sub_dhi,
-    # grp_b0, G, gmap, chunk_koff, X, Y, m, n, B, stream
-    "tsp_spmm_packed": (
-        _I, _I, _P, _P, _P, _P, _P, _P, _I, _U, _P, _P, _P, _LL, _LL, _I, _P,
     ),
     # vals, cols, chunk_ptr, wait_ptr, wait_chunk, b_scale, x, flags,
     # num_chunks, x_blocks, stream

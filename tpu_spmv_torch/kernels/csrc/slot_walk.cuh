@@ -1,37 +1,38 @@
 // One thread per row, walking that row's slots of a rank-windowed slab
-// layout: the body shared by csrc/packed.cu (spmv_packed) and
-// csrc/spmm.cu (spmm_ranked, spmm_packed).
+// layout: the body of csrc/spmm.cu's spmm_ranked.
 //
-// Layout (tpu_spmv_torch/formats/{sell,packed}.py): 128 rows form a
-// chunk, one row per lane; slot k of the slabs holds, at lane l, a
-// value vals[k, l] and a window-local column lcols[k, l]. Slot k lies
-// in sub-tile s = k >> 3 at sublane r = k & 7, and its column is
+// Layout (tpu_spmv_torch/formats/sell.py): 128 rows form a chunk, one
+// row per lane; slot k of the slabs holds, at lane l, a value
+// vals[k, l] and a window-local column lcols[k, l]. Slot k lies in
+// sub-tile s = k >> 3 at sublane r = k & 7, and its column is
 //   col = 128 * base(s, r) + lcols[k, l],
 //   base(s, r) = sub_b0[s] + byte r of sub_dlo (r < 4) / sub_dhi (r >= 4)
 // decoded as uint32 with logical shifts (a signed shift would
 // sign-extend a byte >= 128), or, when G > 0,
 //   base(s, r) = grp_b0[s * G + group(r)], group(r) = 4-bit field r of
-// gmap. Chunk c owns slots [range[c] << shift, range[c+1] << shift):
-// shift 0 for a packed layout's chunk_koff (slot offsets), 3 for a
-// ranked layout's chunk_ptr (sub-tile offsets). Slots past a chunk's
-// true row length hold val 0 and an in-range column; slots past the
-// last chunk are never read.
+// gmap. Chunk c owns slots [range[c] << shift, range[c+1] << shift).
+// spmm_ranked passes its chunk_ptr (sub-tile offsets, shift 3) and G = 0
+// (the packed deltas hold a grouped layout's bases too). The slot
+// offsets (shift 0), the grouped bases and the plain loop over a
+// sub-tile shared by two chunks served the packed kernels, which walk
+// csrc/packed.cu's run table since; they stay because cutting them
+// changed the compiled walk and slowed spmm_ranked by 4% on lap2d_1024
+// and 33-42% on banded_1m on an H100 (bench/packed_times.py, PERF.md),
+// and this file goes when spmm_ranked moves to a segment walk. Slots
+// past a chunk's true row length hold val 0 and an in-range column;
+// slots past the last chunk are never read.
 //
 // A thread owns row (chunk c = row / 128, lane row % 128) and a tile of
 // up to TB columns of X (n, B) and Y (m, B), both row-major; grid.y
 // walks the column tiles. It keeps TB sums in registers and writes its
-// row of Y once, so nothing crosses threads or blocks: the TPU kernels'
-// per-sub-tile partials, the packed kernels' carry across sub-tiles and
-// grid steps, and the out_row gather or segment-sum after them do not
-// exist here. The 32 threads of a warp share a chunk, so the walk is
-// uniform within a warp and the metadata loads are broadcasts. A
-// sub-tile wholly inside the chunk (every sub-tile of a ranked layout,
-// and the bulk of a long packed row) runs its 8 slots unrolled, so their
-// loads issue together; the slots of a sub-tile that the chunk shares
-// with its neighbours run in a plain loop. (Of three variants timed on
-// the H100, unrolling the shared sub-tiles too, predicated per slot, or
-// with every load unconditional, made banded_1m's long row 1.8x to 3.8x
-// slower.) A column outside [0, n) adds 0.
+// row of Y once, so nothing crosses threads or blocks: the TPU kernel's
+// per-sub-tile partials and the segment-sum after them do not exist
+// here. The 32 threads of a warp share a chunk, so the walk is uniform
+// within a warp and the metadata loads are broadcasts. Every sub-tile of
+// a ranked chunk runs its 8 slots unrolled, so their loads issue
+// together. A column outside [0, n) adds 0. A chunk of many sub-tiles is
+// walked by one thread: the tail that csrc/sell.cu's and csrc/packed.cu's
+// walks remove.
 
 #pragma once
 

@@ -70,6 +70,8 @@
 
 #include <cstdint>
 
+#include "split_rows.cuh"
+
 namespace {
 
 constexpr int kLanes = 128;
@@ -446,29 +448,6 @@ __global__ void __launch_bounds__(kRingThreads, NB <= 5 ? 2 : 1)
     }
     __syncwarp();
     if ((threadIdx.x & 31) == 0) mbar_arrive(bar0 + 16 + 8 * (t & 1));
-  }
-}
-
-// Y rows of every split chunk: its segments' partial rows added in
-// segment order, column by column (csrc/sell.cu's fix-up, B columns
-// wide). One block of 128 threads per split chunk; split_seg is (3, K):
-// the chunk, its first partial row and one past its last.
-__global__ void __launch_bounds__(kLanes)
-    split_rows_kernel(const int* __restrict__ split_seg, int num_split,
-                      const float* __restrict__ part, float* __restrict__ Y,
-                      long long m, int B) {
-  const int lane = threadIdx.x;
-  const int c = __ldg(split_seg + blockIdx.x);
-  const int p0 = __ldg(split_seg + num_split + blockIdx.x);
-  const int p1 = __ldg(split_seg + 2 * num_split + blockIdx.x);
-  const long long row = (long long)c * kLanes + lane;
-  if (row >= m) return;
-  for (int j = 0; j < B; ++j) {
-    float acc = 0.f;
-    for (int p = p0; p < p1; ++p) {
-      acc += part[((long long)p * kLanes + lane) * B + j];
-    }
-    Y[row * B + j] = acc;
   }
 }
 

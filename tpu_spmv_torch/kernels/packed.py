@@ -1,10 +1,14 @@
-"""Packed mixed-height SpMV: the CUDA kernel of csrc/packed.cu and its
-plain PyTorch version.
+"""Packed mixed-height SpMV and SpMM: the CUDA kernel of csrc/packed.cu
+and its plain PyTorch version.
 
 `spmv_packed(layout, x)` replaces `tpu_spmv/kernels/packed.py:spmv_packed`
-(delta and grouped bodies, and the out_row gather after them). On a CPU
-tensor it runs `spmv_packed_reference`; on a CUDA tensor it launches the
-kernel or raises. `spmv_packed.launches` counts kernel launches.
+(delta and grouped bodies, and the out_row gather after them); the same
+walk, compiled per width, serves `kernels/spmm.spmm_packed`
+(`launch_packed`). On a CPU tensor it runs `spmv_packed_reference`; on a
+CUDA tensor it launches the kernel or raises. `spmv_packed.launches`
+counts calls that launched the kernel, once per call: a call is one
+device launch, or two on a layout with a split chunk (the segment walk,
+then the fix-up that adds its segments' partial rows).
 """
 
 from __future__ import annotations
@@ -14,7 +18,9 @@ import torch
 from tpu_spmv_torch.formats.packed import PackedRanked
 from tpu_spmv_torch.formats.sell import LANES, SUBLANES
 from tpu_spmv_torch.kernels import _build
-from tpu_spmv_torch.kernels.sell import _LCOL_KIND, _VAL_KIND, ranked_bases
+from tpu_spmv_torch.kernels.sell import (
+    _LCOL_KIND, _VAL_KIND, _segment_args, ranked_bases,
+)
 
 
 def spmv_packed_reference(layout: PackedRanked, x: torch.Tensor) -> torch.Tensor:
@@ -44,8 +50,10 @@ def spmv_packed_reference(layout: PackedRanked, x: torch.Tensor) -> torch.Tensor
 
 
 def check_packed(layout: PackedRanked, what: str) -> None:
-    """Shapes and types the packed kernels rely on (contents are trusted:
-    reading them would synchronise with the card)."""
+    """Shapes and types the packed kernels rely on besides the segment
+    table's, which kernels/sell._segment_args checks (contents are
+    trusted: reading them would synchronise with the card; the container
+    checked its table on the host when it was made)."""
     if layout.chunk_koff.dtype != torch.int32 or (
         layout.chunk_koff.numel() != layout.num_chunks + 1
     ):
@@ -65,26 +73,51 @@ def check_packed(layout: PackedRanked, what: str) -> None:
         raise ValueError(f"{what}: grp_b0 must hold G bases per sub-tile")
 
 
+def launch_packed(layout: PackedRanked, x: torch.Tensor, what: str,
+                  matrix: bool = False) -> torch.Tensor:
+    """Checks, then csrc/packed.cu's tsp_packed for x (n,) or, with
+    matrix, X (n, B) on the card: the walk of the run table into y (m,)
+    or Y (m, B), one launch per group of at most 8 columns, then the
+    fix-up of the split chunks' partial rows when the layout has any."""
+    _build.check_operands(layout, x, what, matrix=matrix)
+    check_packed(layout, what)
+    B = x.shape[1] if matrix else 1
+    seg_ptr, seg_chunk, _, split_seg, nsplit, part = _segment_args(
+        layout, x, what, B)
+    run_ptr = layout.run_ptr
+    if run_ptr.dtype != torch.int32 or run_ptr.dim() != 2 or (
+            run_ptr.shape[0] != 2):
+        raise ValueError(f"{what}: run_ptr must be (2, R+1) int32")
+    y = torch.empty(layout.m, *x.shape[1:], dtype=torch.float32,
+                    device=x.device)
+    if layout.m == 0:
+        return y
+    rc = _build.library().tsp_packed(
+        _VAL_KIND[layout.vals.dtype], _LCOL_KIND[layout.lcols.dtype],
+        layout.vals.data_ptr(), layout.lcols.data_ptr(),
+        layout.sub_b0.data_ptr(), layout.sub_dlo.data_ptr(),
+        layout.sub_dhi.data_ptr(), layout.grp_b0.data_ptr(),
+        layout.num_groups, layout.group_code & 0xFFFFFFFF, seg_ptr,
+        seg_chunk, run_ptr.data_ptr(), run_ptr.shape[1] - 1,
+        split_seg, nsplit, x.data_ptr(), y.data_ptr(),
+        part.data_ptr(), layout.m, layout.n, B, _build.stream_of(x),
+    )
+    _build.check(rc, what)
+    return y
+
+
+def packed_launches(layout: PackedRanked, batch: int = 1) -> int:
+    """Device launches of one call of the packed kernels: one per group
+    of at most 8 columns, plus the split fix-up when a chunk is split."""
+    return -(-batch // 8) + (layout.split_seg.shape[1] > 0)
+
+
 def spmv_packed(layout: PackedRanked, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x with A in packed mixed-height layout (grouped or not).
     x: (n,) float32 -> y: (m,) float32."""
     if x.device.type == "cpu":
         return spmv_packed_reference(layout, x)
-    _build.check_operands(layout, x, "spmv_packed")
-    check_packed(layout, "spmv_packed")
-    y = torch.empty(layout.m, dtype=torch.float32, device=x.device)
-    if layout.m == 0:
-        return y
-    rc = _build.library().tsp_spmv_packed(
-        _VAL_KIND[layout.vals.dtype], _LCOL_KIND[layout.lcols.dtype],
-        layout.vals.data_ptr(), layout.lcols.data_ptr(),
-        layout.sub_b0.data_ptr(), layout.sub_dlo.data_ptr(),
-        layout.sub_dhi.data_ptr(), layout.grp_b0.data_ptr(),
-        layout.num_groups, layout.group_code & 0xFFFFFFFF,
-        layout.chunk_koff.data_ptr(), x.data_ptr(), y.data_ptr(),
-        layout.m, layout.n, _build.stream_of(x),
-    )
-    _build.check(rc, "spmv_packed")
+    y = launch_packed(layout, x, "spmv_packed")
     spmv_packed.launches += 1
     return y
 

@@ -14,7 +14,10 @@ Counterpart of `tpu_spmv/kernels/spmm.py`:
                         cuts the window table's step, then the columns
                         into passes of B', until the ring fits);
   spmm_packed           replaces spmm_packed (PackedRanked, delta and
-                        grouped bases) and its out_row gather.
+                        grouped bases) and its out_row gather: the
+                        segment walk of spmv_packed (csrc/packed.cu),
+                        one launch per group of at most 8 columns, each
+                        group's width compiled in, plus the split fix-up.
 
 X is (n, B) float32, row-major, any B >= 1; Y is (m, B) float32. On a
 CPU tensor each runs its plain version (the single-vector plain
@@ -29,7 +32,7 @@ import torch
 from tpu_spmv_torch.formats.packed import PackedRanked
 from tpu_spmv_torch.formats.sell import RankedSlabs
 from tpu_spmv_torch.kernels import _build
-from tpu_spmv_torch.kernels.packed import check_packed, spmv_packed_reference
+from tpu_spmv_torch.kernels.packed import launch_packed, spmv_packed_reference
 from tpu_spmv_torch.kernels.sell import (
     _LCOL_KIND, _VAL_KIND, _check_slabs, launch_ranked_windowed,
     spmv_ranked_reference, spmv_ranked_windowed_reference,
@@ -104,21 +107,7 @@ def spmm_packed(layout: PackedRanked, X: torch.Tensor) -> torch.Tensor:
     """Y = A @ X with A in packed mixed-height layout (grouped or not)."""
     if X.device.type == "cpu":
         return spmm_packed_reference(layout, X)
-    _build.check_operands(layout, X, "spmm_packed", matrix=True)
-    check_packed(layout, "spmm_packed")
-    Y = _empty_y(layout, X)
-    if layout.m == 0:
-        return Y
-    rc = _build.library().tsp_spmm_packed(
-        _VAL_KIND[layout.vals.dtype], _LCOL_KIND[layout.lcols.dtype],
-        layout.vals.data_ptr(), layout.lcols.data_ptr(),
-        layout.sub_b0.data_ptr(), layout.sub_dlo.data_ptr(),
-        layout.sub_dhi.data_ptr(), layout.grp_b0.data_ptr(),
-        layout.num_groups, layout.group_code & 0xFFFFFFFF,
-        layout.chunk_koff.data_ptr(), X.data_ptr(), Y.data_ptr(),
-        layout.m, layout.n, X.shape[1], _build.stream_of(X),
-    )
-    _build.check(rc, "spmm_packed")
+    Y = launch_packed(layout, X, "spmm_packed", matrix=True)
     spmm_packed.launches += 1
     return Y
 

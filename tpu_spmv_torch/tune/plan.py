@@ -41,20 +41,21 @@ from tpu_spmv_torch.formats.sell import LANES, SUBLANES, _aligned_slots
 
 # Device time per walked sub-tile of spmv_packed over that of
 # spmv_ranked, both grouped, on lap2d_1024 after RCM, warm (CUDA-graph
-# timing): (24.06 us / 5122) / (18.81 us / 8192) = 2.046, measured by
+# timing): (15.21 us / 5122) / (18.48 us / 8192) = 1.317, measured by
 # chip_smoke.py on an NVIDIA H100 80GB HBM3 at a 700.00 W power limit,
-# with spmv_ranked's segment walk. A packed sub-tile costs more because
-# chunks share sub-tiles, and the shared sub-tiles' slots run one at a
-# time. Above 2 no matrix is planned packed for SpMV: packed pads a chunk
-# to at least MIN_KC = 4 slots and ranked to 8, so packed walks at least
-# half of ranked's sub-tiles.
-PACKED_OVER_RANKED = 2.046
+# with both kernels on their segment walks (spmv_packed walking runs of
+# segments, kernels/csrc/packed.cu). A packed sub-tile still costs more
+# than a ranked one: its chunk ends fall inside sub-tiles, so a block
+# walks a run of several short chunks with a store at each one's end,
+# and the first and last sub-tile of a run are walked, predicated, by
+# two blocks. Below 1.6 (ranked's 8-slot quantum over packed's 5 slots a
+# chunk), packed is planned on lap2d_1024 after RCM.
+PACKED_OVER_RANKED = 1.317
 # The same ratio for SpMM (spmm_packed over spmm_ranked, B = 5 columns,
 # the same matrix, card and timing, printed by chip_smoke.py):
-# (47.27 us / 5122) / (50.06 us / 8192) = 1.510. Both SpMM kernels still
-# give a thread a row (kernels/csrc/slot_walk.cuh), so the ratio is the
-# slot walk's, and packed's fewer sub-tiles win on lap2d_1024 after RCM.
-SPMM_PACKED_OVER_RANKED = 1.510
+# (32.56 us / 5122) / (50.32 us / 8192) = 1.035. spmm_ranked still gives
+# a thread a row (kernels/csrc/slot_walk.cuh).
+SPMM_PACKED_OVER_RANKED = 1.035
 
 # tpu_plan's gate for its sampled slot statistics.
 _MAX_ROW_FOR_SAMPLING = 2048
