@@ -24,17 +24,21 @@ x is past the L2 residency gate):
      tensor times x: cuSPARSE). The single-vector kernels spmv_dia,
      spmv_ranked, spmv_sell and spmv_packed (delta, grouped, bf16,
      column-binned) run at one x; spmm_ranked and spmm_packed at B = 8
-     and B = 5 columns; the windowed kernels spmv_dia_windowed
-     (lap2d_4096 f32 and bf16, lap2d_1024), spmv_ranked_windowed
-     (lap2d_4096 and lap2d_1024 after RCM, banded_1m) and
-     spmm_ranked_windowed (lap2d_1024 after RCM, B = 8 and 5 at the
-     CLI's step and column passes) are also held to their resident
-     kernels on the same layout (spmv_ranked_windowed to spmv_ranked
-     bit for bit, and two replays of a captured call of it must give
-     the same bits), before each ring phase a line gives the ring's
-     bytes, the steps, the CTAs, the column passes and the launches per
-     call (lap2d_1024 at B = 8 must run in one pass), and lap2d_4096's
-     host set-up seconds are printed; before each phase of spmv_ranked and spmv_sell a line
+     and B = 5 columns (before each spmm_ranked phase a line gives the
+     runs its walk takes and the device launches per call, and two
+     replays of a captured call at B = 8 must give the same bits); the
+     windowed kernels spmv_dia_windowed (lap2d_4096 f32 and bf16,
+     lap2d_1024), spmv_ranked_windowed (lap2d_4096 and lap2d_1024 after
+     RCM, banded_1m) and spmm_ranked_windowed (lap2d_1024 after RCM, B =
+     8 and 5 at the CLI's step and column passes) are also held to their
+     resident kernels on the same layout (spmv_dia_windowed to spmv_dia
+     and spmv_ranked_windowed to spmv_ranked bit for bit, and two
+     replays of a captured call of each must give the same bits), before
+     each ring phase a line gives the ring's size (DIA: the step S, the
+     ring W and the stage bytes; ranked: the ring's bytes and the
+     steps), the CTAs, the column passes and the launches per call
+     (lap2d_1024 at B = 8 must run in one pass), and lap2d_4096's host
+     set-up seconds are printed; before each phase of spmv_ranked and spmv_sell a line
      gives the segment table it walks (segments, Q, split chunks and
      their partial rows), and on banded_1m two replays of one captured
      call of each must give the same bits (max |y1 - y2| printed); so too
@@ -366,6 +370,44 @@ def _ring(label, lay, batch=1, passes=1):
           f"{windowed_launches(lay, batch)} launch(es) per call", flush=True)
 
 
+def _dia_ring(label, lay):
+    """One line on the ring of a spmv_dia_windowed phase (kernels/dia.
+    dia_ring): the step S, the ring W (span + 2S floats, rounded), the
+    bytes of a stage and of all shared memory, the CTAs a launch runs and
+    the launches one call counts (a call on x = 0)."""
+    import torch
+
+    from tpu_spmv_torch.kernels.dia import (
+        dia_ring, dia_smem_budget, dia_windowed_ctas, spmv_dia_windowed,
+    )
+
+    ring = dia_ring(lay, dia_smem_budget(lay.vals.device))
+    span = max(lay.offsets) - min(lay.offsets)
+    before = spmv_dia_windowed.launches
+    spmv_dia_windowed(lay, torch.zeros(lay.n, device=lay.vals.device))
+    launches = spmv_dia_windowed.launches - before
+    print(f"    [{label}] steps of S={ring.step_rows} rows "
+          f"({-(-lay.m // ring.step_rows)} steps), ring W={ring.ring} floats "
+          f"(span {span} + 2S), stages of {ring.stage_bytes} bytes "
+          f"({lay.num_diagonals} diagonals), {ring.smem} bytes of shared "
+          f"memory, {dia_windowed_ctas(lay, ring)} CTAs, {launches} "
+          "launch(es) per call", flush=True)
+    return ring
+
+
+def _ranked_runs(label, lay, batch):
+    """One line on the run table spmm_ranked walks (formats/packed.
+    ranked_walk_fields) and its device launches per call at batch."""
+    from tpu_spmv_torch.formats import packed as fpacked
+    from tpu_spmv_torch.kernels.packed import packed_launches
+
+    print(f"    [{label}] {lay.run_ptr.shape[1] - 1} runs of at most "
+          f"{fpacked.RUN_SUBTILES} sub-tiles and {fpacked.RUN_SEGMENTS} "
+          f"segments over {lay.seg_chunk.numel()} segments, one block each; "
+          f"device launches per call: {packed_launches(lay, batch)}",
+          flush=True)
+
+
 def _spmv_replay_check(label, kernel, layout, mat, perm, batch=None):
     """_replay_check of one SpMV kernel (or, with batch, SpMM kernel) on
     the layout, at x = X_SEED's."""
@@ -459,6 +501,7 @@ def _phases(stats):
     lap_layouts = (RankedSlabs.from_csr(ck.matrix),
                    PackedRanked.from_csr(ck.matrix))
     for B in (8, 5):
+        _ranked_runs(f"lap2d_1024 rcm spmm_ranked B={B}", lap_layouts[0], B)
         t_rk = _check_kernel(f"lap2d_1024 rcm spmm_ranked B={B}", spmm_ranked,
                              spmm_ranked_reference, lap_layouts[0], mat, perm,
                              mat, stats, batch=B, csr=ck.matrix)
@@ -469,6 +512,8 @@ def _phases(stats):
                        mat, perm)
     _spmv_replay_check("lap2d_1024 rcm spmm_packed B=8", spmm_packed,
                        lap_layouts[1], mat, perm, batch=8)
+    _spmv_replay_check("lap2d_1024 rcm spmm_ranked B=8", spmm_ranked,
+                       lap_layouts[0], mat, perm, batch=8)
     r_times["spmm ranked"] = (t_rk, r_times["ranked"][1])
     r_times["spmm packed"] = (t_pk, r_times["packed"][1])
     del lap_layouts
@@ -504,6 +549,7 @@ def _phases(stats):
                   spmv_packed_reference, binned, mat, perm, mat, stats)
     del binned
     for B in (8, 5):
+        _ranked_runs(f"banded_1m spmm_ranked B={B}", ranked, B)
         _check_kernel(f"banded_1m spmm_ranked B={B}", spmm_ranked,
                       spmm_ranked_reference, ranked, mat, perm, mat, stats,
                       batch=B, csr=ck.matrix)
@@ -511,6 +557,8 @@ def _phases(stats):
                       spmm_packed_reference, packed, mat, perm, mat, stats,
                       batch=B, csr=ck.matrix)
     _spmv_replay_check("banded_1m spmm_packed B=8", spmm_packed, packed, mat,
+                       perm, batch=8)
+    _spmv_replay_check("banded_1m spmm_ranked B=8", spmm_ranked, ranked, mat,
                        perm, batch=8)
     # spmv_ranked_windowed on the aligned (bin 0) ranked layout of this
     # banded matrix, whose split chunk takes the fix-up launch: x of 4 MB
@@ -531,17 +579,16 @@ def _windowed_phases(stats):
     order through spmv_dia_windowed (f32 and bf16) and after RCM through
     spmv_ranked_windowed, and lap2d_1024 after RCM through
     spmm_ranked_windowed at B = 8 and 5, at the step and column passes B'
-    the CLI picks (B = 8 must take one pass); plus lap2d_1024's DIA layout through
-    spmv_dia_windowed beside spmv_dia. Each is also held to its resident
-    kernel on the same layout. Prints the host set-up seconds."""
+    the CLI picks (B = 8 must take one pass); plus lap2d_1024's DIA layout
+    through spmv_dia_windowed beside spmv_dia. Each is also held to its
+    resident kernel on the same layout (the single-vector ones bit for
+    bit). Prints the host set-up seconds."""
     import torch
 
-    from tpu_spmv_torch import hw
     from tpu_spmv_torch.formats.dia import DiaSlabs
     from tpu_spmv_torch.formats.sell import RankedSlabs
     from tpu_spmv_torch.kernels.dia import (
-        dia_window_rows, dia_x_fits, spmv_dia, spmv_dia_windowed,
-        spmv_dia_windowed_reference,
+        dia_x_fits, spmv_dia, spmv_dia_windowed, spmv_dia_windowed_reference,
     )
     from tpu_spmv_torch.kernels.sell import (
         resident_x_fits, spmv_ranked, spmv_ranked_windowed,
@@ -553,7 +600,6 @@ def _windowed_phases(stats):
     from tpu_spmv_torch.tools.spmv import fit_window, load_input, prepare
 
     dev = torch.device("cuda")
-    smem = hw.smem_per_block(dev)
     setup = {}
     t0 = time.perf_counter()
     mat = load_input("synthetic:lap2d_4096")
@@ -568,11 +614,12 @@ def _windowed_phases(stats):
         setup[f"DIA {tag} build"] = time.perf_counter() - t0
         if dia_x_fits(lay):
             raise SmokeFailure("lap2d_4096: x passes the DIA residency gate")
-        rows = dia_window_rows(lay, smem)
-        _check_kernel(f"lap2d_4096 dia_windowed {tag} ({rows} rows/block)",
-                      spmv_dia_windowed, spmv_dia_windowed_reference, lay,
-                      mat, perm, mat.rounded() if vdt else mat, stats,
-                      twin=spmv_dia, csr=None if vdt else ck.matrix)
+        label = f"lap2d_4096 dia_windowed {tag}"
+        ring = _dia_ring(label, lay)
+        _check_kernel(f"{label} (S={ring.step_rows})", spmv_dia_windowed,
+                      spmv_dia_windowed_reference, lay, mat, perm,
+                      mat.rounded() if vdt else mat, stats, twin=spmv_dia,
+                      csr=None if vdt else ck.matrix, twin_equal=True)
         del lay
     t0 = time.perf_counter()
     ck, perm = prepare(mat, "always")
@@ -595,9 +642,14 @@ def _windowed_phases(stats):
 
     mat = load_input("synthetic:lap2d_1024")
     ck, perm = prepare(mat, "auto")
+    lay = DiaSlabs.from_csr(ck.matrix).to(dev)
+    _dia_ring("lap2d_1024 dia_windowed f32", lay)
     _check_kernel("lap2d_1024 dia_windowed f32", spmv_dia_windowed,
-                  spmv_dia_windowed_reference, DiaSlabs.from_csr(ck.matrix),
-                  mat, perm, mat, stats, twin=spmv_dia, csr=ck.matrix)
+                  spmv_dia_windowed_reference, lay, mat, perm, mat, stats,
+                  twin=spmv_dia, csr=ck.matrix, twin_equal=True)
+    _spmv_replay_check("lap2d_1024 dia_windowed f32", spmv_dia_windowed, lay,
+                       mat, perm)
+    del lay
     ck, perm = prepare(mat, "always")
     for B in (8, 5):
         lay = RankedSlabs.from_csr(ck.matrix).to(dev)
@@ -1081,7 +1133,7 @@ _KERNELS = {
     "spmv_packed": ("tpu_spmv_torch/kernels/csrc/packed.cu",
                     "tpu_spmv/kernels/packed.py:319",
                     "lap2d_1024 rcm packed f32 grouped"),
-    "spmm_ranked": ("tpu_spmv_torch/kernels/csrc/spmm.cu",
+    "spmm_ranked": ("tpu_spmv_torch/kernels/csrc/packed.cu",
                     "tpu_spmv/kernels/spmm.py:183",
                     "lap2d_1024 rcm spmm_ranked B=8"),
     "spmm_packed": ("tpu_spmv_torch/kernels/csrc/packed.cu",

@@ -14,8 +14,8 @@ the bar is the suite's: Number Wrong 0 at the magnitude-aware 0.01 and
 RelL2 <= 1e-6 (bf16 layouts against the bf16-rounded operator; SpMM
 column by column). A windowed kernel is also held to its resident twin
 on the same layout: spmv_ranked_windowed sums in spmv_ranked's order
-with the same fused multiply-adds, so the two give the same bits; the
-SpMM and DIA twins agree to 1e-5. The triangular solves carry rounding along the
+with the same fused multiply-adds, and spmv_dia_windowed in spmv_dia's,
+so each pair gives the same bits; the SpMM twins agree to 1e-5. The triangular solves carry rounding along the
 dependency chain, so kernel, plain version and the f64 oracle agree to
 RelL2 <= 1e-5, with Number Wrong 0 at 0.01 for x = ones.
 """
@@ -103,6 +103,28 @@ def _jumping(chunks=48, seed=2):
     rows = np.repeat(np.arange(mat.m), np.diff(mat.indptr))
     return CSRMatrix.from_coo(perm[rows // 128] * 128 + rows % 128,
                               mat.indices, mat.data, mat.shape)
+
+
+def diagonal_matrix(n, offsets, seed=0):
+    """An n x n matrix with a standard normal value on every entry of the
+    given diagonals (col - row = offset) that lies inside the matrix."""
+    rows, cols = [], []
+    for off in offsets:
+        r = np.arange(max(0, -off), min(n, n - off))
+        rows.append(r)
+        cols.append(r + off)
+    rows, cols = np.concatenate(rows), np.concatenate(cols)
+    vals = np.random.default_rng(seed).standard_normal(rows.size)
+    return CSRMatrix.from_coo(rows, cols, vals.astype(np.float32), (n, n))
+
+
+# Diagonal structures for the DIA kernels: offsets with no multiple of 4,
+# positive offsets only, negative only; n not a multiple of 128.
+DIAGONALS = {
+    "odd_offsets": (3001, (-131, -7, -1, 3, 9, 250)),
+    "positive_only": (2085, (1, 2, 5, 130)),
+    "negative_only": (2085, (-300, -3, -1)),
+}
 
 
 def _fit(lay, batch):
@@ -337,6 +359,47 @@ def test_packed_walk_replays_bit_identical(cuda, batch):
     assert fn.launches == before + 1  # the eager call only
 
 
+@pytest.mark.parametrize("batch", [5, 8])
+def test_spmm_ranked_replays_bit_identical(cuda, batch):
+    """Two replays of a captured spmm_ranked call on a layout with a split
+    chunk give the same bits, and so does an eager call: the run walk's
+    fix-up adds the partial rows in segment order."""
+    mat = _long_row()
+    lay = RankedSlabs.from_csr(mat).to(cuda)
+    assert lay.split_seg.shape[1] >= 1
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (mat.n, batch)).astype(np.float32)).to(cuda)
+    spmm_ranked(lay, x)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = spmm_ranked(lay, x)
+    before = spmm_ranked.launches
+    graph.replay()
+    y1 = out.clone()
+    graph.replay()
+    y2 = out.clone()
+    expect = spmm_ranked(lay, x)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and torch.equal(y1, expect)
+    assert spmm_ranked.launches == before + 1  # the eager call only
+
+
+@pytest.mark.parametrize("batch", [5, 13])
+@pytest.mark.parametrize("q", [1, 16])
+def test_spmm_ranked_walk_at_any_segment_length(cuda, q, batch, monkeypatch):
+    """Ranked tables cut at 1 sub-tile a segment (every chunk of several
+    sub-tiles split) and at 16, with their runs cut anew, match the plain
+    version, ungrouped with int16 columns too."""
+    from tpu_spmv_torch.formats import sell as fsell
+
+    mat = _long_row()
+    monkeypatch.setattr(fsell, "SEGMENT_SUBTILES", q)
+    for kw in ({}, dict(allow_groups=False)):
+        lay = fsell.with_segments(RankedSlabs.from_csr(mat, **kw))
+        _run(spmm_ranked, spmm_ranked_reference, lay, mat, mat, cuda, batch)
+
+
 @pytest.mark.parametrize("batch", [None, 5])
 @pytest.mark.parametrize("q", [1, 16])
 def test_packed_walk_at_any_segment_length(cuda, q, batch, monkeypatch):
@@ -354,15 +417,63 @@ def test_packed_walk_at_any_segment_length(cuda, q, batch, monkeypatch):
     _run(fn, plain, lay, mat, mat, cuda, batch)
 
 
-@pytest.mark.parametrize("mat", [laplacian_2d(300), variable_stencil(97)],
-                         ids=["lap2d", "varstencil"])
+@pytest.mark.parametrize("mat", [
+    laplacian_2d(300), variable_stencil(97),
+    *(diagonal_matrix(n, offs) for n, offs in DIAGONALS.values()),
+], ids=["lap2d", "varstencil", *DIAGONALS])
 @pytest.mark.parametrize("vdt", [None, torch.bfloat16], ids=["f32", "bf16"])
 def test_dia_windowed_kernel_matches_plain(cuda, mat, vdt):
-    """Several blocks of 4096 rows, each staging its own window."""
+    """Many steps over the ring, each adding its rows of x; spmv_dia's
+    bits on the same layout. The DIAGONALS cases: offsets with no
+    multiple of 4, positive or negative only, n not a multiple of 128."""
     lay = DiaSlabs.from_csr(mat, val_dtype=vdt, rows_per_tile=8192)
     oracle = mat.rounded() if vdt else mat
     _run(spmv_dia_windowed, spmv_dia_windowed_reference, lay, mat, oracle,
-         cuda, twin=spmv_dia)
+         cuda, twin=spmv_dia, twin_equal=True)
+
+
+@pytest.mark.parametrize("vdt", [None, torch.bfloat16], ids=["f32", "bf16"])
+def test_dia_windowed_ring_wraps(cuda, vdt, monkeypatch):
+    """Steps of 128 rows over 640,000: every CTA writes more of x than
+    its ring holds, so the ring wraps; spmv_dia's bits still."""
+    from tpu_spmv_torch.kernels import dia as kdia
+
+    monkeypatch.setattr(kdia, "DIA_STEP_ROWS", 128)
+    mat = laplacian_2d(800)
+    lay = DiaSlabs.from_csr(mat, val_dtype=vdt).to(cuda)
+    ring = kdia.dia_ring(lay, kdia.dia_smem_budget(cuda))
+    steps = -(-mat.m // ring.step_rows)
+    assert ring.step_rows == 128
+    span = max(lay.offsets) - min(lay.offsets)
+    per_cta = steps // kdia.dia_windowed_ctas(lay, ring)
+    assert per_cta * ring.step_rows + span > ring.ring
+    oracle = mat.rounded() if vdt else mat
+    _run(spmv_dia_windowed, spmv_dia_windowed_reference, lay, mat, oracle,
+         cuda, twin=spmv_dia, twin_equal=True)
+
+
+def test_dia_windowed_replays_bit_identical(cuda):
+    """Two replays of a captured spmv_dia_windowed call give the same bits
+    as each other and as an eager call (the mbarriers are set up in every
+    launch)."""
+    n, offs = DIAGONALS["odd_offsets"]
+    mat = diagonal_matrix(n * 40, offs)
+    lay = DiaSlabs.from_csr(mat).to(cuda)
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        mat.n).astype(np.float32)).to(cuda)
+    spmv_dia_windowed(lay, x)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = spmv_dia_windowed(lay, x)
+    graph.replay()
+    y1 = out.clone()
+    graph.replay()
+    y2 = out.clone()
+    expect = spmv_dia_windowed(lay, x)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and torch.equal(y1, expect)
+    assert torch.equal(y1, spmv_dia(lay, x))
 
 
 _WINDOWED = {
@@ -430,6 +541,38 @@ def test_windowed_kernels_refuse_an_unaligned_x(cuda):
     x = torch.zeros(mat.n + 1, device=cuda)[1:]
     with pytest.raises(ValueError, match="16-byte aligned"):
         spmv_ranked_windowed(lay, x)
+
+
+def test_dia_windowed_refuses_unaligned_values(cuda):
+    """A step's values are bulk-copied, so vals must be 16-byte aligned:
+    a view at an odd offset is refused before any launch."""
+    lay = DiaSlabs.from_csr(laplacian_2d(40)).to(cuda)
+    flat = torch.zeros(lay.vals.numel() + 1, device=cuda)
+    flat[1:].copy_(lay.vals.reshape(-1))
+    odd = dataclasses.replace(lay, vals=flat[1:].view(lay.vals.shape))
+    before = spmv_dia_windowed.launches
+    with pytest.raises(ValueError, match="vals must be 16-byte aligned"):
+        spmv_dia_windowed(odd, torch.zeros(lay.n, device=cuda))
+    assert spmv_dia_windowed.launches == before
+
+
+def test_dia_ring_shared_memory_is_the_kernels(cuda):
+    """The host sizing and the kernel agree on the ring's shared memory:
+    the budget leaves room for the kernel's static bytes, and a launch
+    whose size is not the ring, two stages and the offsets is refused."""
+    from tpu_spmv_torch.kernels import _build
+    from tpu_spmv_torch.kernels import dia as kdia
+
+    static = _build.library().tsp_dia_windowed_static_smem()
+    assert static > 0
+    assert kdia.dia_smem_budget(cuda) == hw.smem_per_block(cuda) - static
+    lay = DiaSlabs.from_csr(laplacian_2d(300)).to(cuda)
+    ring = kdia.dia_ring(lay, kdia.dia_smem_budget(cuda))
+    assert kdia.dia_windowed_ctas(lay, ring) >= 1
+    for wrong in (ring.smem + ring.stage_bytes, ring.smem - 4):
+        bad = dataclasses.replace(ring, smem=wrong)
+        with pytest.raises(RuntimeError):
+            kdia.dia_windowed_ctas(lay, bad)
 
 
 def test_windowed_kernels_replay_from_a_graph(cuda):

@@ -33,6 +33,7 @@ from test_torch_segments import with_long_row
 from test_torch_sts import MATS, SYSTEMS, _SOLVES, _binned, _rel
 from tpu_spmv_torch.bench.matrices import random_banded
 from tpu_spmv_torch.formats import sell as tsell
+from tpu_spmv_torch.formats.packed import run_fields
 from tpu_spmv_torch.formats.sell import (
     LANES, MAX_SEGMENT_SUBTILES, SUBLANES, RankedSlabs, segment_fields,
     wait_fields, window_fields,
@@ -249,7 +250,8 @@ def test_segment_longer_than_the_walk_stages_raises(kind, length,
     k = int(np.flatnonzero(sp.diff().numpy() == MAX_SEGMENT_SUBTILES)[0])
     sp[k + 1] += length - MAX_SEGMENT_SUBTILES
     t["seg_ptr"] = sp
-    if kind == "ranked":  # the window table names the new segments
+    if kind == "ranked":  # the run and window tables name the segments
+        t.update(run_fields(sp.numpy() * SUBLANES))
         t.update(window_fields(sp, lay.sub_b0, lay.sub_dlo, lay.sub_dhi,
                                lay.rank_nb))
     assert int(sp.diff().max()) == length

@@ -374,11 +374,17 @@ def test_window_refusals_name_their_size():
     with pytest.raises(ValueError, match=f"{need} bytes"):
         ksell.check_window(ranked, 3, budget=need - 1)
     dia = DiaSlabs.from_csr(mat)
-    span = 2 * 64
-    assert kdia.dia_window_rows(dia, hw.H100_SMEM_PER_BLOCK) == 4096
-    assert kdia.dia_window_rows(dia, (1024 + span) * 4) == 1024
-    with pytest.raises(ValueError, match=f"{(128 + span) * 4} bytes"):
-        kdia.dia_window_rows(dia, (128 + span) * 4 - 1)
+    span, d = 2 * 64, 5
+
+    def ring_bytes(rows):  # ring, two stages and offsets
+        return (4 * -(-(span + 2 * rows) // 32) * 32 + 2 * d * rows * 4
+                + 4 * d)
+
+    assert kdia.dia_ring(dia, hw.H100_SMEM_PER_BLOCK).step_rows == 1024
+    assert kdia.dia_ring(dia, ring_bytes(1024)).step_rows == 1024
+    assert kdia.dia_ring(dia, ring_bytes(1024) - 1).step_rows == 512
+    with pytest.raises(ValueError, match=f"{ring_bytes(128)} bytes"):
+        kdia.dia_ring(dia, ring_bytes(128) - 1)
 
 
 @pytest.fixture

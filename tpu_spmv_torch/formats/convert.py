@@ -6,7 +6,8 @@ port's container, so a layout built once can be run through both
 packages' kernels. It reads the arrays through NumPy and never imports
 JAX. The port's derived fields come from the reference's arrays alone:
 chunk_ptr from sub_chunk, the segment table from chunk_ptr
-(formats/sell.segment_fields), RankedSlabs' window table from the
+(formats/sell.segment_fields), RankedSlabs' run table from the segment
+table (formats/packed.ranked_walk_fields) and its window table from the
 segment table and the bases (formats/sell.window_fields), and PackedRanked's
 chunk_koff from out_row and bmeta, and its segment and run tables from
 chunk_koff (formats/packed.walk_fields).
@@ -24,7 +25,7 @@ import torch
 
 from tpu_spmv_torch.formats.dia import DiaSlabs
 from tpu_spmv_torch.formats.packed import (
-    PackedRanked, chunk_koff_from_segments, walk_fields,
+    PackedRanked, chunk_koff_from_segments, ranked_walk_fields, walk_fields,
 )
 from tpu_spmv_torch.formats.sell import (
     RankedSlabs, SellSlabs, _chunk_ptr, segment_fields, to_tensor,
@@ -63,7 +64,8 @@ def from_reference(layout):
         )
     sub_chunk = np.asarray(layout.sub_chunk)
     chunk_ptr = _chunk_ptr(sub_chunk, layout.num_chunks)
-    segments = segment_fields(chunk_ptr)
+    segments = (ranked_walk_fields if kind == "RankedSlabs"
+                else segment_fields)(chunk_ptr)
     chunk_ptr = torch.from_numpy(chunk_ptr)
     if kind == "SellSlabs":
         return SellSlabs(

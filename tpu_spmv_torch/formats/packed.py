@@ -27,14 +27,17 @@ The port adds derived fields, built from the reference's arrays alone:
              into runs of at most RUN_SUBTILES sub-tiles and RUN_SEGMENTS
              segments. spmv_packed and spmm_packed give each run one block
              of 128 threads, thread l row l of each of its segments'
-             chunks.
+             chunks. RankedSlabs carries the same table over its segments
+             of whole sub-tiles (`ranked_walk_fields`), which spmm_ranked
+             walks with the same kernel.
 
 The TPU kernel's cross-sub-tile carry, its two partial rows per sub-tile
 and the `out_row` gather do not exist in the port.
 
 Slots past chunk_koff[num_chunks] are padding and are never read. The
 container checks the tables once on the host when it is made
-(`_check_segments`), so a table built by hand raises before any launch.
+(`_check_segments`, with `check_runs`), so a table built by hand raises
+before any launch.
 """
 
 from __future__ import annotations
@@ -337,6 +340,18 @@ def walk_fields(chunk_koff) -> dict:
     return dict(segments, **run_fields(segments["seg_ptr"]))
 
 
+def ranked_walk_fields(chunk_ptr) -> dict:
+    """The segment table of a RankedSlabs' chunk_ptr (segment_fields in
+    sub-tiles, as spmv_ranked walks it) and the run table over the same
+    cut in slots (run_fields of seg_ptr * SUBLANES), which spmm_ranked
+    walks with this module's kernel: a ranked chunk is a whole number of
+    sub-tiles, so segment_fields(chunk_ptr * SUBLANES, SUBLANES) is the
+    same cut."""
+    segments = segment_fields(chunk_ptr)
+    return dict(segments, **run_fields(
+        segments["seg_ptr"].numpy().astype(np.int64) * SUBLANES))
+
+
 def with_segments(layout: "PackedRanked") -> "PackedRanked":
     """The layout with its segment and run tables cut anew at
     SEGMENT_SUBTILES, RUN_SUBTILES and RUN_SEGMENTS, on its device."""
@@ -390,7 +405,18 @@ def _check_segments(layout) -> None:
     if ((chunk < 0) | (chunk >= layout.num_chunks)).any() or (
             (ptr[:-1] < koff[chunk]) | (ptr[1:] > koff[chunk + 1])).any():
         raise ValueError("a segment lies outside its chunk's slots")
-    run_ptr = layout.run_ptr.cpu().numpy().astype(np.int64)
+    check_runs(layout.run_ptr, ptr)
+
+
+def check_runs(run_ptr, ptr) -> None:
+    """The run table's host check, over the segments' first slots ptr
+    ((G+1,) int64; seg_ptr, or a RankedSlabs' seg_ptr * SUBLANES): runs
+    of consecutive segments that cover all G in order, with their first
+    slots, each touching at most the MAX_SEGMENT_SUBTILES sub-tiles and
+    holding at most the MAX_RUN_SEGMENTS segments the walk stages.
+    Raises ValueError."""
+    G = ptr.size - 1
+    run_ptr = run_ptr.cpu().numpy().astype(np.int64)
     runs = run_ptr[0] if run_ptr.ndim == 2 else run_ptr
     if run_ptr.ndim != 2 or run_ptr.shape[0] != 2 or runs.size < 2 or (
             runs[0] != 0 or runs[-1] != G or (np.diff(runs) < 1).any()

@@ -22,6 +22,11 @@ arrays alone:
              the wait table of a strict-L solve layout (`wait_fields`,
              None on other layouts): the earlier chunks whose rows each
              chunk's slots read, on which the solve kernels wait;
+  run_ptr    the run table of RankedSlabs ((2, R+1) int32,
+             formats/packed.ranked_walk_fields: run_fields of seg_ptr *
+             SUBLANES): consecutive segments grouped into runs that
+             spmm_ranked walks with the packed kernels' walk, one block
+             of 128 threads a run;
   step_seg, step_lo, step_hi, ring_blocks
              the window table of RankedSlabs (`window_fields`): the
              segments cut, in order, into steps of about STEP_SUBTILES
@@ -213,12 +218,17 @@ def wait_fields(layout) -> dict:
 
 def with_segments(layout):
     """The layout (SellSlabs or RankedSlabs) with its segment table cut
-    anew at SEGMENT_SUBTILES, and a RankedSlabs' window table cut anew
-    over the new segments at its step: the window table names segments,
-    so the two change together."""
+    anew at SEGMENT_SUBTILES, and a RankedSlabs' run and window tables
+    cut anew over the new segments (the run table at RUN_SUBTILES and
+    RUN_SEGMENTS, the window table at its step): both name segments, so
+    the three change together."""
+    from tpu_spmv_torch.formats.packed import ranked_walk_fields
+
+    ranked = isinstance(layout, RankedSlabs)
+    cut = ranked_walk_fields if ranked else segment_fields
     fields = {k: v.to(layout.vals.device)
-              for k, v in segment_fields(layout.chunk_ptr.cpu()).items()}
-    if isinstance(layout, RankedSlabs):
+              for k, v in cut(layout.chunk_ptr.cpu()).items()}
+    if ranked:
         fields.update(window_fields(
             fields["seg_ptr"], layout.sub_b0, layout.sub_dlo, layout.sub_dhi,
             layout.rank_nb, layout.step_subtiles))
@@ -349,14 +359,30 @@ def _check_windows(layout) -> None:
             "with window_fields")
 
 
+def _check_runs(layout) -> None:
+    """The run table's host check (see _check_tables): segments of at
+    least one sub-tile (the walk flushes a segment at its end slot) and
+    runs as formats/packed.check_runs checks them, over seg_ptr in
+    slots. Raises ValueError."""
+    from tpu_spmv_torch.formats.packed import check_runs
+
+    if layout.seg_ptr is None:
+        return  # no segments (the walks refuse the layout)
+    ptr = layout.seg_ptr.cpu().numpy().astype(np.int64) * SUBLANES
+    if (np.diff(ptr) < 1).any():
+        raise ValueError("a segment without sub-tiles: the run walk of "
+                         "spmm_ranked needs every segment to hold one")
+    check_runs(layout.run_ptr, ptr)
+
+
 def _check_tables(layout) -> None:
     """Host checks of a container's derived tables, once when it is
     made (not when moved or cloned), never per call: no segment longer
     than MAX_SEGMENT_SUBTILES (a longer one would read past the bases
     the walk stages), a wait table that ends at its length and names
     only earlier chunks (a later one could deadlock the solve), and a
-    window table whose steps read only their ranges (_check_windows).
-    Raises ValueError."""
+    RankedSlabs' run table (_check_runs) and window table, whose steps
+    read only their ranges (_check_windows). Raises ValueError."""
     seg_ptr = layout.seg_ptr
     if seg_ptr is not None and seg_ptr.numel() > 1:
         longest = int(seg_ptr.diff().max())
@@ -367,6 +393,7 @@ def _check_tables(layout) -> None:
                 "with segment_fields"
             )
     if isinstance(layout, RankedSlabs):
+        _check_runs(layout)
         _check_windows(layout)
     ptr, chunks = layout.wait_ptr, layout.wait_chunk
     if ptr is None and chunks is None:
@@ -867,6 +894,7 @@ class RankedSlabs(TensorLayout):
     seg_ptr: torch.Tensor  # (G+1,) int32 segment_fields (see SellSlabs)
     seg_chunk: torch.Tensor  # (G,) int32
     split_seg: torch.Tensor  # (3, K) int32
+    run_ptr: torch.Tensor  # (2, R+1) int32 first segment, slot of each run
     m: int
     n: int
     nnz: int
@@ -931,6 +959,8 @@ class RankedSlabs(TensorLayout):
         torch.bfloat16 (the kernels widen to f32 on load, so only the
         storage is rounded). Raises ValueError when a sub-tile's window
         bases span more than the 256-block packed-delta range."""
+        from tpu_spmv_torch.formats.packed import ranked_walk_fields
+
         host = SellSlabs._host_build(mat, tile_k, align, bin_blocks)
         cols = host["cols"]
         vals = host["vals"]
@@ -1029,7 +1059,7 @@ class RankedSlabs(TensorLayout):
         )
         win_w = _round_up(max(win_w, SUBLANES), SUBLANES)
         chunk_ptr = _chunk_ptr(host["sub_chunk"], host["num_chunks"])
-        segments = segment_fields(chunk_ptr)
+        segments = ranked_walk_fields(chunk_ptr)
 
         return cls(
             vals=to_tensor(vals, val_dtype or torch.float32),

@@ -55,16 +55,11 @@ _SIGNATURES = {
     # num_split, x, y, part, m, n, stream
     "tsp_spmv_sell": (_P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _LL, _LL, _P),
     # val_kind, lcol_kind, vals, lcols, sub_b0, sub_dlo, sub_dhi,
-    # grp_b0, G, gmap, seg_ptr, seg_chunk, run_ptr, num_runs, split_seg,
-    # num_split, X, Y, part, m, n, B, stream
+    # grp_b0, G, gmap, seg_ptr, seg_shift, seg_chunk, run_ptr, num_runs,
+    # split_seg, num_split, X, Y, part, m, n, B, stream
     "tsp_packed": (
-        _I, _I, _P, _P, _P, _P, _P, _P, _I, _U, _P, _P, _P, _I, _P, _I, _P,
-        _P, _P, _LL, _LL, _I, _P,
-    ),
-    # val_kind, lcol_kind, vals, lcols, sub_b0, sub_dlo, sub_dhi,
-    # chunk_ptr, X, Y, m, n, B, stream
-    "tsp_spmm_ranked": (
-        _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, _P,
+        _I, _I, _P, _P, _P, _P, _P, _P, _I, _U, _P, _I, _P, _P, _I, _P, _I,
+        _P, _P, _P, _LL, _LL, _I, _P,
     ),
     # vals, cols, chunk_ptr, wait_ptr, wait_chunk, b_scale, x, flags,
     # num_chunks, x_blocks, stream
@@ -75,11 +70,17 @@ _SIGNATURES = {
     "tsp_lower_solve_ranked": (
         _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _LL, _P,
     ),
-    # val_kind, vals, offs, D, rb, off_min, span, rows_per_cta, x, y, m,
-    # n, smem, stream
+    # val_kind, vals, offs, D, rb, S, W, stage_bytes, x, y, m, n, smem,
+    # stream
     "tsp_spmv_dia_windowed": (
         _I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _LL, _LL, _I, _P,
     ),
+    # val_kind, D, rb, S, W, stage_bytes, m, smem -> CTAs (or minus the
+    # CUDA error)
+    "tsp_dia_windowed_ctas": (_I, _I, _I, _I, _I, _I, _LL, _I),
+    # -> static shared memory bytes of the DIA ring's kernel (or minus
+    # the CUDA error)
+    "tsp_dia_windowed_static_smem": (),
     # val_kind, lcol_kind, vals, lcols, sub_b0, sub_dlo, sub_dhi,
     # num_subtiles, seg_ptr, seg_chunk, split_seg, num_split, step_seg,
     # step_lo, step_hi, num_steps, ring, stage_subtiles, X, Y, part, m, n,

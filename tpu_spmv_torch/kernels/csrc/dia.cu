@@ -10,7 +10,9 @@
 // addresses of x and of each diagonal's values, so every load is
 // coalesced. A bounds predicate takes the place of the zero guard
 // blocks. bf16 values are widened with __bfloat162float and the sum is
-// kept in f32, adding the diagonals in ascending offset order.
+// kept in f32, adding the diagonals in ascending offset order by explicit
+// fused multiply-adds: csrc/windowed.cu's spmv_dia_windowed does the same
+// operations in the same order, so the two give the same bits.
 //
 // What bounds it: bytes. It streams D * rows * (4 or 2) B of values
 // once, reads x about once (the D shifted reads of a warp overlap in
@@ -44,7 +46,7 @@ __global__ void dia_kernel(const V* __restrict__ vals,
   for (int k = 0; k < D; ++k) {
     const long long col = row + offs[k];
     const float xv = (col >= 0 && col < n) ? x[col] : 0.f;
-    acc += widen(v[k * stride]) * xv;
+    acc = __fmaf_rn(widen(v[k * stride]), xv, acc);
   }
   y[row] = acc;
 }

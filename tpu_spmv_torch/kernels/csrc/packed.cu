@@ -1,11 +1,14 @@
 // Packed mixed-height SpMV and SpMM for Hopper (sm_90a): spmv_packed and
-// spmm_packed, one walk compiled per column count.
+// spmm_packed, one walk compiled per column count, which also walks the
+// rank-windowed SELL layout for spmm_ranked.
 //
 // Replaces the Pallas kernels tpu_spmv/kernels/packed.py:spmv_packed
 // (both bodies: _make_packed_kernel with packed-delta window bases,
 // _make_packed_grouped_kernel with grouped ones) and
 // tpu_spmv/kernels/spmm.py:spmm_packed (_make_spmm_packed_kernel), each
-// with the out_row gather that follows it.
+// with the out_row gather that follows it, and
+// tpu_spmv/kernels/spmm.py:spmm_ranked (_make_spmm_kernel) with its
+// per-column segment-sum of partials.
 //
 // Layout (tpu_spmv_torch/formats/packed.py): 128 rows form a chunk, one
 // row per lane; chunk c's slots are [chunk_koff[c], chunk_koff[c+1]),
@@ -27,7 +30,14 @@
 // (formats/packed.walk_fields): the segment table cuts each chunk's
 // slots at sub-tile boundaries inside the chunk into segments that touch
 // at most 8 sub-tiles, and the run table groups consecutive segments
-// into runs of at most 8 sub-tiles and 8 segments. One block of 128
+// into runs of at most 8 sub-tiles and 8 segments. A RankedSlabs layout
+// (formats/sell.py) is the special case whose chunks are whole sub-tiles:
+// its segment table counts sub-tiles (seg_shift 3 turns it into slots),
+// it carries a run table over the same cut (formats/packed.run_fields of
+// seg_ptr * 8), and its packed deltas hold a grouped layout's bases too,
+// so spmm_ranked walks it with G = 0. That replaced the first port's
+// thread-a-row walk, whose one thread walking banded_1m's 887-nonzero
+// row set the pace of the launch (590 us at B = 8, PERF.md). One block of 128
 // threads walks one run, thread l row l of each segment's chunk: it
 // streams the run's sub-tiles and, at each segment's end, writes the
 // segment's sum and starts the next (warp-uniform: every lane is at the
@@ -86,7 +96,7 @@ constexpr int kSublanes = 8;
 // Staged per run, one per thread: the window bases of 16 sub-tiles x 8
 // sublanes, and the ends and outputs of up to 127 segments. Nothing here
 // checks a run: the container does, on the host, once
-// (formats/packed._check_segments).
+// (formats/packed.check_runs).
 constexpr int kMaxRunSubtiles = kLanes / kSublanes;
 constexpr int kSplitBit = 1 << 30;
 constexpr int kMaxWidth = 8;
@@ -112,6 +122,7 @@ struct PackedArgs {
   int G;
   unsigned gmap;
   const int* seg_ptr;
+  int seg_shift;  // seg_ptr << seg_shift counts slots
   const int* seg_chunk;
   const int* run_ptr;
   int num_runs;
@@ -227,7 +238,7 @@ __global__ void __launch_bounds__(kLanes, NB <= 2 ? 8 : 4)
     bases[lane] = window_base(a, s0 + lane / kSublanes, lane % kSublanes);
   }
   if (lane < ne) {
-    ends[lane] = __ldg(a.seg_ptr + e0 + lane + 1);
+    ends[lane] = __ldg(a.seg_ptr + e0 + lane + 1) << a.seg_shift;
     tags[lane] = __ldg(a.seg_chunk + e0 + lane);
   }
   __syncthreads();
@@ -330,17 +341,20 @@ int run_packed(const PackedArgs<V, L>& a, int num_runs,
 // adds the split chunks' partial rows (part: one row of 128 x B floats
 // per segment of a split chunk) into Y. val_kind: 0 float32, 1 bfloat16;
 // lcol_kind: 0 uint8, 1 int16, 2 int32. G = 0 selects the packed-delta
-// bases; G > 0 the grouped ones.
+// bases; G > 0 the grouped ones. seg_shift: 0 when seg_ptr counts slots
+// (PackedRanked), 3 when it counts sub-tiles (RankedSlabs); run_ptr's
+// second row counts slots either way.
 extern "C" int tsp_packed(int val_kind, int lcol_kind, const void* vals,
                           const void* lcols, const void* sub_b0,
                           const void* sub_dlo, const void* sub_dhi,
                           const void* grp_b0, int G, unsigned gmap,
-                          const void* seg_ptr, const void* seg_chunk,
-                          const void* run_ptr, int num_runs,
-                          const void* split_seg, int num_split,
+                          const void* seg_ptr, int seg_shift,
+                          const void* seg_chunk, const void* run_ptr,
+                          int num_runs, const void* split_seg, int num_split,
                           const void* X, void* Y, void* part, long long m,
                           long long n, int B, void* stream) {
-  if (B < 1 || G < 0 || G > 8 || num_runs < 1 || num_split < 0) {
+  if (B < 1 || G < 0 || G > 8 || num_runs < 1 || num_split < 0 ||
+      (seg_shift != 0 && seg_shift != 3)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -352,7 +366,8 @@ extern "C" int tsp_packed(int val_kind, int lcol_kind, const void* vals,
         static_cast<const unsigned*>(sub_dlo),                                \
         static_cast<const unsigned*>(sub_dhi),                                \
         static_cast<const int*>(grp_b0), G, gmap,                             \
-        static_cast<const int*>(seg_ptr), static_cast<const int*>(seg_chunk), \
+        static_cast<const int*>(seg_ptr), seg_shift,                         \
+        static_cast<const int*>(seg_chunk),                                   \
         static_cast<const int*>(run_ptr), num_runs,                           \
         static_cast<const float*>(X), static_cast<float*>(Y),                 \
         static_cast<float*>(part), m, n, B};                                  \

@@ -1,5 +1,6 @@
 // Windowed SpMV and SpMM for Hopper (sm_90a): x (or a row-major X) is
-// staged in shared memory, and every gather reads only that copy.
+// staged in shared memory by TMA bulk copies, and every gather reads only
+// that copy.
 //
 // Replaces the Pallas kernels
 //   tpu_spmv/kernels/dia.py:spmv_dia_windowed (_make_dia_windowed_kernel),
@@ -11,14 +12,31 @@
 // step DMAs its tile's x window from HBM into a double-buffered VMEM
 // scratch (pallas_sell.py:581-589).
 //
-// dia_windowed_kernel: the window is affine in the row range (no
-// metadata), so a block owns `rows_per_cta` rows, fewer than a layout
-// tile, and stages x[r0 + off_min, r0 + rows + off_max) with plain
-// cooperative loads and one __syncthreads() (entries outside [0, n) as
-// 0). Every block re-reads the halo (off_max - off_min entries); the
-// wrapper sizes rows_per_cta so the halo is a small share
-// (kernels/dia.py). One thread per row, diagonals added in ascending
-// offset order, as csrc/dia.cu.
+// dia_ring_kernel (spmv_dia_windowed): the window is affine in the rows,
+// so no table is needed. The rows are cut into steps of S rows (S a
+// multiple of 128 that divides the layout's tile, so a step's values are
+// D contiguous runs vals[t, k, r0:r0 + S/128, :]), and a persistent CTA
+// walks a contiguous range of steps, warp-specialised as the ring walk
+// below. One producer warp bulk-copies each step's D value runs into one
+// of K = 2 stages and slides x into a ring of W floats (W >= span + K *
+// S, span = off_max - off_min): step t adds the S entries of
+// x past step t - 1's window (the first step its whole window of S +
+// span), so x is read once per CTA run plus one halo. Entry g of x lives
+// in ring slot (g + xa - ubase) mod W, where xa aligns the slots to x's
+// 16-byte units; a copy that wraps the ring takes two bulk copies; the
+// unaligned ends of a range and entries outside [0, n) are written by
+// the warp's lanes (plain loads, or 0). Before it reuses a stage (and
+// the ring slots of the step that stage held) the producer waits on the
+// stage's empty mbarrier, so it runs at most K - 1 steps ahead of the
+// consumers. Eight consumer warps read values and x from shared memory
+// only: row i of a step reads ring slot (pos0 + i + off_k - off_min)
+// mod W, so consecutive threads read consecutive banks; a thread sums
+// four rows at once (four independent chains of loads), each over the
+// diagonals in ascending offset order with explicit fused multiply-adds
+// (csrc/dia.cu's order and operations: spmv_dia_windowed gives
+// spmv_dia's bits on one layout), writes y coalesced, and each warp
+// releases the step. bf16 values are copied as bytes and widened when
+// read.
 //
 // ring_walk_kernel (spmv_ranked_windowed, B = 1, and spmm_ranked_windowed):
 // csrc/sell.cu's segment walk, fed from shared memory by TMA bulk copies
@@ -58,12 +76,18 @@
 // one launch each, the kernel instantiated per width (1 to 8), so B = 5
 // does 5 columns of work a slot.
 //
-// What bounds them: bytes. The slabs stream once, by bulk copies that
-// hold no registers, so a CTA keeps a whole step in flight (register
-// loads a sub-tile ahead, as csrc/sell.cu's, kept too few in flight:
-// PERF.md); X is read once per CTA run plus each run's first window,
-// with no per-sub-tile partials in device memory. Shared memory caps the ring and the stages: the wrapper
-// refuses more than device_spec().smem_per_block.
+// What bounds them: bytes. The slabs (DIA: the diagonal values) stream
+// once, by bulk copies that hold no registers, so a CTA keeps a whole
+// step in flight (register loads a sub-tile ahead, as csrc/sell.cu's, and
+// the first DIA port's per-block window staged with plain loads and one
+// barrier, kept too few in flight: PERF.md); x is read once per CTA run
+// plus each run's first window, with no partials in device memory. On an
+// H100 80GB HBM3 (700 W) the DIA ring moves lap2d_4096's 470 MB in
+// 160-165 us, 2.85-2.93 TB/s, where a 400 MB device copy runs at
+// 2.92-2.96 (bench/dia_times.py; PERF.md). Shared memory caps the ring
+// and the stages: the wrappers refuse more than the card's per-block
+// opt-in (for the DIA ring, less its kernel's static bytes:
+// tsp_dia_windowed_static_smem).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -76,51 +100,6 @@ namespace {
 
 constexpr int kLanes = 128;
 constexpr int kSublanes = 8;
-constexpr int kDiaThreads = 512;
-
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-// win[i] = src[first + i] for i < count, 0 where first + i lies outside
-// [0, limit); then a barrier, so the whole window is visible.
-__device__ __forceinline__ void stage(float* win, const float* __restrict__ src,
-                                      long long first, long long count,
-                                      long long limit) {
-  for (long long i = threadIdx.x; i < count; i += blockDim.x) {
-    const long long g = first + i;
-    win[i] = (g >= 0 && g < limit) ? src[g] : 0.f;
-  }
-  __syncthreads();
-}
-
-template <typename V>
-__global__ void __launch_bounds__(kDiaThreads)
-    dia_windowed_kernel(const V* __restrict__ vals,
-                        const int* __restrict__ offs, int D, int rb,
-                        int off_min, int span, int rows_per_cta,
-                        const float* __restrict__ x, float* __restrict__ y,
-                        long long m, long long n) {
-  extern __shared__ float win[];
-  const long long r0 = (long long)blockIdx.x * rows_per_cta;
-  const long long left = m - r0;
-  const long long rows = left < rows_per_cta ? left : rows_per_cta;
-  stage(win, x, r0 + off_min, rows + span, n);
-  const long long stride = (long long)rb * kLanes;  // one diagonal of a tile
-  for (long long i = threadIdx.x; i < rows; i += blockDim.x) {
-    const long long row = r0 + i;
-    const long long blk = row >> 7;
-    const long long t = blk / rb;
-    const long long r = blk - t * rb;
-    const V* v = vals + t * D * stride + r * kLanes + (row & 127);
-    float acc = 0.f;
-    for (int k = 0; k < D; ++k) {
-      acc += widen(v[k * stride]) * win[i + offs[k] - off_min];
-    }
-    y[row] = acc;
-  }
-}
 
 // ---- The ring walk: spmv_ranked_windowed and spmm_ranked_windowed ----
 
@@ -464,21 +443,6 @@ cudaError_t allow_smem(K kernel, int bytes, int* allowed) {
   return rc;
 }
 
-template <typename V>
-int launch_dia(const void* vals, const void* offs, int D, int rb,
-               int off_min, int span, int rows_per_cta, const void* x,
-               void* y, long long m, long long n, int smem, cudaStream_t s) {
-  static int allowed = 48 * 1024;
-  const cudaError_t rc = allow_smem(dia_windowed_kernel<V>, smem, &allowed);
-  if (rc != cudaSuccess) return (int)rc;
-  const unsigned blocks = (unsigned)((m + rows_per_cta - 1) / rows_per_cta);
-  dia_windowed_kernel<V><<<blocks, kDiaThreads, smem, s>>>(
-      static_cast<const V*>(vals), static_cast<const int*>(offs), D, rb,
-      off_min, span, rows_per_cta, static_cast<const float*>(x),
-      static_cast<float*>(y), m, n);
-  return (int)cudaGetLastError();
-}
-
 int sm_count() {
   static int sms = 0;
   if (sms == 0) {
@@ -576,26 +540,241 @@ int run_group(const RingCall& c, int j0, int nb, cudaStream_t s, int* grid) {
 #undef TSP_RING
   return (int)cudaErrorInvalidValue;
 }
-}  // namespace
+// ---- The DIA ring: spmv_dia_windowed ----
 
-// val_kind: 0 float32, 1 bfloat16. smem = (rows_per_cta + span) * 4.
-extern "C" int tsp_spmv_dia_windowed(int val_kind, const void* vals,
-                                     const void* offs, int D, int rb,
-                                     int off_min, int span, int rows_per_cta,
-                                     const void* x, void* y, long long m,
-                                     long long n, int smem, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (rows_per_cta < 1 || span < 0) return (int)cudaErrorInvalidValue;
-  if (val_kind == 0) {
-    return launch_dia<float>(vals, offs, D, rb, off_min, span, rows_per_cta,
-                             x, y, m, n, smem, s);
+constexpr int kDiaConsumers = 256;  // 8 consumer warps
+constexpr int kDiaConsumerWarps = kDiaConsumers / 32;
+constexpr int kDiaThreads = kDiaConsumers + 32;  // and one producer warp
+constexpr int kDiaStages = 2;  // K (kernels/dia.DIA_STAGES)
+constexpr int kDiaRowsAtOnce = 4;  // rows a consumer thread sums together
+
+template <typename V>
+struct DiaArgs {
+  const V* vals;  // (T, D, rb, 128)
+  const int* offs;  // D offsets, ascending
+  int D, rb;
+  int S;            // rows a step: a multiple of 128 dividing rb * 128
+  int W;            // floats of the ring, a multiple of 4
+  int stage_bytes;  // one stage: D runs of S values, 128-byte aligned
+  int num_steps;    // ceil(m / S)
+  const float* x;
+  float* y;
+  long long m, n;
+};
+
+__device__ __forceinline__ long long floor4(long long v) { return v & ~3ll; }
+
+// Persistent and warp-specialised (see the header): CTA b walks steps
+// [i0, i1) through K = kDiaStages stages, local step t in stage k = t %
+// K: full[k] = bars[k] (the producer's one arrival plus the stage's
+// bytes), empty[k] = bars[K + k] (one arrival per consumer warp).
+// The producer stages step t once step t - K is released, so it runs at
+// most K - 1 steps ahead and the ring, W >= span + K * S floats, holds
+// the windows of every step in flight. Shared memory: the ring, K
+// stages, and the D offsets less off_min.
+template <typename V>
+__global__ void __launch_bounds__(kDiaThreads)
+    dia_ring_kernel(const DiaArgs<V> a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int K = kDiaStages;
+  __shared__ __align__(8) unsigned long long bars[2 * K];
+  const int i0 = (int)((long long)blockIdx.x * a.num_steps / gridDim.x);
+  const int i1 = (int)((long long)(blockIdx.x + 1) * a.num_steps / gridDim.x);
+  const int nt = i1 - i0;
+  if (nt <= 0) return;
+  float* ring = reinterpret_cast<float*>(smem);
+  unsigned char* stages = smem + align128((long long)a.W * 4);
+  int* dk = reinterpret_cast<int*>(stages + K * (long long)a.stage_bytes);
+  const unsigned full0 = smem_u32(&bars[0]);  // full[k] at full0 + 8k
+  const unsigned empty0 = smem_u32(&bars[K]);
+  if (threadIdx.x == 0) {  // every launch: graphs replay it
+    for (int k = 0; k < K; ++k) {
+      mbar_init(full0 + 8 * k, 1);
+      mbar_init(empty0 + 8 * k, kDiaConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  if (val_kind == 1) {
-    return launch_dia<__nv_bfloat16>(vals, offs, D, rb, off_min, span,
-                                     rows_per_cta, x, y, m, n, smem, s);
+  const int off_min = __ldg(a.offs);
+  for (int k = threadIdx.x; k < a.D; k += blockDim.x) {
+    dk[k] = __ldg(a.offs + k) - off_min;
   }
+  __syncthreads();
+  const long long span = dk[a.D - 1];
+  const long long S = a.S, W = a.W;
+  // x + g is 16-byte aligned when g + xa is a multiple of 4; entry g
+  // lives in ring slot (g + xa - ubase) mod W, ubase a multiple of 4 at
+  // or below this CTA's first entry, so aligned entries take aligned
+  // slots.
+  const long long xa = (long long)((reinterpret_cast<uintptr_t>(a.x) >> 2) & 3);
+  const long long ubase = floor4((long long)i0 * S + off_min + xa);
+  // The ring slot of entry g: g - ubase + xa lies in [0, 2^31) for every
+  // entry of this CTA's run (at most n + span).
+  const auto slot = [&](long long g) {
+    return (int)((unsigned)(g + xa - ubase) % (unsigned)a.W);
+  };
+  const long long rows_per_tile = (long long)a.rb * kLanes;
+
+  if (threadIdx.x >= kDiaConsumers) {  // the producer warp
+    const int lane = threadIdx.x & 31;
+    // Step t's layout tile, and its first row inside the tile.
+    long long tile = (long long)i0 * S / rows_per_tile;
+    long long tile_row = (long long)i0 * S - tile * rows_per_tile;
+    for (int t = 0; t < nt; ++t) {
+      const long long r0 = (long long)(i0 + t) * S;
+      // Step t's window is [r0 + off_min, r0 + S + off_min + span); it
+      // adds what step t - 1's did not hold, the whole window at t = 0.
+      const long long lo = r0 + off_min + (t > 0 ? span : 0);
+      const long long hi = r0 + S + off_min + span;
+      const int k = t % K, round = t / K;
+      if (round > 0) mbar_wait(empty0 + 8 * k, (round - 1) & 1);
+      // The aligned part of [lo, hi) inside x, [ga, gb), by bulk copy.
+      const long long c0 = lo > 0 ? lo : 0;
+      const long long c1 = hi < a.n ? hi : a.n;
+      long long ga = hi, gb = hi;
+      if (c1 > c0) {
+        const long long ua = floor4(c0 + xa + 3), ub = floor4(c1 + xa);
+        if (ub > ua) {
+          ga = ua - xa;
+          gb = ub - xa;
+        }
+      }
+      const unsigned full = full0 + 8 * k;
+      V* st = reinterpret_cast<V*>(stages + k * (long long)a.stage_bytes);
+      if (lane == 0) {
+        const long long run = S * (long long)sizeof(V);
+        mbar_expect_tx(full, (unsigned)(a.D * run + (gb - ga) * 4));
+        const V* src = a.vals + tile * a.D * rows_per_tile + tile_row;
+        for (int d = 0; d < a.D; ++d) {
+          bulk_copy(st + d * S, src + d * rows_per_tile, run, full);
+        }
+        if (gb > ga) {
+          const long long p = slot(ga);
+          const long long first = lmin(gb - ga, W - p);
+          bulk_copy(ring + p, a.x + ga, first * 4, full);
+          if (gb - ga > first) {
+            bulk_copy(ring, a.x + ga + first, (gb - ga - first) * 4, full);
+          }
+        }
+      }
+      // The rest of [lo, hi), [lo, ga) and [gb, hi): plain loads inside
+      // x, 0 outside.
+      bool wrote = false;
+      const auto fill = [&](long long g0, long long g1) {
+        for (long long g = g0 + lane; g < g1; g += 32) {
+          ring[slot(g)] = (g >= 0 && g < a.n) ? a.x[g] : 0.f;
+          wrote = true;
+        }
+      };
+      fill(lo, ga);
+      fill(gb, hi);
+      if (wrote) fence_proxy_async();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(full);
+      tile_row += S;  // S divides the tile
+      if (tile_row == rows_per_tile) {
+        tile_row = 0;
+        ++tile;
+      }
+    }
+    return;
+  }
+
+  // Consumers: thread tid sums rows tid + j * 256 of a step, four at a
+  // time, each over the diagonals in ascending order; pos0 is the ring
+  // slot of the step's first row's lowest diagonal.
+  const int tid = threadIdx.x;
+  int pos0 = slot((long long)i0 * S + off_min);
+  for (int t = 0; t < nt; ++t) {
+    const long long r0 = (long long)(i0 + t) * S;
+    const int k = t % K;
+    const V* st =
+        reinterpret_cast<const V*>(stages + k * (long long)a.stage_bytes);
+    mbar_wait(full0 + 8 * k, (t / K) & 1);
+    const int rows = (int)lmin(S, a.m - r0);
+    for (int i0r = tid; i0r < rows; i0r += kDiaRowsAtOnce * kDiaConsumers) {
+      float acc[kDiaRowsAtOnce];
+#pragma unroll
+      for (int j = 0; j < kDiaRowsAtOnce; ++j) acc[j] = 0.f;
+      for (int d = 0; d < a.D; ++d) {
+        const int base = pos0 + dk[d];
+        const V* sv = st + d * a.S;
+#pragma unroll
+        for (int j = 0; j < kDiaRowsAtOnce; ++j) {
+          const int i = i0r + j * kDiaConsumers;
+          int q = base + i;
+          if (q >= a.W) q -= a.W;
+          if (i < rows) acc[j] = __fmaf_rn(stage_val(sv + i), ring[q], acc[j]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kDiaRowsAtOnce; ++j) {
+        const int i = i0r + j * kDiaConsumers;
+        if (i < rows) a.y[r0 + i] = acc[j];
+      }
+    }
+    __syncwarp();
+    if ((tid & 31) == 0) mbar_arrive(empty0 + 8 * k);
+    pos0 += a.S;  // S < W
+    if (pos0 >= a.W) pos0 -= a.W;
+  }
+}
+
+// Launches the DIA ring on a persistent grid: as many CTAs as fit on the
+// card at this shared memory (occupancy counted once per size), at most
+// one per step. With grid != 0 it only reports that count.
+template <typename V>
+int run_dia(const DiaArgs<V>& a, int smem, cudaStream_t s, int* grid) {
+  static int allowed = 48 * 1024, sized = -1, per_sm = 0;
+  const auto kernel = dia_ring_kernel<V>;
+  cudaError_t rc = allow_smem(kernel, smem, &allowed);
+  if (rc != cudaSuccess) return (int)rc;
+  if (smem != sized) {
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                       kDiaThreads, smem);
+    if (rc != cudaSuccess) return (int)rc;
+    sized = smem;
+  }
+  const int ctas = sm_count() * per_sm;
+  if (ctas < 1) return (int)cudaErrorInvalidConfiguration;
+  const int blocks = ctas < a.num_steps ? ctas : a.num_steps;
+  if (grid != nullptr) {
+    *grid = blocks;
+    return 0;
+  }
+  kernel<<<(unsigned)blocks, kDiaThreads, smem, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+int dia_call(int val_kind, const void* vals, const void* offs, int D, int rb,
+             int S, int W, int stage_bytes, const void* x, void* y,
+             long long m, long long n, int smem, cudaStream_t s, int* grid) {
+  // The host sizes the ring (kernels/dia.dia_ring); smem must be the
+  // layout this kernel reads, with its own count of stages, and the
+  // bulk copies need 16-byte aligned values.
+  if (D < 1 || rb < 1 || S < kLanes || S % kLanes || (rb * kLanes) % S ||
+      W < kDiaStages * S || W % 4 || stage_bytes < 1 || m < 1 ||
+      smem != align128((long long)W * 4) +
+                  kDiaStages * (long long)stage_bytes + 4ll * D ||
+      reinterpret_cast<uintptr_t>(vals) % 16) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const long long steps = (m + S - 1) / S;
+  if (steps > 0x7fffffff) return (int)cudaErrorInvalidValue;
+#define TSP_DIA(V)                                                        \
+  {                                                                       \
+    const DiaArgs<V> a{static_cast<const V*>(vals),                       \
+                       static_cast<const int*>(offs), D, rb, S, W,        \
+                       stage_bytes, (int)steps,                           \
+                       static_cast<const float*>(x), static_cast<float*>(y), \
+                       m, n};                                             \
+    return run_dia(a, smem, s, grid);                                     \
+  }
+  if (val_kind == 0) TSP_DIA(float);
+  if (val_kind == 1) TSP_DIA(__nv_bfloat16);
+#undef TSP_DIA
   return (int)cudaErrorInvalidValue;
 }
+}  // namespace
 
 // Y (m, B) = A @ X (n, B), both row-major, X 16-byte aligned: the ring
 // walk of the layout's window table, one launch per group of at most 8
@@ -656,4 +835,47 @@ extern "C" int tsp_ranked_windowed_ctas(int val_kind, int lcol_kind,
   const int rc = run_group(c, 0, B < kMaxColumns ? B : kMaxColumns, nullptr,
                            &grid);
   return rc != 0 ? -rc : grid;
+}
+
+// y = A @ x for a DIA layout (vals (T, D, rb, 128), D ascending offsets)
+// through the ring (see the header). val_kind: 0 float32, 1 bfloat16. S
+// rows a step (a multiple of 128 dividing rb * 128), W floats of ring (a
+// multiple of 4, at least span + 2S), stage_bytes one stage (D * S
+// values, 128-byte aligned); smem = the ring (128-byte aligned), two
+// stages and 4 * D bytes of offsets.
+extern "C" int tsp_spmv_dia_windowed(int val_kind, const void* vals,
+                                     const void* offs, int D, int rb, int S,
+                                     int W, int stage_bytes, const void* x,
+                                     void* y, long long m, long long n,
+                                     int smem, void* stream) {
+  return dia_call(val_kind, vals, offs, D, rb, S, W, stage_bytes, x, y, m, n,
+                  smem, static_cast<cudaStream_t>(stream), nullptr);
+}
+
+// The CTAs a launch of tsp_spmv_dia_windowed runs for these sizes, or
+// minus the CUDA error that refuses it.
+extern "C" int tsp_dia_windowed_ctas(int val_kind, int D, int rb, int S,
+                                     int W, int stage_bytes, long long m,
+                                     int smem) {
+  int grid = 0;
+  const int rc = dia_call(val_kind, nullptr, nullptr, D, rb, S, W,
+                          stage_bytes, nullptr, nullptr, m, 0, smem, nullptr,
+                          &grid);
+  return rc != 0 ? -rc : grid;
+}
+
+// The static shared memory of the DIA ring's kernel (its mbarriers), the
+// most over its value types, or minus the CUDA error: a launch may opt
+// into the card's per-block maximum less this.
+extern "C" int tsp_dia_windowed_static_smem() {
+  cudaFuncAttributes f32{}, bf16{};
+  cudaError_t rc = cudaFuncGetAttributes(&f32, dia_ring_kernel<float>);
+  if (rc == cudaSuccess) {
+    rc = cudaFuncGetAttributes(&bf16, dia_ring_kernel<__nv_bfloat16>);
+  }
+  if (rc != cudaSuccess) return -(int)rc;
+  const size_t most = f32.sharedSizeBytes > bf16.sharedSizeBytes
+                          ? f32.sharedSizeBytes
+                          : bf16.sharedSizeBytes;
+  return (int)most;
 }

@@ -3,7 +3,8 @@ and its plain PyTorch version.
 
 `spmv_packed(layout, x)` replaces `tpu_spmv/kernels/packed.py:spmv_packed`
 (delta and grouped bodies, and the out_row gather after them); the same
-walk, compiled per width, serves `kernels/spmm.spmm_packed`
+walk, compiled per width, serves `kernels/spmm.spmm_packed` and, over a
+RankedSlabs' segment and run tables, `kernels/spmm.spmm_ranked`
 (`launch_packed`). On a CPU tensor it runs `spmv_packed_reference`; on a
 CUDA tensor it launches the kernel or raises. `spmv_packed.launches`
 counts calls that launched the kernel, once per call: a call is one
@@ -16,10 +17,10 @@ from __future__ import annotations
 import torch
 
 from tpu_spmv_torch.formats.packed import PackedRanked
-from tpu_spmv_torch.formats.sell import LANES, SUBLANES
+from tpu_spmv_torch.formats.sell import LANES, SUBLANES, RankedSlabs
 from tpu_spmv_torch.kernels import _build
 from tpu_spmv_torch.kernels.sell import (
-    _LCOL_KIND, _VAL_KIND, _segment_args, ranked_bases,
+    _LCOL_KIND, _VAL_KIND, _check_slabs, _segment_args, ranked_bases,
 )
 
 
@@ -49,12 +50,15 @@ def spmv_packed_reference(layout: PackedRanked, x: torch.Tensor) -> torch.Tensor
     return y[:-1].reshape(-1, *batch)[: layout.m]
 
 
-def check_packed(layout: PackedRanked, what: str) -> None:
-    """Shapes and types the packed kernels rely on besides the segment
+def check_packed(layout, what: str) -> None:
+    """Shapes and types the packed walk relies on besides the segment
     table's, which kernels/sell._segment_args checks (contents are
     trusted: reading them would synchronise with the card; the container
-    checked its table on the host when it was made)."""
-    if layout.chunk_koff.dtype != torch.int32 or (
+    checked its tables on the host when it was made), for a PackedRanked
+    or a RankedSlabs (its chunk_ptr in place of chunk_koff)."""
+    if isinstance(layout, RankedSlabs):
+        _check_slabs(layout, what)
+    elif layout.chunk_koff.dtype != torch.int32 or (
         layout.chunk_koff.numel() != layout.num_chunks + 1
     ):
         raise ValueError(f"{what}: chunk_koff must be (num_chunks+1,) int32")
@@ -73,14 +77,18 @@ def check_packed(layout: PackedRanked, what: str) -> None:
         raise ValueError(f"{what}: grp_b0 must hold G bases per sub-tile")
 
 
-def launch_packed(layout: PackedRanked, x: torch.Tensor, what: str,
+def launch_packed(layout, x: torch.Tensor, what: str,
                   matrix: bool = False) -> torch.Tensor:
     """Checks, then csrc/packed.cu's tsp_packed for x (n,) or, with
     matrix, X (n, B) on the card: the walk of the run table into y (m,)
     or Y (m, B), one launch per group of at most 8 columns, then the
-    fix-up of the split chunks' partial rows when the layout has any."""
+    fix-up of the split chunks' partial rows when the layout has any.
+    layout: a PackedRanked, or a RankedSlabs, whose segment table counts
+    sub-tiles (seg_shift 3) and whose packed deltas hold its bases even
+    when grouped (G = 0)."""
     _build.check_operands(layout, x, what, matrix=matrix)
     check_packed(layout, what)
+    ranked = isinstance(layout, RankedSlabs)
     B = x.shape[1] if matrix else 1
     seg_ptr, seg_chunk, _, split_seg, nsplit, part = _segment_args(
         layout, x, what, B)
@@ -97,18 +105,19 @@ def launch_packed(layout: PackedRanked, x: torch.Tensor, what: str,
         layout.vals.data_ptr(), layout.lcols.data_ptr(),
         layout.sub_b0.data_ptr(), layout.sub_dlo.data_ptr(),
         layout.sub_dhi.data_ptr(), layout.grp_b0.data_ptr(),
-        layout.num_groups, layout.group_code & 0xFFFFFFFF, seg_ptr,
-        seg_chunk, run_ptr.data_ptr(), run_ptr.shape[1] - 1,
-        split_seg, nsplit, x.data_ptr(), y.data_ptr(),
+        0 if ranked else layout.num_groups, layout.group_code & 0xFFFFFFFF,
+        seg_ptr, 3 if ranked else 0, seg_chunk, run_ptr.data_ptr(),
+        run_ptr.shape[1] - 1, split_seg, nsplit, x.data_ptr(), y.data_ptr(),
         part.data_ptr(), layout.m, layout.n, B, _build.stream_of(x),
     )
     _build.check(rc, what)
     return y
 
 
-def packed_launches(layout: PackedRanked, batch: int = 1) -> int:
-    """Device launches of one call of the packed kernels: one per group
-    of at most 8 columns, plus the split fix-up when a chunk is split."""
+def packed_launches(layout, batch: int = 1) -> int:
+    """Device launches of one call of the packed walk (spmv_packed,
+    spmm_packed, spmm_ranked): one per group of at most 8 columns, plus
+    the split fix-up when a chunk is split."""
     return -(-batch // 8) + (layout.split_seg.shape[1] > 0)
 
 

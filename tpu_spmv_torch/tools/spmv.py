@@ -146,7 +146,7 @@ def build_layout(matrix, kernel: str, val_dtype=None, bin_blocks: int = 0,
     from tpu_spmv_torch.formats.packed import PackedRanked
     from tpu_spmv_torch.formats.sell import RankedSlabs, SellSlabs
     from tpu_spmv_torch.kernels.dia import (
-        dia_window_rows, dia_x_fits, spmv_dia, spmv_dia_windowed,
+        dia_ring, dia_smem_budget, dia_x_fits, spmv_dia, spmv_dia_windowed,
     )
     from tpu_spmv_torch.kernels.packed import spmv_packed
     from tpu_spmv_torch.kernels.sell import (
@@ -173,12 +173,11 @@ def build_layout(matrix, kernel: str, val_dtype=None, bin_blocks: int = 0,
               f"fill {layout.padding_ratio:.2f}x")
         if dia_x_fits(layout):
             return layout, spmv_dia, "dia"
-        rows = dia_window_rows(layout, hw.smem_per_block(device))
-        span = max(layout.offsets) - min(layout.offsets)
+        ring = dia_ring(layout, dia_smem_budget(device))
         print(f"x exceeds the L2 residency budget ({x_budget(matrix.n, device)}"
-              f"); using the HBM-windowed DIA kernel: {rows} rows per block, "
-              f"halo {span} of a {rows + span}-entry window "
-              f"({100 * span / (rows + span):.0f}%)")
+              f"); using the HBM-windowed DIA kernel: steps of "
+              f"{ring.step_rows} rows, a ring of {ring.ring} floats of x, "
+              f"{ring.smem} bytes of shared memory a CTA")
         return layout, spmv_dia_windowed, "dia"
     if kernel == "ranked":
         try:

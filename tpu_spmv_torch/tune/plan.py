@@ -53,9 +53,15 @@ from tpu_spmv_torch.formats.sell import LANES, SUBLANES, _aligned_slots
 PACKED_OVER_RANKED = 1.317
 # The same ratio for SpMM (spmm_packed over spmm_ranked, B = 5 columns,
 # the same matrix, card and timing, printed by chip_smoke.py):
-# (32.56 us / 5122) / (50.32 us / 8192) = 1.035. spmm_ranked still gives
-# a thread a row (kernels/csrc/slot_walk.cuh).
-SPMM_PACKED_OVER_RANKED = 1.035
+# (33.08 us / 5122) / (38.11 us / 8192) = 1.388, with both kernels on the
+# same walk of runs of segments (kernels/csrc/packed.cu; spmm_ranked over
+# the ranked layout's whole-sub-tile segments). It is above SpMV's ratio:
+# a run of lap2d_1024 holds 8 chunks either way, in 5 packed sub-tiles or
+# 8 ranked ones, so the block's chain and its 8 stores of B columns are
+# shared by fewer packed sub-tiles. Below 1.6, packed is still planned
+# on lap2d_1024 after RCM; banded_1m and general_500k, whose ranked
+# layouts walk 1.15 and 1.25 times packed's sub-tiles, plan ranked.
+SPMM_PACKED_OVER_RANKED = 1.388
 
 # tpu_plan's gate for its sampled slot statistics.
 _MAX_ROW_FOR_SAMPLING = 2048
