@@ -8,8 +8,9 @@ It builds the port's CUDA kernels from tpu_spmv_torch/kernels/csrc/ and
 its C++ host core from tpu_spmv_torch/reorder/csrc/ (it fails unless the
 core builds), then, at the main paths' real sizes (lap2d_1024: 1.05M
 rows, 5.2M nnz; varstencil_1024; banded_1m: 1M rows, 16.9M nnz;
-lap3d_101: 1.03M rows, 7.2M nnz; lap2d_4096: 16.8M rows, 83.9M nnz, whose
-x is past the L2 residency gate):
+lap3d_101: 1.03M rows, 7.2M nnz; lap2d_4096: 16.8M rows, 83.9M nnz, and
+scattered_16m: 131,072 x 16,777,216, 21.0M nnz, whose x is past the L2
+residency gate):
 
   1. checks each kernel against its plain PyTorch version on the card
      (max |kernel - plain| <= 1e-5 * max(1, max |plain|): both sum in
@@ -46,7 +47,14 @@ x is past the L2 residency gate):
      table in slots, the runs a block walks and the device launches per
      call, on lap2d_1024 after RCM and banded_1m, whose chunk of an
      887-nonzero row is split; replays of spmv_packed and of spmm_packed
-     at B = 8 on both);
+     at B = 8 on both); scattered_16m goes through spmv_striped, the
+     column-striped passes of spmv_ranked's walk (the bin width W picked
+     on a row sample as bench/scattered_16m.py picks it), at
+     default_stripe_cols and at half of it, each phase held to its plain
+     version, the oracle and two graph replays, with a line on the
+     stripes (padding, split chunks, launches per call), the bound of
+     this design (y moved 2P - 1 times) and the host set-up seconds; its
+     rows count as spmv_ranked's;
   2. prints R, the packed-to-ranked time per walked sub-tile measured in
      step 1 on lap2d_1024 after RCM, for SpMV and for SpMM (B = 5),
      beside the planner's constants, and the plan auto takes on each
@@ -78,8 +86,13 @@ x is past the L2 residency gate):
      lap2d_4096, natural and --kernel ranked after RCM, tools.spmm on
      lap2d_1024 at B = 8 and --kernel windowed), the solve CLIs
      (tools.sts on lap2d_1024 LS, COLOR and k=3 and lap3d_101 --part
-     upper; tools.solve --precond ic0 on lap3d_101), and the library's
-     lower_solve with ranked=False;
+     upper; tools.solve --precond ic0 on lap3d_101), the library's
+     lower_solve with ranked=False, the striped route (tools.spmv
+     synthetic:scattered_16m --kernel ranked --bin-blocks W, which must
+     print "column-striped passes"), the baselines (tools.spmv
+     --kernel segsum and bcoo on lap2d_1024, dense on an 8,192 x 8,192
+     matrix at its cap and refused on lap2d_1024) and the flagship bench
+     (bench.flagship, whose JSON line must parse with value > 0);
      it fails unless every kernel was launched on its path.
 
 It prints the card (nvidia-smi name and power limit), the toolchain, the
@@ -166,24 +179,24 @@ def _bound(nbytes, flops):
 
 
 def _csr_tensor(csr, dev):
-    """The matrix as a torch CSR tensor on the card (int32 indices)."""
-    import torch
+    """The matrix as a torch CSR tensor on the card (int32 indices): the
+    bcoo baseline's layout (kernels/bcoo.py)."""
+    from tpu_spmv_torch.kernels.bcoo import BCOOLayout
 
-    return torch.sparse_csr_tensor(
-        torch.from_numpy(csr.indptr), torch.from_numpy(csr.indices),
-        torch.from_numpy(csr.data), size=csr.shape, device=dev,
-    )
+    return BCOOLayout.from_csr(csr, device=dev).mat
 
 
 def _time_library(csr, xt, nnz):
     """Warm TimeMin (s) of one PyTorch call computing the same product
-    on the same reordered matrix and x: a CSR tensor times x (n,) or X
-    (n, B), which PyTorch runs through cuSPARSE (SpMV / SpMM), timed from
-    a CUDA graph like the kernels."""
+    on the same reordered matrix and x: the bcoo baseline (kernels/
+    bcoo.spmv_bcoo, the call `tools.spmv --kernel bcoo` times), a CSR
+    tensor times x (n,) or X (n, B), which PyTorch runs through cuSPARSE
+    (SpMV / SpMM), timed from a CUDA graph like the kernels."""
     from tpu_spmv_torch.bench.harness import bench_spmv
+    from tpu_spmv_torch.kernels.bcoo import BCOOLayout, spmv_bcoo
 
-    return bench_spmv(lambda a, v: a @ v, _csr_tensor(csr, xt.device), xt,
-                      nnz=nnz).time_min
+    return bench_spmv(spmv_bcoo, BCOOLayout.from_csr(csr, device=xt.device),
+                      xt, nnz=nnz).time_min
 
 
 def _check_kernel(label, kernel, plain, layout, mat, perm, oracle, stats,
@@ -414,10 +427,11 @@ def _spmv_replay_check(label, kernel, layout, mat, perm, batch=None):
     import numpy as np
     import torch
 
-    lay = layout.to(torch.device("cuda"))
+    dev = torch.device("cuda")
+    lay = layout.to(dev)
     shape = (mat.n,) if batch is None else (mat.n, batch)
     x = np.random.default_rng(X_SEED).standard_normal(shape).astype(np.float32)
-    xt = torch.from_numpy(x[perm]).to(lay.vals.device)
+    xt = torch.from_numpy(x[perm]).to(dev)
     _replay_check(label, kernel.__name__, lambda: kernel(lay, xt))
 
 
@@ -665,6 +679,79 @@ def _windowed_phases(stats):
                       spmm_ranked_windowed,
                       spmm_ranked_windowed_reference, lay, mat, perm, mat,
                       stats, batch=cols, twin=spmm_ranked, csr=ck.matrix)
+
+
+def _striped_phases(stats):
+    """scattered_16m (131,072 x 16,777,216, 160 a row, 21.0M nnz; x 64 MB,
+    past half the L2) through spmv_striped, the column-striped passes of
+    spmv_ranked's walk, at default_stripe_cols and at half of it: kernel
+    against plain, the oracle, warm and cold times, the library call
+    and two graph replays. W is picked on a row sample as
+    bench/scattered_16m.py picks it. Prints each layout's stripes, bins,
+    padding, split chunks and launches per call, the bound of this design
+    (layout and x once, y 2P - 1 times) and the host set-up seconds.
+    The rows count as spmv_ranked's. Returns W."""
+    import torch
+
+    from tpu_spmv_torch.kernels.sell import partial_rows
+
+    from tpu_spmv_torch.bench.scattered_16m import pick_bin_blocks
+    from tpu_spmv_torch.kernels.striped import (
+        StripedRanked, default_stripe_cols, spmv_striped,
+        spmv_striped_reference,
+    )
+    from tpu_spmv_torch.tools.spmv import load_input
+    from tpu_spmv_torch.tune.plan import packed_x_fits
+
+    dev = torch.device("cuda")
+    setup = {}
+    t0 = time.perf_counter()
+    mat = load_input("synthetic:scattered_16m")
+    setup["generate"] = time.perf_counter() - t0
+    if packed_x_fits(mat):
+        raise SmokeFailure("scattered_16m: x passes the residency gate")
+    t0 = time.perf_counter()
+    w, sample_pad = pick_bin_blocks(mat)
+    setup["W choice"] = time.perf_counter() - t0
+    sc = default_stripe_cols(dev)
+    for cols in (sc, sc // 2):
+        t0 = time.perf_counter()
+        lay = StripedRanked.from_csr(mat, stripe_cols=cols, bin_blocks=w,
+                                     device=dev)
+        torch.cuda.synchronize()
+        setup[f"build at {cols} columns"] = time.perf_counter() - t0
+        P = lay.num_stripes
+        splits = [s.split_seg.shape[1] for s in lay.stripes]
+        part_bytes = sum(partial_rows(s) for s in lay.stripes) * 128 * 4
+        label = f"scattered_16m striped W={w} P={P}"
+        print(f"    [{label}] stripes of {cols} columns (default "
+              f"{sc}), x {4 * mat.n / 2**20:.1f} MB; W={w} (sample padding "
+              f"{sample_pad:.2f}x), padding {lay.padding_ratio:.2f}x, rank_nb "
+              f"{lay.rank_nb}, lcols {[str(s.lcols.dtype)[6:] for s in lay.stripes]}, "
+              f"split chunks by stripe {splits} (partial rows "
+              f"{part_bytes / 2**20:.1f} MB in all); device launches per "
+              f"call {P + sum(k > 0 for k in splits)} (spmv_ranked calls "
+              f"{P})", flush=True)
+        _check_kernel(label, spmv_striped, spmv_striped_reference, lay, mat,
+                      slice(None), mat, stats, csr=mat)
+        row = stats["spmv_striped"][-1]
+        design_ms, _ = _bound(lay.nbytes + 4 * mat.n + 4 * mat.m * (2 * P - 1),
+                              2 * mat.nnz)
+        split_ms, _ = _bound(lay.nbytes + 4 * mat.n + 4 * mat.m * (2 * P - 1)
+                             + 2 * part_bytes, 2 * mat.nnz)
+        print(f"    bound of this design (layout + x once, y {2 * P - 1} "
+              f"times) {design_ms * 1e3:.2f} us, {split_ms * 1e3:.2f} with "
+              f"the partial rows written and read once | loss: "
+              f"{row['ms'] / design_ms:.2f}x this bound, "
+              f"{row['ms'] / row['bound_ms']:.2f}x the bound, "
+              f"{row['ms'] / row['library_ms']:.2f}x the library call",
+              flush=True)
+        _spmv_replay_check(label, spmv_striped, lay, mat, slice(None))
+        del lay
+    print("scattered_16m host set-up s: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in setup.items()), flush=True)
+    stats.setdefault("spmv_ranked", []).extend(stats.pop("spmv_striped"))
+    return w
 
 
 def _solve_oracle(sys_, b):
@@ -1024,12 +1111,13 @@ def _drive(steps):
     """Zero every launch counter, run the steps, return the counts. A
     step is a (CLI module, argv) pair, whose main must return 0, or a
     callable that raises SmokeFailure."""
-    from tpu_spmv_torch.kernels import dia, packed, sell, spmm, sts
+    from tpu_spmv_torch.kernels import dia, packed, sell, spmm, striped, sts
 
     wrappers = (dia.spmv_dia, dia.spmv_dia_windowed, sell.spmv_ranked,
                 sell.spmv_ranked_windowed, sell.spmv_sell, packed.spmv_packed,
                 spmm.spmm_ranked, spmm.spmm_ranked_windowed, spmm.spmm_packed,
-                sts.lower_solve_ranked, sts.lower_solve_blocks)
+                sts.lower_solve_ranked, sts.lower_solve_blocks,
+                striped.spmv_striped)
     for w in wrappers:
         w.launches = 0
     for step in steps:
@@ -1045,6 +1133,68 @@ def _drive(steps):
         if rc != 0:
             raise SmokeFailure(f"{cli.__name__}.main({argv}) returned {rc}")
     return {w.__name__: w.launches for w in wrappers}
+
+
+def _captured(label, fn):
+    """(return value, stdout) of fn(), its stdout also printed; an exit
+    of fn is a SmokeFailure."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    print(f"== {label}", flush=True)
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = fn()
+    except SystemExit as e:
+        raise SmokeFailure(f"{label} exited: {e}")
+    finally:
+        print(buf.getvalue(), end="", flush=True)
+    print(f"   (wall {time.perf_counter() - t0:.1f} s)", flush=True)
+    return out, buf.getvalue()
+
+
+def _cli_run(cli, argv, expect=""):
+    """A _drive step: cli.main(argv) must return 0 and print Number
+    Wrong 0 and `expect`."""
+    def run():
+        name = f"tools.{cli.__name__.rsplit('.', 1)[1]}.main({argv})"
+        rc, out = _captured(name, lambda: cli.main(argv))
+        if rc != 0 or "Number Wrong: 0 " not in out or expect not in out:
+            raise SmokeFailure(f"{name}: rc {rc}, expected Number Wrong 0 "
+                               f"and {expect!r}")
+    return run
+
+
+def _cli_refusal(cli, argv, expect):
+    """A _drive step: cli.main(argv) must exit with `expect` in its
+    message."""
+    def run():
+        try:
+            cli.main(argv)
+        except SystemExit as e:
+            print(f"== {cli.__name__}.main({argv}) refused: {e}", flush=True)
+            if expect in str(e):
+                return
+        raise SmokeFailure(f"{cli.__name__}.main({argv}) was not refused "
+                           f"with {expect!r}")
+    return run
+
+
+def _flagship():
+    """A _drive step: bench.flagship.main(), whose last stdout line must
+    be bench.py's JSON with value > 0."""
+    from tpu_spmv_torch.bench import flagship
+
+    rc, out = _captured("bench.flagship.main([])", lambda: flagship.main([]))
+    try:
+        line = json.loads(out.strip().splitlines()[-1])
+    except (ValueError, IndexError):
+        raise SmokeFailure(f"bench.flagship: no JSON last line (rc {rc})")
+    if rc != 0 or line.get("metric") != "spmv_gflops" or not (
+            line.get("value", 0) > 0 and line.get("vs_baseline", 0) > 0):
+        raise SmokeFailure(f"bench.flagship: rc {rc}, line {line}")
 
 
 def _library_blocks():
@@ -1075,8 +1225,42 @@ def _library_blocks():
     return _drive(steps)
 
 
-def _main_path():
-    """Launch counts of each kernel over its own path's run."""
+def _striped_and_baselines(bin_blocks):
+    """Launch counts of the striped CLI route (scattered_16m with
+    --kernel ranked --bin-blocks W, past the gate), then of the baselines
+    (segsum and bcoo on lap2d_1024, dense on an 8,192 x 8,192 matrix
+    at its cap and refused on lap2d_1024) and the flagship bench."""
+    import os
+    import tempfile
+
+    from tpu_spmv_torch.bench.matrices import random_general
+    from tpu_spmv_torch.io import write_mtx
+    from tpu_spmv_torch.tools import spmv as spmv_cli
+
+    striped_path = _drive((_cli_run(
+        spmv_cli, ["synthetic:scattered_16m", "20", "--kernel", "ranked",
+                   "--bin-blocks", str(bin_blocks)],
+        "column-striped passes"),))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "general_8192.mtx")
+        write_mtx(path, random_general(8192, 10, seed=2))
+        baselines = _drive((
+            _cli_run(spmv_cli, ["synthetic:lap2d_1024", "20", "--kernel",
+                                "segsum"]),
+            _cli_run(spmv_cli, ["synthetic:lap2d_1024", "20", "--kernel",
+                                "bcoo"]),
+            _cli_run(spmv_cli, [path, "20", "--kernel", "dense"],
+                     "dense baseline: operator 256.0 MB"),
+            _cli_refusal(spmv_cli, ["synthetic:lap2d_1024", "--kernel",
+                                    "dense"], "dense baseline capped"),
+        ))
+    flag_path = _drive((_flagship,))
+    return striped_path, baselines, flag_path
+
+
+def _main_path(bin_blocks):
+    """Launch counts of each kernel over its own path's run. W: the bin
+    width of the striped route's run."""
     from tpu_spmv_torch.tools import solve as solve_cli
     from tpu_spmv_torch.tools import spmm as spmm_cli
     from tpu_spmv_torch.tools import spmv as spmv_cli
@@ -1112,12 +1296,21 @@ def _main_path():
                      str(PCG_ITERS), "--tol", str(PCG_TOL)]),
     ))
     library = _library_blocks()
+    striped_path, baselines, flag_path = _striped_and_baselines(bin_blocks)
     counts = dict(spmv_path,
                   lower_solve_ranked=sts_path["lower_solve_ranked"],
                   lower_solve_blocks=library["lower_solve_blocks"])
+    counts["spmv_ranked"] += striped_path["spmv_ranked"]
+    counts["spmv_striped"] = striped_path["spmv_striped"]
     print(f"launches: SpMV/SpMM CLIs {spmv_path} | solve CLIs {sts_path} | "
-          f"library lower_solve(ranked=False) {library}", flush=True)
+          f"library lower_solve(ranked=False) {library} | striped CLI "
+          f"{striped_path} | baseline CLIs {baselines} | flagship "
+          f"{flag_path}", flush=True)
     missing = [k for k, v in counts.items() if v < 1]
+    missing += [f"{k} (striped CLI)" for k in ("spmv_ranked", "spmv_striped")
+                if striped_path[k] < 1]
+    missing += [f"{k} (flagship)" for k in ("spmv_dia", "spmv_packed")
+                if flag_path[k] < 1]
     if missing:
         raise SmokeFailure(f"main path never launched {missing}: {counts}")
     return counts
@@ -1207,6 +1400,10 @@ def main() -> int:
         print(f"windowed phases: wall {time.perf_counter() - t0:.1f} s",
               flush=True)
         t0 = time.perf_counter()
+        bin_blocks = _striped_phases(stats)
+        print(f"striped phases: wall {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        t0 = time.perf_counter()
         _plans(r_times)
         print(f"plans: wall {time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
@@ -1218,7 +1415,7 @@ def main() -> int:
         print(f"ic0 phases: wall {time.perf_counter() - t0:.1f} s",
               flush=True)
         t0 = time.perf_counter()
-        counts = _main_path()
+        counts = _main_path(bin_blocks)
         print(f"CLI runs: wall {time.perf_counter() - t0:.1f} s", flush=True)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

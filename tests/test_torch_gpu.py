@@ -29,7 +29,8 @@ import torch
 from tpu_spmv_torch import hw
 from tpu_spmv_torch.bench.harness import bench_spmv, bench_spmv_cold, validate
 from tpu_spmv_torch.bench.matrices import (
-    laplacian_2d, random_banded, random_general, variable_stencil,
+    laplacian_2d, random_banded, random_general, scattered_wide,
+    variable_stencil,
 )
 from tpu_spmv_torch.formats.csr import CSRMatrix
 from tpu_spmv_torch.formats.dia import DiaSlabs
@@ -48,6 +49,9 @@ from tpu_spmv_torch.kernels.sell import (
 from tpu_spmv_torch.kernels.spmm import (
     spmm_packed, spmm_packed_reference, spmm_ranked, spmm_ranked_reference,
     spmm_ranked_windowed, spmm_ranked_windowed_reference,
+)
+from tpu_spmv_torch.kernels.striped import (
+    StripedRanked, spmv_striped, spmv_striped_reference,
 )
 from tpu_spmv_torch.reorder import rcm
 from tpu_spmv_torch.kernels.sts import (
@@ -91,6 +95,25 @@ def _long_row(row=1500, length=400, seed=0):
         np.concatenate([mat.indices[keep], cols]),
         np.concatenate([mat.data[keep], vals.astype(np.float32)]),
         mat.shape,
+    )
+
+
+def _wide(m=512, n=8192, per_row=6, seed=3, long_row=None):
+    """m x n, per_row uniformly random columns a row (bench/matrices.
+    scattered_wide). long_row=(row, lo, hi) also gives row `row` every
+    column of [lo, hi): its binned chunk in the stripe holding them needs
+    many sub-tiles, so that stripe has a split chunk."""
+    mat = scattered_wide(m, n, per_row, seed)
+    if long_row is None:
+        return mat
+    row, lo, hi = long_row
+    rows = np.repeat(np.arange(m), np.diff(mat.indptr))
+    cols = np.arange(lo, hi)
+    vals = np.random.default_rng(seed).standard_normal(cols.size)
+    return CSRMatrix.from_coo(
+        np.concatenate([rows, np.full(cols.size, row)]),
+        np.concatenate([mat.indices, cols]),
+        np.concatenate([mat.data, vals.astype(np.float32)]), mat.shape,
     )
 
 
@@ -203,6 +226,55 @@ def test_ranked_kernel_matches_plain(cuda, case):
         assert lay.split_seg.shape[1] >= 1
     oracle = mat.rounded() if kw.get("val_dtype") else mat
     _run(spmv_ranked, spmv_ranked_reference, lay, mat, oracle, cuda)
+
+
+@pytest.mark.parametrize("case", ["lap2d_u8_ungrouped", "long_row_grouped",
+                                  "long_row_bf16_delta"])
+def test_ranked_accumulates_into_out(cuda, case):
+    """spmv_ranked(out=y) adds A @ x into y, the fix-up of a split chunk
+    too: y0 + acc, the bits of y0 plus a storing call's result, and
+    within 1e-5 of y0 plus the plain version. One count a call."""
+    make, kw = _RANKED[case]
+    mat = make()
+    lay = RankedSlabs.from_csr(mat, **kw).to(cuda)
+    assert (lay.split_seg.shape[1] >= 1) == case.startswith("long_row")
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.standard_normal(mat.n).astype(np.float32)).to(cuda)
+    y0 = torch.from_numpy(rng.standard_normal(mat.m).astype(np.float32)).to(cuda)
+    out = y0.clone()
+    before = spmv_ranked.launches
+    assert spmv_ranked(lay, x, out=out) is out
+    assert spmv_ranked.launches == before + 1
+    assert torch.equal(out, y0 + spmv_ranked(lay, x))
+    plain = y0 + spmv_ranked_reference(lay, x)
+    scale = max(1.0, float(plain.abs().max()))
+    assert float((out - plain).abs().max()) <= 1e-5 * scale
+
+
+def test_striped_kernel_matches_plain_and_replays(cuda):
+    """spmv_striped on stripes of 1024 columns, a split chunk in stripe 1
+    only: against its plain version and the oracle, one count a call
+    (spmv_ranked one a stripe), and two replays of a captured call and an
+    eager call give the same bits."""
+    mat = _wide(long_row=(5, 1024, 2048))
+    lay = StripedRanked.from_csr(mat, stripe_cols=1024, bin_blocks=2,
+                                 device=cuda)
+    assert lay.num_stripes == 8
+    assert [s.split_seg.shape[1] > 0 for s in lay.stripes[:2]] == [False, True]
+    before = spmv_ranked.launches
+    _run(spmv_striped, spmv_striped_reference, lay, mat, mat, cuda)
+    assert spmv_ranked.launches == before + 8
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        mat.n).astype(np.float32)).to(cuda)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = spmv_striped(lay, x)
+    graph.replay()
+    y1 = out.clone()
+    graph.replay()
+    expect = spmv_striped(lay, x)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, out) and torch.equal(y1, expect)
 
 
 _SELL = {

@@ -80,11 +80,28 @@ def test_suite_matrix_matches(name):
 
 def test_large_scale_is_searched_last():
     assert tmat.SCALES == ("tiny", "small", "bench", "large")
-    assert list(tmat.suite_factories("large")) == ["lap2d_4096"]
+    assert list(tmat.suite_factories("large")) == ["lap2d_4096",
+                                                   "scattered_16m"]
     for s in ("tiny", "small", "bench"):
         assert list(tmat.suite_factories(s)) == list(jmat.suite_factories(s))
     with pytest.raises(KeyError, match="lap2d_4096"):
         tmat.make("no_such_matrix")
+
+
+def test_scattered_generator_is_the_reference_scripts():
+    """scattered_wide draws what results/scattered_16m_r3.py:41-59 draws
+    (its rng, then its sort and values), here at 64 x 5000, 9 a row."""
+    m, n, per_row = 64, 5000, 9
+    rng = np.random.default_rng(0)
+    indptr = np.arange(0, m * per_row + 1, per_row, dtype=np.int64)
+    indices = rng.integers(0, n, size=m * per_row, dtype=np.int64)
+    indices = np.sort(indices.reshape(m, per_row), axis=1).reshape(-1)
+    data = rng.standard_normal(m * per_row).astype(np.float32)
+    ours = tmat.scattered_wide(m, n, per_row)
+    assert ours.shape == (m, n)
+    assert np.array_equal(ours.indptr, indptr)
+    assert np.array_equal(ours.indices, indices)
+    assert np.array_equal(ours.data, data)
 
 
 @pytest.mark.parametrize("fmt", ["mtx", "csr"])

@@ -2,10 +2,12 @@
 
 tests/conftest.py imports JAX into every test process, so the check runs
 in a fresh interpreter: it imports every tpu_spmv_torch module (and
-chip_smoke), runs the CLIs on the CPU (SpMV auto, packed and ranked with
-the residency gate forced, so the windowed route runs; SpMM, the
-triangular solve and IC(0)-PCG) and the planner on a matrix large enough
-to be sampled, and asserts that neither `jax` nor `tpu_spmv` (the JAX
+chip_smoke), runs the CLIs on the CPU (SpMV auto, packed, the baselines
+segsum, bcoo and dense, and ranked with the residency gate forced, so the
+windowed and the column-striped routes run; SpMM, the triangular solve
+and IC(0)-PCG), the flagship and scattered benches on small inputs and
+the planner on a matrix large enough to be sampled, and asserts that
+neither `jax` nor `tpu_spmv` (the JAX
 package, whose host modules the port carries copies of) was ever
 loaded. A source scan backs it up.
 """
@@ -26,16 +28,25 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 from tpu_spmv_torch.tools import solve, spmm, spmv, sts
-for argv in (["synthetic:banded_1k"], ["synthetic:banded_1k", "--kernel",
-                                       "packed"]):
+for argv in (["synthetic:banded_1k"],
+             *(["synthetic:banded_1k", "--kernel", k]
+               for k in ("packed", "segsum", "bcoo", "dense"))):
     rc = spmv.main([*argv, "--device", "cpu", "--validate-only"])
     assert rc == 0, rc
 from tpu_spmv_torch import hw
 l2, hw.H100_L2_BYTES = hw.H100_L2_BYTES, 0  # x past the residency gate
-rc = spmv.main(["synthetic:banded_1k", "--kernel", "ranked", "--device",
-                "cpu", "--validate-only"])
-assert rc == 0, rc
+for argv in (["synthetic:banded_1k", "--kernel", "ranked"],
+             ["synthetic:general_1k", "--kernel", "ranked", "--bin-blocks",
+              "4"]):
+    rc = spmv.main([*argv, "--device", "cpu", "--validate-only"])
+    assert rc == 0, rc
 hw.H100_L2_BYTES = l2
+import os
+from tpu_spmv_torch.bench import flagship, scattered_16m
+os.environ.update(TPU_SPMV_BENCH_N="16", SCAT_M="256", SCAT_N="4096",
+                  SCAT_PER_ROW="8", SCAT_STRIPE_COLS="1024")
+assert flagship.main(["--device", "cpu"]) == 0
+assert scattered_16m.main(["--device", "cpu"]) == 0
 rc = spmm.main(["synthetic:banded_1k", "--batch", "3", "--device", "cpu",
                 "--validate-only"])
 assert rc == 0, rc

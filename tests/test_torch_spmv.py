@@ -127,10 +127,6 @@ def test_plan_sampling_matches_reference():
 
 
 @pytest.mark.parametrize("args,item", [
-    (["--kernel", "striped"], "A10"),
-    (["--kernel", "segsum"], "A5"),
-    (["--kernel", "bcoo"], "A5"),
-    (["--kernel", "dense"], "A5"),
     (["--sigma", "4096"], "A6"),
     (["--layout-cache", "lay.npz"], "A7"),
 ])
@@ -138,6 +134,37 @@ def test_unported_options_are_refused(args, item):
     with pytest.raises(SystemExit) as e:
         cli.main(["synthetic:lap2d_32", *args, *CPU])
     assert f"ROADMAP.md item {item}" in str(e.value)
+
+
+@pytest.mark.parametrize("kernel,expect", [
+    ("segsum", ""),
+    ("bcoo", ""),
+    ("dense", "dense baseline: operator 3.8 MB, density 0.70%"),
+    ("striped", "column stripes: P=8"),
+])
+def test_baseline_and_striped_kernels_validate(kernel, expect, monkeypatch,
+                                               capsys):
+    """The kernels the port once refused (A5, A10) run on the CPU; the
+    striped one with no L2 to speak of, so its stripes are one block
+    (kernels/striped.default_stripe_cols), 8 of them over 1000 columns."""
+    if kernel == "striped":
+        monkeypatch.setattr(hw, "H100_L2_BYTES", 0)
+    assert cli.main(["synthetic:general_1k", "--kernel", kernel, *CPU]) == 0
+    out = capsys.readouterr().out
+    assert "Number Wrong: 0 " in out and expect in out
+
+
+def test_striped_refuses_a_matrix_of_one_stripe():
+    """At the H100's L2 a stripe is 3,276,800 columns: general_1k fits
+    one, and the CLI exits with the reference's message."""
+    with pytest.raises(SystemExit, match="<= one stripe"):
+        cli.main(["synthetic:general_1k", "--kernel", "striped", *CPU])
+
+
+def test_dense_refuses_past_its_cap():
+    """lap2d_1024's 1,048,576 rows square to past the 64M-element cap."""
+    with pytest.raises(SystemExit, match="dense baseline capped at 67108864"):
+        cli.main(["synthetic:lap2d_1024", "--kernel", "dense", *CPU])
 
 
 def test_missing_card_is_refused(monkeypatch):

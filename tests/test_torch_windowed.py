@@ -419,10 +419,18 @@ def test_spmv_cli_packed_fallback_takes_the_windowed_route(
     assert "using the HBM-windowed kernel" in out
 
 
-def test_spmv_cli_refuses_binned_layouts_past_the_gate(tiny_l2):
-    with pytest.raises(SystemExit, match="ROADMAP.md item A10"):
-        spmv_cli.main(["synthetic:general_1k", "--kernel", "ranked",
-                       "--bin-blocks", "4", *CPU])
+@pytest.mark.parametrize("vdt", ["f32", "bf16"])
+def test_spmv_cli_binned_layout_past_the_gate_takes_the_striped_route(
+        tiny_l2, vdt, capsys):
+    """A column-binned ranked layout whose x is past the gate runs the
+    column-striped passes (tpu_spmv/tools/spmv.py:256-276), in f32: bf16
+    is gated off there, and the result is held to the f32 oracle."""
+    assert spmv_cli.main(["synthetic:general_1k", "--kernel", "ranked",
+                          "--bin-blocks", "4", "--val-dtype", vdt, *CPU]) == 0
+    out = capsys.readouterr().out
+    assert "column-striped passes (P=8)" in out
+    assert ("bf16 gated off on the striped fallback" in out) == (vdt == "bf16")
+    assert "Number Wrong: 0 " in out and "bf16 values" not in out
 
 
 def test_spmv_cli_rebuilds_a_window_too_large(tiny_l2, monkeypatch, capsys):

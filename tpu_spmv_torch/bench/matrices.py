@@ -14,9 +14,12 @@ families offline:
     stresses the reorderer).
 
 The port's copy of `tpu_spmv.bench.matrices`, held equal to it by
-tests/test_torch_host.py, with one more scale, "large": lap2d_4096, the
-same Laplacian family at 16.8M rows, whose x (67 MB) exceeds the
-H100's 50 MB L2 (the x-beyond-residency path of the windowed kernels).
+tests/test_torch_host.py, with one more scale, "large", of matrices
+whose x exceeds the H100's 50 MB L2: lap2d_4096, the same Laplacian
+family at 16.8M rows (x 67 MB, the windowed kernels' path), and
+scattered_16m, the reference's own scattered datapoint
+(results/scattered_16m_r3.py: 131,072 rows, 16,777,216 columns, x 64
+MB, no band locality; the column-striped path).
 """
 
 from __future__ import annotations
@@ -181,6 +184,19 @@ def power_law(m: int, avg_nnz_per_row: float = 8, alpha: float = 1.3,
     return CSRMatrix.from_coo(all_rows, all_cols, all_vals, (m, m))
 
 
+def scattered_wide(m: int, n: int, per_row: int,
+                   seed: int = 0) -> CSRMatrix:
+    """m rows of per_row uniformly random columns in [0, n) (sorted in
+    each row, duplicates kept) with standard-normal values: the generator
+    of results/scattered_16m_r3.py:41-59, whose rng goes on to draw x."""
+    rng = np.random.default_rng(seed)
+    indptr = np.arange(0, m * per_row + 1, per_row, dtype=np.int64)
+    indices = rng.integers(0, n, size=m * per_row, dtype=np.int64)
+    indices = np.sort(indices.reshape(m, per_row), axis=1).reshape(-1)
+    data = rng.standard_normal(m * per_row).astype(np.float32)
+    return CSRMatrix(indptr, indices.astype(np.int32), data, (m, n))
+
+
 def suite_factories(scale: str = "small") -> dict:
     """Name -> zero-arg constructor for the synthetic suite (nothing is
     built until a factory is called — CLI name lookups stay cheap)."""
@@ -213,6 +229,8 @@ def suite_factories(scale: str = "small") -> dict:
     if scale == "large":
         return {
             "lap2d_4096": lambda: laplacian_2d(4096),    # 16.8M rows, 83.9M nnz
+            # 131,072 rows x 16,777,216 columns, 160 a row: 21.0M nnz
+            "scattered_16m": lambda: scattered_wide(131_072, 16_777_216, 160),
         }
     raise ValueError(f"unknown scale {scale!r}")
 

@@ -46,10 +46,10 @@ _SIGNATURES = {
     "tsp_spmv_dia": (_I, _P, _P, _I, _I, _P, _P, _LL, _LL, _P),
     # val_kind, lcol_kind, vals, lcols, sub_b0, sub_dlo, sub_dhi,
     # grp_b0, G, gmap, seg_ptr, seg_chunk, num_segments, split_seg,
-    # num_split, x, y, part, m, n, stream
+    # num_split, x, y, part, m, n, accumulate, stream
     "tsp_spmv_ranked": (
         _I, _I, _P, _P, _P, _P, _P, _P, _I, _U, _P, _P, _I, _P, _I, _P, _P,
-        _P, _LL, _LL, _P,
+        _P, _LL, _LL, _I, _P,
     ),
     # vals, cols, seg_ptr, seg_chunk, num_segments, split_seg,
     # num_split, x, y, part, m, n, stream

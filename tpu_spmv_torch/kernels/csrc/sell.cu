@@ -26,6 +26,13 @@
 // same bits on every call, and no host work between the launches, so a
 // captured graph replays the call.
 //
+// Accumulate mode (the ranked entry's `accumulate`): both launches add
+// their row into y (y[row] += acc) instead of storing it, so the passes
+// of a column-striped SpMV (kernels/striped.py) sum into one y, in stripe
+// order, with no temporary and no elementwise add. Every row of y belongs
+// to one chunk, written by one segment or by the fix-up, so each launch
+// pair adds to each row once.
+//
 // Ranked columns: col = 128 * base(s, r) + lcols[8s + r, l], with
 //   base(s, r) = sub_b0[s] + byte r of sub_dlo (r < 4) / sub_dhi (r >= 4),
 // decoded as uint32 with logical shifts (a signed shift would
@@ -144,7 +151,8 @@ __global__ void __launch_bounds__(kLanes, 8)
     segment_kernel(D d, const int* __restrict__ seg_ptr,
                    const int* __restrict__ seg_chunk,
                    const float* __restrict__ x, float* __restrict__ y,
-                   float* __restrict__ part, long long m, long long n) {
+                   float* __restrict__ part, long long m, long long n,
+                   int accumulate) {
   __shared__ __align__(16) int bases[kMaxSegSubtiles * kSublanes];
   const int seg = blockIdx.x;
   const int lane = threadIdx.x;
@@ -188,7 +196,7 @@ __global__ void __launch_bounds__(kLanes, 8)
     part[(long long)(tag & ~kSplitBit) * kLanes + lane] = acc;
   } else {
     const long long row = (long long)tag * kLanes + lane;
-    if (row < m) y[row] = acc;
+    if (row < m) y[row] = accumulate ? y[row] + acc : acc;
   }
 }
 
@@ -198,7 +206,7 @@ __global__ void __launch_bounds__(kLanes, 8)
 __global__ void __launch_bounds__(kLanes)
     split_fixup_kernel(const int* __restrict__ split_seg, int num_split,
                        const float* __restrict__ part, float* __restrict__ y,
-                       long long m) {
+                       long long m, int accumulate) {
   const int lane = threadIdx.x;
   const int c = __ldg(split_seg + blockIdx.x);
   const int p0 = __ldg(split_seg + num_split + blockIdx.x);
@@ -206,7 +214,7 @@ __global__ void __launch_bounds__(kLanes)
   float acc = 0.f;
   for (int p = p0; p < p1; ++p) acc += part[(long long)p * kLanes + lane];
   const long long row = (long long)c * kLanes + lane;
-  if (row < m) y[row] = acc;
+  if (row < m) y[row] = accumulate ? y[row] + acc : acc;
 }
 
 struct Segments {
@@ -219,15 +227,16 @@ struct Segments {
 
 template <typename D>
 int launch_walk(const D& d, const Segments& g, const void* x, void* y,
-                void* part, long long m, long long n, cudaStream_t s) {
+                void* part, long long m, long long n, int accumulate,
+                cudaStream_t s) {
   segment_kernel<D><<<(unsigned)g.num_segments, kLanes, 0, s>>>(
       d, g.seg_ptr, g.seg_chunk, static_cast<const float*>(x),
-      static_cast<float*>(y), static_cast<float*>(part), m, n);
+      static_cast<float*>(y), static_cast<float*>(part), m, n, accumulate);
   const cudaError_t rc = cudaGetLastError();
   if (rc != cudaSuccess || g.num_split == 0) return (int)rc;
   split_fixup_kernel<<<(unsigned)g.num_split, kLanes, 0, s>>>(
       g.split_seg, g.num_split, static_cast<const float*>(part),
-      static_cast<float*>(y), m);
+      static_cast<float*>(y), m, accumulate);
   return (int)cudaGetLastError();
 }
 
@@ -236,21 +245,22 @@ int launch_ranked(const void* vals, const void* lcols, const void* sub_b0,
                   const void* sub_dlo, const void* sub_dhi,
                   const void* grp_b0, int G, unsigned gmap,
                   const Segments& g, const void* x, void* y, void* part,
-                  long long m, long long n, cudaStream_t s) {
+                  long long m, long long n, int accumulate, cudaStream_t s) {
   const Ranked<V, L> d{static_cast<const V*>(vals),
                        static_cast<const L*>(lcols),
                        static_cast<const int*>(sub_b0),
                        static_cast<const unsigned*>(sub_dlo),
                        static_cast<const unsigned*>(sub_dhi),
                        static_cast<const int*>(grp_b0), G, gmap};
-  return launch_walk(d, g, x, y, part, m, n, s);
+  return launch_walk(d, g, x, y, part, m, n, accumulate, s);
 }
 
 }  // namespace
 
 // val_kind: 0 float32, 1 bfloat16. lcol_kind: 0 uint8, 1 int16, 2 int32.
 // G = 0 selects the packed-delta bases; G > 0 the grouped ones.
-// part: one row of 128 floats per segment of a split chunk.
+// part: one row of 128 floats per segment of a split chunk. accumulate:
+// 0 stores y, 1 adds into it (see the header).
 extern "C" int tsp_spmv_ranked(int val_kind, int lcol_kind, const void* vals,
                                const void* lcols, const void* sub_b0,
                                const void* sub_dlo, const void* sub_dhi,
@@ -259,14 +269,14 @@ extern "C" int tsp_spmv_ranked(int val_kind, int lcol_kind, const void* vals,
                                int num_segments, const void* split_seg,
                                int num_split, const void* x, void* y,
                                void* part, long long m, long long n,
-                               void* stream) {
+                               int accumulate, void* stream) {
   const Segments g{static_cast<const int*>(seg_ptr),
                    static_cast<const int*>(seg_chunk), num_segments,
                    static_cast<const int*>(split_seg), num_split};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define TSP_RANKED(V, L)                                                    \
   return launch_ranked<V, L>(vals, lcols, sub_b0, sub_dlo, sub_dhi, grp_b0, \
-                             G, gmap, g, x, y, part, m, n, s)
+                             G, gmap, g, x, y, part, m, n, accumulate, s)
   if (val_kind == 0 && lcol_kind == 0) TSP_RANKED(float, uint8_t);
   if (val_kind == 0 && lcol_kind == 1) TSP_RANKED(float, int16_t);
   if (val_kind == 0 && lcol_kind == 2) TSP_RANKED(float, int32_t);
@@ -287,5 +297,6 @@ extern "C" int tsp_spmv_sell(const void* vals, const void* cols,
                    static_cast<const int*>(seg_chunk), num_segments,
                    static_cast<const int*>(split_seg), num_split};
   const Sell d{static_cast<const float*>(vals), static_cast<const int*>(cols)};
-  return launch_walk(d, g, x, y, part, m, n, static_cast<cudaStream_t>(stream));
+  return launch_walk(d, g, x, y, part, m, n, 0,
+                     static_cast<cudaStream_t>(stream));
 }

@@ -21,7 +21,8 @@ spmv_ranked_windowed gives spmv_ranked's bits on one layout.
 call: a call is one device launch, or two on a layout with split chunks
 (the walk, then the fix-up that adds their segments' partial rows), and
 an SpMM through the ring walks its columns in groups of at most 8, one
-launch each.
+launch each. `spmv_ranked(layout, x, out=y)` adds A @ x into y in place
+(the accumulate mode of the walk, one pass of kernels/striped.py).
 """
 
 from __future__ import annotations
@@ -210,13 +211,20 @@ def _check_slabs(layout, what: str) -> None:
         raise ValueError(f"{what}: fewer chunks than rows need")
 
 
-def _segment_args(layout, x: torch.Tensor, what: str,
-                  batch: int = 1) -> tuple:
+def partial_rows(layout) -> int:
+    """Rows of 128 floats of the partials scratch of one call: one per
+    segment of a split chunk, G - num_chunks + K, as every other chunk
+    has one segment."""
+    return (layout.seg_chunk.numel() - layout.num_chunks
+            + layout.split_seg.shape[1])
+
+
+def _segment_args(layout, x: torch.Tensor, what: str, batch: int = 1,
+                  part: torch.Tensor | None = None) -> tuple:
     """Checks of the segment table, then the walk's arguments: seg_ptr,
     seg_chunk, the segment count G, split_seg, the split-chunk count K
-    and the partials scratch: one row of 128 x batch per segment of a
-    split chunk, G - num_chunks + K rows, as every other chunk has one
-    segment."""
+    and the partials scratch (partial_rows rows of 128 x batch floats;
+    `part`, when given, must hold at least that many)."""
     seg_ptr = getattr(layout, "seg_ptr", None)
     if seg_ptr is None:
         raise ValueError(
@@ -233,18 +241,33 @@ def _segment_args(layout, x: torch.Tensor, what: str,
             "seg_chunk (G,) and split_seg (3, K)"
         )
     K = layout.split_seg.shape[1]
-    part = torch.empty((G - layout.num_chunks + K) * LANES * batch,
-                       dtype=torch.float32, device=x.device)
+    need = partial_rows(layout) * LANES * batch
+    if part is None:
+        part = torch.empty(need, dtype=torch.float32, device=x.device)
+    elif (part.dtype != torch.float32 or part.device != x.device
+          or not part.is_contiguous() or part.numel() < need):
+        raise ValueError(f"{what}: part must be a contiguous float32 "
+                         f"scratch of at least {need} on {x.device}")
     return (seg_ptr.data_ptr(), layout.seg_chunk.data_ptr(), G,
             layout.split_seg.data_ptr(), K, part)
 
 
-def spmv_ranked(layout: RankedSlabs, x: torch.Tensor) -> torch.Tensor:
+def spmv_ranked(layout: RankedSlabs, x: torch.Tensor,
+                out: torch.Tensor | None = None,
+                part: torch.Tensor | None = None) -> torch.Tensor:
     """y = A @ x with A in rank-windowed SELL layout (grouped or not).
-    x: (n,) float32 -> y: (m,) float32."""
+    x: (n,) float32 -> y: (m,) float32. With `out` ((m,) float32), adds
+    A @ x into it and returns it. part: the split chunks' partials
+    scratch (see _segment_args), allocated when None."""
     if x.device.type == "cpu":
-        return spmv_ranked_reference(layout, x)
+        y = spmv_ranked_reference(layout, x)
+        return y if out is None else out.add_(y)
     _build.check_operands(layout, x, "spmv_ranked")
+    if out is not None and (
+            out.dtype != torch.float32 or out.shape != (layout.m,)
+            or out.device != x.device or not out.is_contiguous()):
+        raise ValueError(f"spmv_ranked: out must be a contiguous float32 "
+                         f"({layout.m},) on {x.device}")
     _check_slabs(layout, "spmv_ranked")
     if layout.vals.dtype not in _VAL_KIND:
         raise ValueError(f"spmv_ranked: unsupported vals dtype {layout.vals.dtype}")
@@ -256,8 +279,9 @@ def spmv_ranked(layout: RankedSlabs, x: torch.Tensor) -> torch.Tensor:
     if G and layout.grp_b0.numel() != layout.num_subtiles * G:
         raise ValueError("spmv_ranked: grp_b0 must hold G bases per sub-tile")
     seg_ptr, seg_chunk, nseg, split_seg, nsplit, part = _segment_args(
-        layout, x, "spmv_ranked")
-    y = torch.empty(layout.m, dtype=torch.float32, device=x.device)
+        layout, x, "spmv_ranked", part=part)
+    y = torch.empty(layout.m, dtype=torch.float32,
+                    device=x.device) if out is None else out
     if layout.m == 0:
         return y
     rc = _build.library().tsp_spmv_ranked(
@@ -267,7 +291,7 @@ def spmv_ranked(layout: RankedSlabs, x: torch.Tensor) -> torch.Tensor:
         layout.sub_dhi.data_ptr(), layout.grp_b0.data_ptr(), G,
         layout.group_code & 0xFFFFFFFF, seg_ptr, seg_chunk, nseg, split_seg,
         nsplit, x.data_ptr(), y.data_ptr(), part.data_ptr(), layout.m,
-        layout.n, _build.stream_of(x),
+        layout.n, int(out is not None), _build.stream_of(x),
     )
     _build.check(rc, "spmv_ranked")
     spmv_ranked.launches += 1

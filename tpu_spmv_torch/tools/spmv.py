@@ -10,12 +10,17 @@ versions and is accepted only with `--validate-only`.
 
 Usage:
   python -m tpu_spmv_torch.tools.spmv matrix.mtx|synthetic:NAME [num_runs]
-      [sizes ...] [--kernel auto|dia|packed|ranked|sell]
+      [sizes ...]
+      [--kernel auto|dia|packed|ranked|sell|striped|segsum|bcoo|dense]
       [--val-dtype f32|bf16]
       [--rcm auto|always|never] [--bin-blocks W] [--cold] [--validate-only]
 
 An x past the L2 residency gate (half the L2, hw.l2_bytes) takes the
-windowed DIA or ranked kernel, e.g. `synthetic:lap2d_4096` (x 67 MB).
+windowed DIA or ranked kernel, e.g. `synthetic:lap2d_4096` (x 67 MB), or,
+for a column-binned ranked layout (`--bin-blocks W`), the column-striped
+passes, e.g. `synthetic:scattered_16m --kernel ranked --bin-blocks 64`
+(x 64 MB). segsum, bcoo and dense are the baselines: library calls
+(index_add_, a sparse CSR tensor's matvec, torch.mv), not kernels.
 """
 
 from __future__ import annotations
@@ -50,12 +55,6 @@ def load_input(spec: str):
 
 # Options of the JAX CLI that the port does not run yet, and the
 # ROADMAP.md queue-A item that ports each.
-REFUSED_KERNELS = {
-    "striped": "A10 (column stripes)",
-    "segsum": "A5 (baselines)",
-    "bcoo": "A5 (baselines)",
-    "dense": "A5 (baselines)",
-}
 REFUSED_SIGMA = "A6 (planner: SELL-C-sigma row sort)"
 REFUSED_LAYOUT_CACHE = "A7 (CLIs: layout cache)"
 
@@ -130,17 +129,67 @@ def fit_window(layout, batch: int, device):
     return layout, cols
 
 
+def _striped(matrix, bin_blocks: int, device):
+    """The column-striped layout (f32 values), or SystemExit with the
+    reference's message when the matrix fits one stripe."""
+    from tpu_spmv_torch.kernels.striped import StripedRanked
+
+    try:
+        return StripedRanked.from_csr(matrix, bin_blocks=bin_blocks,
+                                      device=device)
+    except ValueError as e:
+        raise SystemExit(str(e))
+
+
+def _striped_route(matrix, bin_blocks: int, val_dtype, device):
+    """The ranked route for a column-binned layout whose x is past the
+    gate (tpu_spmv/tools/spmv.py:256-276): column-binned windows have no
+    band locality for the ring's steps, so x goes through column-stripe
+    passes, in f32."""
+    from tpu_spmv_torch.kernels.striped import spmv_striped
+
+    if val_dtype is not None:
+        print("(bf16 gated off on the striped fallback: the reference "
+              "measured it slower than f32 on its TPU; storing f32)")
+    layout = _striped(matrix, bin_blocks, device)
+    print(f"x exceeds the L2 residency budget ({x_budget(matrix.n, device)})"
+          f"; column-striped passes (P={layout.num_stripes})")
+    return layout, spmv_striped, "striped"
+
+
+def _baseline(matrix, kernel: str, device):
+    """(layout, spmv function, kernel) of a baseline library call:
+    segsum, bcoo or dense (SystemExit past the dense cap)."""
+    if kernel == "segsum":
+        from tpu_spmv_torch.kernels.segsum import SegsumLayout, spmv_segsum
+
+        return SegsumLayout.from_csr(matrix, device=device), spmv_segsum, kernel
+    if kernel == "bcoo":
+        from tpu_spmv_torch.kernels.bcoo import BCOOLayout, spmv_bcoo
+
+        return BCOOLayout.from_csr(matrix, device=device), spmv_bcoo, kernel
+    from tpu_spmv_torch.kernels.dense import DenseLayout, spmv_dense
+
+    try:
+        layout = DenseLayout.from_csr(matrix, device=device)
+    except ValueError as e:
+        raise SystemExit(str(e))
+    print(f"dense baseline: operator {layout.a.numel() * 4 / 2**20:.1f} MB, "
+          f"density {matrix.nnz / max(matrix.m * matrix.n, 1):.2%}")
+    return layout, spmv_dense, kernel
+
+
 def build_layout(matrix, kernel: str, val_dtype=None, bin_blocks: int = 0,
                  device=None):
     """(layout on `device`, spmv function, kernel actually used) for
-    kernel in dia/packed/ranked/sell; device defaults to the card
-    (hw.target_device). Routed as tpu_spmv/tools/spmv.py
-    routes them: a packed build that exceeds the packed-delta range
-    falls back to ranked, and a ranked one to sell, each saying so; past
-    the x residency gate (kernels/dia.dia_x_fits, kernels/sell.
-    resident_x_fits) dia and ranked take their windowed kernels, a
-    column-binned ranked layout is refused (its route, the striped
-    kernel, is not ported), and sell warns."""
+    kernel in dia/packed/ranked/sell/striped or a baseline (segsum, bcoo,
+    dense); device defaults to the card (hw.target_device). Routed as
+    tpu_spmv/tools/spmv.py routes them: a packed build that exceeds the
+    packed-delta range falls back to ranked, and a ranked one to sell,
+    each saying so; past the x residency gate (kernels/dia.dia_x_fits,
+    kernels/sell.resident_x_fits) dia and ranked take their windowed
+    kernels, a column-binned ranked layout takes the column-striped
+    passes (f32 values: bf16 is gated off there), and sell warns."""
     from tpu_spmv_torch import hw
     from tpu_spmv_torch.formats.dia import DiaSlabs
     from tpu_spmv_torch.formats.packed import PackedRanked
@@ -153,8 +202,17 @@ def build_layout(matrix, kernel: str, val_dtype=None, bin_blocks: int = 0,
         resident_x_fits, spmv_ranked, spmv_ranked_windowed, spmv_sell,
         window_bytes,
     )
+    from tpu_spmv_torch.kernels.striped import spmv_striped
+    from tpu_spmv_torch.tune.plan import packed_x_fits
 
     device = hw.target_device(device)
+    if kernel in ("segsum", "bcoo", "dense"):
+        return _baseline(matrix, kernel, device)
+    if kernel == "striped":
+        layout = _striped(matrix, bin_blocks if bin_blocks > 0 else 16, device)
+        print(f"column stripes: P={layout.num_stripes}, "
+              f"padding {layout.padding_ratio:.2f}x")
+        return layout, spmv_striped, "striped"
     if kernel == "packed":
         try:
             layout = PackedRanked.from_csr(
@@ -179,6 +237,10 @@ def build_layout(matrix, kernel: str, val_dtype=None, bin_blocks: int = 0,
               f"{ring.step_rows} rows, a ring of {ring.ring} floats of x, "
               f"{ring.smem} bytes of shared memory a CTA")
         return layout, spmv_dia_windowed, "dia"
+    if kernel == "ranked" and bin_blocks > 0 and not packed_x_fits(matrix):
+        # x alone is past the gate, so the built layout would be too:
+        # no ranked layout is built only to be dropped.
+        return _striped_route(matrix, bin_blocks, val_dtype, device)
     if kernel == "ranked":
         try:
             layout = RankedSlabs.from_csr(
@@ -192,13 +254,8 @@ def build_layout(matrix, kernel: str, val_dtype=None, bin_blocks: int = 0,
             if resident_x_fits(layout):
                 return layout, spmv_ranked, "ranked"
             if bin_blocks > 0:
-                raise SystemExit(
-                    f"x exceeds the L2 residency budget "
-                    f"({x_budget(matrix.n, device)}) and the column-binned "
-                    f"layout (W={bin_blocks}) has no windowed route: its "
-                    "column-striped passes are not ported to the GPU yet "
-                    f"(ROADMAP.md item {REFUSED_KERNELS['striped']})"
-                )
+                del layout
+                return _striped_route(matrix, bin_blocks, val_dtype, device)
             try:
                 layout, _ = fit_window(layout, 1, device)
             except ValueError as e:
@@ -232,7 +289,8 @@ def main(argv=None):
                     help="super-row sizes per level (k-1 of them)")
     ap.add_argument(
         "--kernel", default="auto",
-        choices=("auto", "sell", "ranked", "packed", "dia", *REFUSED_KERNELS),
+        choices=("auto", "sell", "ranked", "packed", "dia", "striped",
+                 "segsum", "bcoo", "dense"),
     )
     ap.add_argument("--k", type=int, default=None,
                     help="CSR-k depth; default 1 (plain) or len(sizes)+1")
@@ -265,11 +323,6 @@ def main(argv=None):
                     "--validate-only")
     args = ap.parse_args(argv)
 
-    if args.kernel in REFUSED_KERNELS:
-        raise SystemExit(
-            f"--kernel {args.kernel} is not ported to the GPU yet "
-            f"(ROADMAP.md item {REFUSED_KERNELS[args.kernel]})"
-        )
     if args.sigma > 0:
         raise SystemExit(
             f"--sigma is not ported to the GPU yet (ROADMAP.md item "
@@ -310,6 +363,15 @@ def main(argv=None):
     else:
         bin_blocks = max(args.bin_blocks, 0)
     vdt = torch.bfloat16 if args.val_dtype == "bf16" else None
+    if vdt is not None and kernel == "striped":
+        # The reference measured bf16 2.3x slower than f32 on its TPU's
+        # striped kernel (tpu_spmv/tools/spmv.py:188-196) and gates it
+        # off. The port keeps the gate, though on an H100 the bf16 datum
+        # of bench/scattered_16m.py runs faster than f32 (PERF.md).
+        print("--val-dtype bf16 is gated OFF for the striped kernel "
+              "(measured slower than f32 by the reference); storing f32 "
+              "values")
+        vdt = None
     if vdt is not None and kernel not in ("packed", "ranked", "dia"):
         raise SystemExit(
             "--val-dtype bf16 supports the packed/ranked/dia kernels, not "
@@ -319,12 +381,16 @@ def main(argv=None):
     layout, fn, kernel = build_layout(ck.matrix, kernel, vdt, bin_blocks,
                                       device)
     x = np.random.default_rng(0).standard_normal(mat.n).astype(np.float32)
-    xt = torch.from_numpy(x[perm]).to(device)
+    # The permutation relabels columns with rows only on a square matrix;
+    # a rectangular one is never reordered (prepare), so its x is not
+    # gathered with the m-long row permutation.
+    xt = torch.from_numpy(x[perm] if mat.m == mat.n else x).to(device)
     y = fn(layout, xt).cpu().numpy()
 
     # bf16 applies to the layout actually built (a sell fallback stores
     # f32 and is judged against the f32 oracle).
-    if layout.vals.dtype == torch.bfloat16:
+    if getattr(layout, "vals", None) is not None and (
+            layout.vals.dtype == torch.bfloat16):
         wrong, rel = validate(y, mat.rounded().matvec(x)[perm], tol=args.tol)
         y_f32 = mat.matvec(x)[perm]
         drift = np.linalg.norm(y - y_f32) / max(np.linalg.norm(y_f32), 1e-30)
