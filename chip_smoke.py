@@ -55,11 +55,17 @@ residency gate):
      stripes (padding, split chunks, launches per call), the bound of
      this design (y moved 2P - 1 times) and the host set-up seconds; its
      rows count as spmv_ranked's;
-  2. prints R, the packed-to-ranked time per walked sub-tile measured in
-     step 1 on lap2d_1024 after RCM, for SpMV and for SpMM (B = 5),
-     beside the planner's constants, and the plan auto takes on each
-     matrix for each, also on general_500k and powerlaw_1m, which the
-     reference planner sends to packed;
+  2. runs the planner's calibration (tools.tune's protocol, through
+     bench/calibration.py) on the card at CALIB_SCALE, printing its
+     points and fit (the scale-1 fit comes from step 5's tools.tune run,
+     which prints both beside the shipped entry for this card, or a line
+     saying there is none and the planner runs on its module defaults);
+     then prints tune/model.tpu_plan's plan (kernel, W, sigma,
+     cost, reason) for lap2d_1024 in natural order (which must plan dia)
+     and after RCM, banded_1m, general_500k, powerlaw_1m and
+     scattered_16m, and on lap2d_1024 after RCM and banded_1m the planned
+     layout's warm time beside the fastest of sell, ranked and packed
+     timed in step 1, and their ratio;
   3. checks both triangular-solve kernels (lower_solve_ranked and
      lower_solve_blocks) against their plain versions (RelL2 <= 1e-5)
      and a float64 forward substitution (RelL2 <= 1e-5, Number Wrong 0
@@ -92,7 +98,15 @@ residency gate):
      print "column-striped passes"), the baselines (tools.spmv
      --kernel segsum and bcoo on lap2d_1024, dense on an 8,192 x 8,192
      matrix at its cap and refused on lap2d_1024) and the flagship bench
-     (bench.flagship, whose JSON line must parse with value > 0);
+     (bench.flagship, whose JSON line must parse with value > 0); then
+     the paths of the planner and the host tools: tools.spmv --kernel
+     auto on scattered_16m without --bin-blocks (the plan's W must take
+     the striped route), --sigma -1 on powerlaw_1m and --sigma 4096 on
+     banded_1m, --layout-cache on lap2d_4096 after RCM twice (the
+     windowed ranked run above writes the cache; the second run must
+     load it and give the first run's bits), tools.sweep over
+     lap2d_256 and banded_100k x auto, ranked and sell (its CSV
+     printed), and tools.tune --calibrate --dry-run;
      it fails unless every kernel was launched on its path.
 
 It prints the card (nvidia-smi name and power limit), the toolchain, the
@@ -119,6 +133,11 @@ SOLVE_TOL = 1e-5
 # run asks for 1e-3, which IC(0)-PCG reaches in under 50 iterations.
 PCG_ITERS = 60
 PCG_TOL = 1e-3
+# The calibration phase's sample scale (tools.tune --scale), at which
+# every sample takes 50 us or more on an H100; the reference's sizes
+# (scale 1), which the card runs in 10-30 us, are measured by the
+# tools.tune --calibrate --dry-run run of the CLI phase.
+CALIB_SCALE = 8.0
 # The bound of a kernel (the least time the card could take for its
 # work): NVIDIA's data sheet for the H100 SXM at 700 W, HBM 3.35 TB/s and
 # 67 TFLOP/s in float32 outside the tensor cores.
@@ -437,7 +456,9 @@ def _spmv_replay_check(label, kernel, layout, mat, perm, batch=None):
 
 def _phases(stats):
     """The DIA, ranked and sell phases, then the packed and SpMM phases.
-    Returns the warm times R is computed from."""
+    Returns the warm times of the SpMV layouts the planner weighs on
+    lap2d_1024 after RCM and banded_1m, by (matrix, kernel, W), and
+    those two matrices as the layouts were built from them, by name."""
     import torch
 
     from tpu_spmv_torch.formats.dia import DiaSlabs
@@ -453,12 +474,12 @@ def _phases(stats):
         spmm_packed, spmm_packed_reference, spmm_ranked, spmm_ranked_reference,
     )
     from tpu_spmv_torch.tools.spmv import load_input, prepare
-    from tpu_spmv_torch.tune.plan import gpu_plan
+    from tpu_spmv_torch.tune.model import tpu_plan
 
     bf16 = torch.bfloat16
     for name in ("lap2d_1024", "varstencil_1024"):
         mat = load_input(f"synthetic:{name}")
-        plan = gpu_plan(mat)
+        plan = tpu_plan(mat)
         if plan.kernel != "dia":
             raise SmokeFailure(f"{name}: auto planned {plan.kernel}, not dia")
         ck, perm = prepare(mat, "auto")
@@ -469,9 +490,11 @@ def _phases(stats):
                           lay, mat, perm, oracle, stats,
                           csr=None if vdt else ck.matrix)
 
-    r_times = {}
+    # Warm times of the layouts the planner weighs: (matrix, kernel, W).
+    times = {}
     mat = load_input("synthetic:lap2d_1024")
     ck, perm = prepare(mat, "always")
+    times["lap2d_1024 rcm"] = ck.matrix  # the matrix the plans phase plans
     for groups in (True, False):
         lay = RankedSlabs.from_csr(ck.matrix, allow_groups=groups)
         if bool(lay.group_code) != groups:
@@ -482,7 +505,7 @@ def _phases(stats):
                           spmv_ranked_reference, lay, mat, perm, mat, stats,
                           csr=ck.matrix)
         if groups:
-            r_times["ranked"] = (t, int(lay.chunk_ptr[-1]))
+            times["lap2d_1024 rcm", "ranked", 0] = t
             # The same layout through the windowed kernel (x of 4 MB
             # passes the gate: a comparison, not a CLI route).
             label = f"lap2d_1024 rcm ranked_windowed {kind}"
@@ -493,8 +516,9 @@ def _phases(stats):
                           twin_equal=True)
     sell = SellSlabs.from_csr(ck.matrix)
     _segments("lap2d_1024 rcm sell", sell)
-    _check_kernel("lap2d_1024 rcm sell", spmv_sell, spmv_sell_reference,
-                  sell, mat, perm, mat, stats, csr=ck.matrix)
+    times["lap2d_1024 rcm", "sell", 0] = _check_kernel(
+        "lap2d_1024 rcm sell", spmv_sell, spmv_sell_reference, sell, mat,
+        perm, mat, stats, csr=ck.matrix)
     del sell
     for vdt, groups in ((None, True), (None, False), (bf16, True)):
         lay = PackedRanked.from_csr(ck.matrix, allow_groups=groups,
@@ -511,44 +535,46 @@ def _phases(stats):
                           mat.rounded() if vdt else mat, stats,
                           csr=None if vdt else ck.matrix)
         if groups and vdt is None:
-            r_times["packed"] = (t, int(lay.chunk_koff[-1]) / 8)
+            times["lap2d_1024 rcm", "packed", 0] = t
     lap_layouts = (RankedSlabs.from_csr(ck.matrix),
                    PackedRanked.from_csr(ck.matrix))
     for B in (8, 5):
         _ranked_runs(f"lap2d_1024 rcm spmm_ranked B={B}", lap_layouts[0], B)
-        t_rk = _check_kernel(f"lap2d_1024 rcm spmm_ranked B={B}", spmm_ranked,
-                             spmm_ranked_reference, lap_layouts[0], mat, perm,
-                             mat, stats, batch=B, csr=ck.matrix)
-        t_pk = _check_kernel(f"lap2d_1024 rcm spmm_packed B={B}", spmm_packed,
-                             spmm_packed_reference, lap_layouts[1], mat, perm,
-                             mat, stats, batch=B, csr=ck.matrix)
+        _check_kernel(f"lap2d_1024 rcm spmm_ranked B={B}", spmm_ranked,
+                      spmm_ranked_reference, lap_layouts[0], mat, perm, mat,
+                      stats, batch=B, csr=ck.matrix)
+        _check_kernel(f"lap2d_1024 rcm spmm_packed B={B}", spmm_packed,
+                      spmm_packed_reference, lap_layouts[1], mat, perm, mat,
+                      stats, batch=B, csr=ck.matrix)
     _spmv_replay_check("lap2d_1024 rcm packed", spmv_packed, lap_layouts[1],
                        mat, perm)
     _spmv_replay_check("lap2d_1024 rcm spmm_packed B=8", spmm_packed,
                        lap_layouts[1], mat, perm, batch=8)
     _spmv_replay_check("lap2d_1024 rcm spmm_ranked B=8", spmm_ranked,
                        lap_layouts[0], mat, perm, batch=8)
-    r_times["spmm ranked"] = (t_rk, r_times["ranked"][1])
-    r_times["spmm packed"] = (t_pk, r_times["packed"][1])
     del lap_layouts
 
     mat = load_input("synthetic:banded_1m")
     ck, perm = prepare(mat, "auto")
+    times["banded_1m"] = ck.matrix
     ranked = RankedSlabs.from_csr(ck.matrix)
     _segments(f"banded_1m ranked grouped G={ranked.num_groups}", ranked)
-    _check_kernel("banded_1m ranked", spmv_ranked, spmv_ranked_reference,
-                  ranked, mat, perm, mat, stats, csr=ck.matrix)
+    times["banded_1m", "ranked", 0] = _check_kernel(
+        "banded_1m ranked", spmv_ranked, spmv_ranked_reference, ranked, mat,
+        perm, mat, stats, csr=ck.matrix)
     _spmv_replay_check("banded_1m ranked", spmv_ranked, ranked, mat, perm)
     sell = SellSlabs.from_csr(ck.matrix)
     _segments("banded_1m sell", sell)
-    _check_kernel("banded_1m sell", spmv_sell, spmv_sell_reference,
-                  sell, mat, perm, mat, stats, csr=ck.matrix)
+    times["banded_1m", "sell", 0] = _check_kernel(
+        "banded_1m sell", spmv_sell, spmv_sell_reference, sell, mat, perm,
+        mat, stats, csr=ck.matrix)
     _spmv_replay_check("banded_1m sell", spmv_sell, sell, mat, perm)
     del sell
     packed = PackedRanked.from_csr(ck.matrix)
     _segments(f"banded_1m packed grouped G={packed.num_groups}", packed)
-    _check_kernel("banded_1m packed", spmv_packed, spmv_packed_reference,
-                  packed, mat, perm, mat, stats, csr=ck.matrix)
+    times["banded_1m", "packed", 0] = _check_kernel(
+        "banded_1m packed", spmv_packed, spmv_packed_reference, packed, mat,
+        perm, mat, stats, csr=ck.matrix)
     _spmv_replay_check("banded_1m packed", spmv_packed, packed, mat, perm)
     binned = None
     for w in (4, 2, 1):
@@ -559,8 +585,9 @@ def _phases(stats):
             print(f"banded_1m packed W={w}: {e}", flush=True)
     if binned is None:
         raise SmokeFailure("banded_1m: no column-binned packed layout builds")
-    _check_kernel(f"banded_1m packed binned W={w}", spmv_packed,
-                  spmv_packed_reference, binned, mat, perm, mat, stats)
+    times["banded_1m", "packed", w] = _check_kernel(
+        f"banded_1m packed binned W={w}", spmv_packed, spmv_packed_reference,
+        binned, mat, perm, mat, stats)
     del binned
     for B in (8, 5):
         _ranked_runs(f"banded_1m spmm_ranked B={B}", ranked, B)
@@ -584,7 +611,7 @@ def _phases(stats):
                   stats, twin=spmv_ranked, csr=ck.matrix, twin_equal=True)
     _spmv_replay_check("banded_1m ranked_windowed", spmv_ranked_windowed,
                        ranked, mat, perm)
-    return r_times
+    return times
 
 
 def _windowed_phases(stats):
@@ -701,14 +728,14 @@ def _striped_phases(stats):
         spmv_striped_reference,
     )
     from tpu_spmv_torch.tools.spmv import load_input
-    from tpu_spmv_torch.tune.plan import packed_x_fits
+    from tpu_spmv_torch.tune.model import _packed_x_fits
 
     dev = torch.device("cuda")
     setup = {}
     t0 = time.perf_counter()
     mat = load_input("synthetic:scattered_16m")
     setup["generate"] = time.perf_counter() - t0
-    if packed_x_fits(mat):
+    if _packed_x_fits(mat, 1):
         raise SmokeFailure("scattered_16m: x passes the residency gate")
     t0 = time.perf_counter()
     w, sample_pad = pick_bin_blocks(mat)
@@ -1078,33 +1105,74 @@ def _ic0_phases():
         del pre, lay, graph, state
 
 
-def _plans(r_times):
-    """R measured in this run, for SpMV and for SpMM (B = 5), beside the
-    planner's constants, and the plan auto takes on each matrix for
-    each (the sampled sub-tile counts are in the plan's reason)."""
-    from tpu_spmv_torch.tools.spmv import load_input, prepare
-    from tpu_spmv_torch.tune import plan
+def _calibration():
+    """tools.tune's protocol on the card at CALIB_SCALE
+    (bench/calibration.calibrate: the points and the fit). Returns the
+    fit; the scale-1 fit comes from the CLI phase's tools.tune run, and
+    both are printed there beside the shipped entry. A step that fails
+    raises: nothing is caught."""
+    from tpu_spmv_torch.bench.calibration import calibrate
 
-    for op, const in (("", "PACKED_OVER_RANKED"),
-                      ("spmm ", "SPMM_PACKED_OVER_RANKED")):
-        (t_pk, s_pk), (t_rk, s_rk) = (r_times[op + "packed"],
-                                      r_times[op + "ranked"])
-        r = (t_pk / s_pk) / (t_rk / s_rk)
-        print(f"R {op or 'spmv '}(packed/ranked warm time per walked "
-              f"sub-tile, lap2d_1024 rcm, grouped{', B=5' if op else ''}): "
-              f"{r:.3f} = ({t_pk * 1e6:.2f} us / {s_pk:.0f}) / "
-              f"({t_rk * 1e6:.2f} us / {s_rk}); plan.py {const} = "
-              f"{getattr(plan, const)}", flush=True)
+    return calibrate((CALIB_SCALE,), "cuda")[CALIB_SCALE][1]
+
+
+def _plans(times):
+    """tpu_plan (kernel, W, sigma, est_cost, reason) on lap2d_1024 in
+    natural order and after RCM, banded_1m, general_500k, powerlaw_1m and
+    scattered_16m, under the card's calibration (the shipped entry); on
+    lap2d_1024 after RCM and banded_1m, where the kernel phases timed
+    sell, ranked and packed, the planned layout's warm time beside the
+    fastest of those and their ratio (a planned layout the phases did not
+    time is built and timed here; the plan is of the unsorted matrix).
+    Fails unless lap2d_1024 in natural order plans dia."""
+    import numpy as np
+    import torch
+
+    from tpu_spmv_torch.bench.harness import bench_spmv
+    from tpu_spmv_torch.formats.packed import PackedRanked
+    from tpu_spmv_torch.formats.sell import RankedSlabs, SellSlabs
+    from tpu_spmv_torch.kernels.packed import spmv_packed
+    from tpu_spmv_torch.kernels.sell import spmv_ranked, spmv_sell
+    from tpu_spmv_torch.tools.spmv import load_input, prepare
+    from tpu_spmv_torch.tune.model import tpu_plan
+
+    builds = {"sell": (spmv_sell, SellSlabs.from_csr),
+              "ranked": (spmv_ranked, RankedSlabs.from_csr),
+              "packed": (spmv_packed, PackedRanked.from_csr)}
+    timed = {"lap2d_1024 always": "lap2d_1024 rcm", "banded_1m auto":
+             "banded_1m"}
     for name, rcm in (("lap2d_1024", "auto"), ("lap2d_1024", "always"),
                       ("banded_1m", "auto"), ("general_500k", "auto"),
-                      ("powerlaw_1m", "auto")):
-        ck, _ = prepare(load_input(f"synthetic:{name}"), rcm)
-        for spmm in (False, True):
-            p = plan.gpu_plan(ck.matrix, assume_rcm=rcm == "always",
-                              spmm=spmm)
-            print(f"auto plan on {name} (rcm {rcm}) for "
-                  f"{'SpMM' if spmm else 'SpMV'}: {p.kernel} ({p.reason})",
-                  flush=True)
+                      ("powerlaw_1m", "auto"), ("scattered_16m", "auto")):
+        tag = timed.get(f"{name} {rcm}")
+        mat = (times[tag] if tag else
+               prepare(load_input(f"synthetic:{name}"), rcm)[0].matrix)
+        t0 = time.perf_counter()
+        p = tpu_plan(mat, assume_rcm=rcm == "always")
+        print(f"plan on {name} (rcm {rcm}): {p.kernel} W={p.bin_blocks} "
+              f"sigma={p.sigma} est_cost {p.est_cost:.0f} ({p.reason}); "
+              f"planner {time.perf_counter() - t0:.2f} s", flush=True)
+        if (name, rcm) == ("lap2d_1024", "auto") and p.kernel != "dia":
+            raise SmokeFailure(f"lap2d_1024 natural order planned {p.kernel}, "
+                               "not dia")
+        if tag is None:
+            continue
+        key = (tag, p.kernel, p.bin_blocks)
+        if key not in times:
+            fn, build = builds[p.kernel]
+            lay = build(mat, bin_blocks=p.bin_blocks).to("cuda")
+            x = torch.from_numpy(np.random.default_rng(X_SEED).standard_normal(
+                mat.n).astype(np.float32)).to("cuda")
+            times[key] = bench_spmv(fn, lay, x).time_min
+            del lay
+        timed_keys = [k for k in times if isinstance(k, tuple) and k[0] == tag]
+        best = min(timed_keys, key=times.get)
+        print(f"    planned {p.kernel} W={p.bin_blocks}: warm "
+              f"{times[key] * 1e6:.2f} us; fastest timed {best[1]} "
+              f"W={best[2]}: {times[best] * 1e6:.2f} us; planned / fastest "
+              f"{times[key] / times[best]:.3f} (timed: " + ", ".join(
+                  f"{k[1]} W={k[2]} {times[k] * 1e6:.2f}"
+                  for k in sorted(timed_keys)) + ")", flush=True)
 
 
 def _drive(steps):
@@ -1179,6 +1247,37 @@ def _cli_refusal(cli, argv, expect):
                 return
         raise SmokeFailure(f"{cli.__name__}.main({argv}) was not refused "
                            f"with {expect!r}")
+    return run
+
+
+def _cli_first_output(cli, argv, module, name, outputs, expect=""):
+    """A _drive step: cli.main(argv) (must return 0, print Number Wrong 0
+    and `expect`) with module.name wrapped so that the first result it
+    returns (the CLI's validation call) is kept, bits and all, in
+    outputs[argv-tuple]; the wrapped kernel counts its launches as
+    before."""
+    def run():
+        kernel = getattr(module, name)
+        seen = []
+
+        def first(*args, **kw):
+            y = kernel(*args, **kw)
+            if not seen:
+                seen.append(y.detach().clone())
+            return y
+
+        # The wrapper stands in for the kernel's module attribute, which
+        # the wrapper's own launch count is read from.
+        first.launches = kernel.launches
+        setattr(module, name, first)
+        try:
+            _cli_run(cli, argv, expect)()
+        finally:
+            kernel.launches = first.launches
+            setattr(module, name, kernel)
+        if not seen:
+            raise SmokeFailure(f"{name} never ran in {argv}")
+        outputs[tuple(argv)] = seen[0]
     return run
 
 
@@ -1258,13 +1357,115 @@ def _striped_and_baselines(bin_blocks):
     return striped_path, baselines, flag_path
 
 
-def _main_path(bin_blocks):
+def _planner_paths(cache, outputs, bin_blocks, calib):
+    """Launch counts of the paths this slice added, each driven with the
+    counters zeroed: tools.spmv --kernel auto on scattered_16m without
+    --bin-blocks (the plan's W, which must take the striped route),
+    --sigma -1 on powerlaw_1m and a forced --sigma 4096 on banded_1m,
+    the second --layout-cache run on lap2d_4096 after RCM (the first is
+    the windowed ranked run of _main_path: this one must load the cache
+    and give its bits), tools.sweep over two matrices x three kernels
+    (its CSV printed), and tools.tune --calibrate --dry-run
+    (then both calibration fits beside the shipped entry)."""
+    import os
+
+    import torch
+
+    from tpu_spmv_torch import hw
+    from tpu_spmv_torch.bench.calibration import shipped_entry
+    from tpu_spmv_torch.kernels import sell
+    from tpu_spmv_torch.tools import spmv as spmv_cli
+    from tpu_spmv_torch.tools import sweep as sweep_cli
+    from tpu_spmv_torch.tools import tune as tune_cli
+
+    def scattered_auto():
+        import re
+
+        argv = ["synthetic:scattered_16m", "20"]
+        rc, out = _captured(f"tools.spmv.main({argv})",
+                            lambda: spmv_cli.main(argv))
+        w = re.search(r"planner bin width: W=(\d+)", out)
+        t = re.search(r"TimeMin: (\S+)", out)
+        if rc != 0 or "Number Wrong: 0 " not in out or w is None or (
+                "column-striped passes" not in out):
+            raise SmokeFailure(f"tools.spmv {argv}: rc {rc}, expected the "
+                               "plan's W and the striped route")
+        print(f"scattered_16m --kernel auto: the plan's W={w.group(1)}, "
+              f"route striped, warm TimeMin {float(t.group(1)) * 1e6:.2f} "
+              f"us (the striped CLI run above: W={bin_blocks} picked by "
+              "padding on a row sample)", flush=True)
+
+    auto = _drive((scattered_auto,))
+    sigma = _drive((
+        _cli_run(spmv_cli, ["synthetic:powerlaw_1m", "20", "--sigma", "-1"]),
+        _cli_run(spmv_cli, ["synthetic:banded_1m", "20", "--sigma", "4096"],
+                 "sigma=4096 row sort applied"),
+    ))
+    argv = _cache_argv(cache)
+    first = outputs[tuple(argv)]
+    loaded = _drive((_cli_first_output(spmv_cli, argv, sell,
+                                       "spmv_ranked_windowed", outputs,
+                                       "loaded layout from"),))
+    second = outputs[tuple(argv)]
+    if not torch.equal(first, second):
+        raise SmokeFailure("lap2d_4096: the cached layout's y differs from "
+                           "the built layout's")
+    print(f"lap2d_4096 rcm: the loaded layout gives the built layout's bits "
+          f"({first.numel()} values)", flush=True)
+    csv_path = os.path.join(os.path.dirname(cache), "sweep.csv")
+    sweep = _drive(((sweep_cli, [
+        "--out", csv_path, "--scale", "small", "--matrices", "lap2d_256",
+        "banded_100k", "--kernels", "auto", "ranked", "sell", "--k", "1",
+        "--srs", "8", "--rcm", "auto"]),))
+    with open(csv_path) as f:
+        rows = f.read().splitlines()
+    print(f"sweep: {len(rows) - 1} rows in {csv_path}", flush=True)
+    for row in rows:
+        print(f"    {row}", flush=True)
+    if len(rows) != 7 or any(r.split(",")[11] != "0" for r in rows[1:]):
+        raise SmokeFailure(f"tools.sweep: expected 6 rows with Number Wrong "
+                           f"0, got {rows}")
+    def calibrate():
+        rc, out = _captured("tools.tune.main(['--calibrate', '--dry-run'])",
+                            lambda: tune_cli.main(["--calibrate",
+                                                   "--dry-run"]))
+        fit = json.loads(out.strip().splitlines()[-1])
+        if rc != 0 or list(fit) != [hw.device_kind()]:
+            raise SmokeFailure(f"tools.tune: rc {rc}, last line {fit}")
+        shipped = shipped_entry()
+        print(f"calibration fits on {hw.device_kind()}: scale 1 (the run "
+              f"above) {json.dumps(fit[hw.device_kind()])} | scale "
+              f"{CALIB_SCALE} (the calibration phase) {json.dumps(calib)} | "
+              + (f"shipped {json.dumps(shipped)}" if shipped else
+                 "no shipped entry: the planner runs on the module defaults "
+                 "(the reference's TPU v5e constants)"), flush=True)
+
+    tune = _drive((calibrate,))
+    return dict(auto=auto, sigma=sigma, loaded=loaded, sweep=sweep,
+                tune=tune)
+
+
+def _cache_argv(cache):
+    """The tools.spmv argv of both --layout-cache runs on lap2d_4096."""
+    return ["synthetic:lap2d_4096", "20", "--kernel", "ranked", "--rcm",
+            "always", "--bin-blocks", "0", "--layout-cache", cache]
+
+
+def _main_path(bin_blocks, calib):
     """Launch counts of each kernel over its own path's run. W: the bin
-    width of the striped route's run."""
+    width of the striped route's run; calib: the calibration phase's
+    fit."""
+    import tempfile
+
+    from tpu_spmv_torch.kernels import sell
     from tpu_spmv_torch.tools import solve as solve_cli
     from tpu_spmv_torch.tools import spmm as spmm_cli
     from tpu_spmv_torch.tools import spmv as spmv_cli
     from tpu_spmv_torch.tools import sts as sts_cli
+
+    tmp = tempfile.TemporaryDirectory()
+    cache = f"{tmp.name}/lap2d_4096_rcm.npz"
+    outputs = {}
 
     spmv_path = _drive((
         (spmv_cli, ["synthetic:lap2d_1024", "20"]),
@@ -1284,8 +1485,9 @@ def _main_path(bin_blocks):
         (spmm_cli, ["synthetic:lap2d_1024", "20", "--batch", "5", "--kernel",
                     "windowed", "--rcm", "always"]),
         (spmv_cli, ["synthetic:lap2d_4096", "20"]),
-        (spmv_cli, ["synthetic:lap2d_4096", "20", "--kernel", "ranked",
-                    "--rcm", "always"]),
+        _cli_first_output(spmv_cli, _cache_argv(cache), sell,
+                          "spmv_ranked_windowed", outputs,
+                          "saved layout to"),
     ))
     sts_path = _drive((
         (sts_cli, ["synthetic:lap2d_1024", "5"]),
@@ -1297,6 +1499,8 @@ def _main_path(bin_blocks):
     ))
     library = _library_blocks()
     striped_path, baselines, flag_path = _striped_and_baselines(bin_blocks)
+    with tmp:
+        planner = _planner_paths(cache, outputs, bin_blocks, calib)
     counts = dict(spmv_path,
                   lower_solve_ranked=sts_path["lower_solve_ranked"],
                   lower_solve_blocks=library["lower_solve_blocks"])
@@ -1305,12 +1509,22 @@ def _main_path(bin_blocks):
     print(f"launches: SpMV/SpMM CLIs {spmv_path} | solve CLIs {sts_path} | "
           f"library lower_solve(ranked=False) {library} | striped CLI "
           f"{striped_path} | baseline CLIs {baselines} | flagship "
-          f"{flag_path}", flush=True)
+          f"{flag_path} | " + " | ".join(
+              f"{k} {v}" for k, v in planner.items()), flush=True)
     missing = [k for k, v in counts.items() if v < 1]
     missing += [f"{k} (striped CLI)" for k in ("spmv_ranked", "spmv_striped")
                 if striped_path[k] < 1]
     missing += [f"{k} (flagship)" for k in ("spmv_dia", "spmv_packed")
                 if flag_path[k] < 1]
+    missing += [f"{k} (auto on scattered_16m)" for k in (
+        "spmv_ranked", "spmv_striped") if planner["auto"][k] < 1]
+    missing += [f"{k} (cached layout)" for k in ("spmv_ranked_windowed",)
+                if planner["loaded"][k] < 1]
+    missing += [f"{k} (calibration)" for k in (
+        "spmv_sell", "spmv_ranked", "spmv_packed") if planner["tune"][k] < 1]
+    missing += ["any kernel (sigma runs)"] * (sum(planner["sigma"].values())
+                                              < 2)
+    missing += ["any kernel (sweep)"] * (sum(planner["sweep"].values()) < 4)
     if missing:
         raise SmokeFailure(f"main path never launched {missing}: {counts}")
     return counts
@@ -1392,7 +1606,7 @@ def main() -> int:
     stats = {}
     try:
         t0 = time.perf_counter()
-        r_times = _phases(stats)
+        times = _phases(stats)
         print(f"kernel phases: wall {time.perf_counter() - t0:.1f} s",
               flush=True)
         t0 = time.perf_counter()
@@ -1404,7 +1618,11 @@ def main() -> int:
         print(f"striped phases: wall {time.perf_counter() - t0:.1f} s",
               flush=True)
         t0 = time.perf_counter()
-        _plans(r_times)
+        calib = _calibration()
+        print(f"calibration: wall {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        t0 = time.perf_counter()
+        _plans(times)
         print(f"plans: wall {time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
         _solve_phases(stats)
@@ -1415,7 +1633,7 @@ def main() -> int:
         print(f"ic0 phases: wall {time.perf_counter() - t0:.1f} s",
               flush=True)
         t0 = time.perf_counter()
-        counts = _main_path(bin_blocks)
+        counts = _main_path(bin_blocks, calib)
         print(f"CLI runs: wall {time.perf_counter() - t0:.1f} s", flush=True)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

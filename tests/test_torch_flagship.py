@@ -18,7 +18,7 @@ from tpu_spmv.tune.model import tpu_plan
 from tpu_spmv_torch.bench import flagship
 from tpu_spmv_torch.bench.matrices import laplacian_2d
 from tpu_spmv_torch.reorder import rcm
-from tpu_spmv_torch.tune.plan import gpu_plan
+from tpu_spmv_torch.tune.model import tpu_plan as port_tpu_plan
 
 N = 32
 
@@ -29,7 +29,10 @@ def test_flagship_validates_every_candidate_and_baseline(monkeypatch,
     assert flagship.main(["--device", "cpu"]) == 0
     out, err = capsys.readouterr()
     assert out == ""  # no JSON line: a CPU time is not the card's
-    for name in ("packed+bf16 candidate", "dia candidate",
+    mat_raw = laplacian_2d(N)
+    mat = mat_raw.permuted(rcm(mat_raw.indptr, mat_raw.indices))
+    plan = port_tpu_plan(mat, assume_rcm=True).kernel
+    for name in (f"{plan}+bf16 candidate", "dia candidate",
                  "dia+bf16 candidate", "baselines: segsum"):
         assert name in err
     assert "GFLOP/s" not in err
@@ -38,7 +41,7 @@ def test_flagship_validates_every_candidate_and_baseline(monkeypatch,
 def test_flagship_candidates_are_bench_pys():
     mat_raw = laplacian_2d(N)
     mat = mat_raw.permuted(rcm(mat_raw.indptr, mat_raw.indices))
-    plan = gpu_plan(mat, assume_rcm=True).kernel
+    plan = port_tpu_plan(mat, assume_rcm=True).kernel
     report = flagship.run(N, "cpu")
     names = [name for name, _, _ in report["checked"]]
     after_rcm = [plan] + (["packed"] if plan != "packed" else []) + [
@@ -50,7 +53,7 @@ def test_flagship_candidates_are_bench_pys():
     assert report["json"] is None
     # Both planners send the natural order to DIA, as bench.py's sequence
     # needs for its DIA candidates.
-    assert gpu_plan(mat_raw).kernel == "dia"
+    assert port_tpu_plan(mat_raw).kernel == "dia"
     assert tpu_plan(jax_laplacian_2d(N), assume_rcm=False).kernel == "dia"
 
 

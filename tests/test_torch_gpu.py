@@ -943,3 +943,41 @@ def test_ic0_apply_and_pcg_on_card(cuda):
     # 0.17 after 10 iterations, 6e-5 after 30 (plain versions, CPU).
     resid = np.linalg.norm(mat.matvec(x) - 1.0) / np.sqrt(mat.m)
     assert resid < 1e-3
+
+
+def test_calibration_measures_on_card(cuda):
+    """tools.tune's protocol on the card at a small scale: every constant
+    measured, at or above its floor, and the shipped table's entry for
+    this card (if it has one) holds the same five constants."""
+    import json
+
+    from tpu_spmv_torch.tools import tune
+
+    points = tune.measure_points(scale=0.25, device="cuda")
+    assert len(points["ranked"]) == 4 and points["unit"] > 0
+    consts = tune.fit(points)
+    assert consts["ranked_fixed"] >= 0.1 and consts["pair_cost"] >= 0.05
+    assert consts["packed_over"] >= 0.1 and consts["epi_cost"] >= 0.0
+    with open(hw.SHIPPED_CALIB) as f:
+        entry = json.load(f).get(hw.device_kind())
+    if entry is not None:
+        assert set(entry) == set(consts)
+
+
+@pytest.mark.parametrize("kind", ["sell", "ranked", "packed"])
+def test_cached_layout_gives_the_built_layouts_bits(cuda, kind, tmp_path):
+    """A layout saved and loaded (formats/sell.save_layout, load_layout)
+    gives the bits of the layout it was saved from, on the card."""
+    from tpu_spmv_torch.formats.sell import load_layout
+
+    mat = _rcm(random_banded(20_000, 300, 12, seed=3))
+    cls, fn = {"sell": (SellSlabs, spmv_sell),
+               "ranked": (RankedSlabs, spmv_ranked),
+               "packed": (PackedRanked, spmv_packed)}[kind]
+    built = cls.from_csr(mat)
+    path = tmp_path / "lay.npz"
+    built.save(path, matrix=mat, config=(0, 0, 1))
+    loaded = load_layout(path, matrix=mat, config=(0, 0, 1))
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        mat.n).astype(np.float32)).to(cuda)
+    assert torch.equal(fn(built.to(cuda), x), fn(loaded.to(cuda), x))

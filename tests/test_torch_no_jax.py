@@ -5,8 +5,10 @@ in a fresh interpreter: it imports every tpu_spmv_torch module (and
 chip_smoke), runs the CLIs on the CPU (SpMV auto, packed, the baselines
 segsum, bcoo and dense, and ranked with the residency gate forced, so the
 windowed and the column-striped routes run; SpMM, the triangular solve
-and IC(0)-PCG), the flagship and scattered benches on small inputs and
-the planner on a matrix large enough to be sampled, and asserts that
+and IC(0)-PCG), the flagship and scattered benches on small inputs, the
+planner on a matrix large enough to be sampled, the calibration
+protocol, the SpMV CLI's sigma sort and layout cache, the sweep and
+analyze, and asserts that
 neither `jax` nor `tpu_spmv` (the JAX
 package, whose host modules the port carries copies of) was ever
 loaded. A source scan backs it up.
@@ -55,8 +57,27 @@ assert rc == 0, rc
 rc = solve.main(["synthetic:banded_1k", "--iters", "25", "--precond", "ic0",
                  "--devices", "1", "--device", "cpu"])
 assert rc == 0, rc
-from tpu_spmv_torch.tune.plan import gpu_plan
-gpu_plan(spmv.load_input("synthetic:banded_100k"))  # samples 256 chunks
+from tpu_spmv_torch.tune.model import tpu_plan
+tpu_plan(spmv.load_input("synthetic:banded_100k"))  # samples 256 chunks
+import tempfile
+from tpu_spmv_torch import config
+from tpu_spmv_torch.tools import analyze, sweep, tune
+assert tune.measure(scale=0.02, device="cpu")
+with tempfile.TemporaryDirectory() as tmp:
+    cache = os.path.join(tmp, "lay.npz")
+    for _ in range(2):  # writes, then loads the layout cache
+        rc = spmv.main(["synthetic:powerlaw_100k", "--sigma", "-1",
+                        "--layout-cache", cache, "--device", "cpu",
+                        "--validate-only"])
+        assert rc == 0, rc
+    rc = sweep.main(["--out", os.path.join(tmp, "s.csv"), "--matrices",
+                     "lap2d_32", "banded_1k", "--scale", "tiny", "--kernels",
+                     "auto", "ranked", "--k", "1", "--srs", "8", "--device",
+                     "cpu"])
+    assert rc == 0, rc
+assert analyze.format_overheads(spmv.load_input("synthetic:banded_1k"), 2,
+                                (8,))["ranked"] > 0
+assert config.RunConfig().k == 2
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax",
                                                               "tpu_spmv"))
 assert not loaded, loaded

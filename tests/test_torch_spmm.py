@@ -28,7 +28,7 @@ from tpu_spmv_torch.formats.packed import PackedRanked
 from tpu_spmv_torch.formats.sell import RankedSlabs
 from tpu_spmv_torch.kernels.spmm import spmm_packed, spmm_ranked
 from tpu_spmv_torch.tools import spmm as cli
-from tpu_spmv_torch.tune import plan
+from tpu_spmv_torch.tune import model
 
 MATRICES = {
     "lap2d_37": lambda: laplacian_2d(37),
@@ -97,42 +97,25 @@ def test_cli_validates(spec, capsys):
     assert "Number Wrong: 0 " in out
 
 
-def test_cli_follows_the_plan(monkeypatch, capsys):
-    """auto takes packed when the planner picks it and ranked otherwise;
-    resident is always ranked; bf16 is validated against the rounded
-    operator."""
+def test_cli_follows_the_plan(monkeypatch, tmp_path, capsys):
+    """auto takes packed when the planner picks it (a low calibrated
+    packed surcharge) and ranked otherwise; resident is always ranked;
+    bf16 is validated against the rounded operator."""
+    from test_torch_plan import pin_calibration
+
     args = ["synthetic:banded_1k", "--batch", "2", *CPU]
-    monkeypatch.setattr(plan, "SPMM_PACKED_OVER_RANKED", 0.5)
+    pin_calibration(monkeypatch, tmp_path, {"packed_over": 0.1})
+    assert model.tpu_plan(cli.load_input("synthetic:banded_1k"),
+                          assume_rcm=True).kernel == "packed"
     assert cli.main(args) == 0
     assert "auto kernel: packed" in capsys.readouterr().out
     assert cli.main([*args, "--kernel", "resident", "--val-dtype",
                      "bf16"]) == 0
     out = capsys.readouterr().out
     assert "auto kernel" not in out and "bf16 values" in out
-    monkeypatch.setattr(plan, "SPMM_PACKED_OVER_RANKED", 4.0)
+    pin_calibration(monkeypatch, tmp_path, {"packed_over": 100.0})
     assert cli.main(args) == 0
     assert "auto kernel: resident (ranked" in capsys.readouterr().out
-
-
-def test_spmm_plan_weighs_its_own_ratio(capsys, monkeypatch):
-    """On a 5-point stencil after RCM (ranked walks 1.6x packed's
-    sub-tiles) the measured ratios, both below 1.6 since the packed
-    kernels walk their segment and run tables, send SpMV and SpMM to
-    packed; each operation weighs its own ratio (a SpMV ratio above 1.6
-    sends SpMV to ranked and leaves SpMM on packed), and the CLI's auto
-    takes spmm_packed there."""
-    mat = laplacian_2d(64)
-    mat = mat.permuted(rcm(mat.indptr, mat.indices))
-    assert max(plan.SPMM_PACKED_OVER_RANKED, plan.PACKED_OVER_RANKED) < 1.6
-    assert plan.gpu_plan(mat, assume_rcm=True).kernel == "packed"
-    assert plan.gpu_plan(mat, assume_rcm=True, spmm=True).kernel == "packed"
-    monkeypatch.setattr(plan, "PACKED_OVER_RANKED", 1.7)
-    assert plan.gpu_plan(mat, assume_rcm=True).kernel == "ranked"
-    assert plan.gpu_plan(mat, assume_rcm=True, spmm=True).kernel == "packed"
-    assert cli.main(["synthetic:lap2d_256", "3", "--batch", "5", "--rcm",
-                     "always", *CPU]) == 0
-    out = capsys.readouterr().out
-    assert "auto kernel: packed" in out and "Number Wrong: 0 " in out
 
 
 @pytest.mark.parametrize("spec", ["lap2d_32", "banded_1k"])

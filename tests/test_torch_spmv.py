@@ -22,7 +22,7 @@ from tpu_spmv_torch.bench.harness import bench_spmv, validate
 from tpu_spmv_torch.formats.dia import DiaSlabs
 from tpu_spmv_torch.kernels.dia import spmv_dia
 from tpu_spmv_torch.tools import spmv as cli
-from tpu_spmv_torch.tune.plan import gpu_plan
+from tpu_spmv_torch.tune.model import tpu_plan
 
 CPU = ["--device", "cpu", "--validate-only"]
 
@@ -33,12 +33,13 @@ CPU = ["--device", "cpu", "--validate-only"]
     ("lap2d_32", ["--kernel", "dia", "--val-dtype", "bf16"], "bf16 values"),
     ("lap2d_32", ["--kernel", "ranked"], ""),
     ("lap2d_32", ["--kernel", "sell"], ""),
-    ("banded_1k", [], "auto kernel: ranked"),
+    ("banded_1k", [], "auto kernel: packed"),
     ("banded_1k", ["--kernel", "ranked", "--val-dtype", "bf16"], "bf16 values"),
     ("banded_1k", ["--kernel", "sell"], ""),
-    ("general_1k", [], "RCM applied"),
-    ("general_1k", ["--kernel", "ranked", "--bin-blocks", "4"], "RCM applied"),
-    ("general_1k", ["--kernel", "sell"], "RCM applied"),
+    ("general_1k", [], "auto kernel: packed"),
+    ("general_1k", ["--kernel", "ranked", "--bin-blocks", "4"],
+     "sigma=4096 row sort applied"),
+    ("general_1k", ["--kernel", "sell"], "sigma=4096 row sort applied"),
 ])
 def test_cli_validates(spec, args, expect, capsys):
     rc = cli.main([f"synthetic:{spec}", "3", *args, *CPU])
@@ -78,61 +79,75 @@ def test_slice_matches_jax_pipeline(spec, kernel):
         assert wrong == 0 and rel <= 1e-6
 
 
-def test_planner_choices():
+def test_planner_choices(monkeypatch, tmp_path):
+    """tpu_plan on the tiny suite, under the module defaults: DIA for the
+    stencil (kept in order), and the reference's plan everywhere."""
+    from test_torch_plan import assert_same_plan, pin_calibration
+    from tpu_spmv.tune.model import tpu_plan as jax_tpu_plan
+
+    pin_calibration(monkeypatch, tmp_path, {})
     lap = make("lap2d_32")
-    assert gpu_plan(lap).kernel == "dia" and not gpu_plan(lap).needs_rcm
-    assert gpu_plan(make("banded_1k")).kernel == "ranked"
-    general = make("general_1k")
-    assert gpu_plan(general).kernel == "ranked"
-    assert gpu_plan(general).needs_rcm
-    assert not gpu_plan(general, assume_rcm=True).needs_rcm
+    assert tpu_plan(lap).kernel == "dia" and not tpu_plan(lap).needs_rcm
+    for name in ("lap2d_32", "banded_1k", "general_1k"):
+        mat = make(name)
+        for rcm in (False, True):
+            assert_same_plan(jax_tpu_plan(mat, assume_rcm=rcm),
+                             tpu_plan(mat, assume_rcm=rcm))
+    general = make("general_50k")
+    assert tpu_plan(general).needs_rcm
+    assert not tpu_plan(general, assume_rcm=True).needs_rcm
 
 
-def test_planner_packed_choice(monkeypatch):
-    """Packed is taken exactly when its sub-tiles, weighted by the
-    measured packed-to-ranked time per sub-tile, undercut ranked's; the
-    sample-based counts equal the layouts' own on a small matrix."""
+def test_planner_packed_choice(monkeypatch, tmp_path):
+    """Packed is taken when the calibrated packed surcharge is low and
+    left when it is high (ranked or sell then); the aligned sub-tile
+    counts of both layouts on this matrix are the ones the costs weigh."""
+    from test_torch_plan import pin_calibration
     from tpu_spmv_torch.formats.packed import PackedRanked
     from tpu_spmv_torch.formats.sell import RankedSlabs
-    from tpu_spmv_torch.tune import plan
 
     mat = make("banded_1k")
     s_ali = int(RankedSlabs.from_csr(mat).chunk_ptr[-1])
     s_pk = -(-int(PackedRanked.from_csr(mat).chunk_koff[-1]) // 8)
     assert (s_ali, s_pk) == (23, 20)
-    monkeypatch.setattr(plan, "PACKED_OVER_RANKED", 0.99 * s_ali / s_pk)
-    p = gpu_plan(mat)
-    assert p.kernel == "packed" and p.bin_blocks == 0
-    monkeypatch.setattr(plan, "PACKED_OVER_RANKED", 1.01 * s_ali / s_pk)
-    assert gpu_plan(mat).kernel == "ranked"
-    assert gpu_plan(make("lap2d_32")).kernel == "dia"  # DIA stays first
+    pin_calibration(monkeypatch, tmp_path, {"packed_over": 0.1})
+    assert tpu_plan(mat).kernel == "packed"
+    pin_calibration(monkeypatch, tmp_path, {"packed_over": 100.0})
+    assert tpu_plan(mat).kernel in ("ranked", "sell")
+    assert tpu_plan(make("lap2d_32")).kernel == "dia"  # DIA stays first
 
 
 def test_plan_sampling_matches_reference():
-    """The port's chunk sampler equals tpu_spmv.tune.model's, whose
-    module loads JAX when the sampler runs."""
+    """The port's chunk sampler and sub-tile count equal
+    tpu_spmv.tune.model's."""
     from tpu_spmv.tune.model import _sample_chunks, _subtiles_from_kc
     from tpu_spmv_torch.formats.sell import _aligned_slots
-    from tpu_spmv_torch.tune.plan import sample_chunks, subtile_counts
+    from tpu_spmv_torch.tune import model
 
     mat = make("banded_100k")
     for cap in (256, 64):
-        ours, scale = sample_chunks(mat, cap)
+        ours, scale = model._sample_chunks(mat, cap)
         ref, ref_scale = _sample_chunks(mat, cap)
         assert scale == ref_scale and ours.shape == ref.shape
         for f in ("indptr", "indices", "data"):
             assert np.array_equal(getattr(ours, f), getattr(ref, f))
         kc = _aligned_slots(ours)[1]
-        assert subtile_counts(kc)[0] == _subtiles_from_kc(kc)
+        assert model._subtiles_from_kc(kc) == _subtiles_from_kc(kc)
 
 
 @pytest.mark.parametrize("args,item", [
-    (["--sigma", "4096"], "A6"),
-    (["--layout-cache", "lay.npz"], "A7"),
+    ([], "A13"),
+    (["--pcg"], "A13"),
+    (["--precond", "ic0-bj"], "A13"),
 ])
 def test_unported_options_are_refused(args, item):
+    """What the port still refuses: the solves over the distributed
+    layer. The SpMV CLI's --sigma and --layout-cache run since they were
+    ported (tests/test_torch_layout_cache.py)."""
+    from tpu_spmv_torch.tools import solve as solve_cli
+
     with pytest.raises(SystemExit) as e:
-        cli.main(["synthetic:lap2d_32", *args, *CPU])
+        solve_cli.main(["synthetic:lap2d_32", *args, "--device", "cpu"])
     assert f"ROADMAP.md item {item}" in str(e.value)
 
 

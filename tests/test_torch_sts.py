@@ -139,12 +139,40 @@ def test_binned_choice_matches_reference():
     assert port.slabs.max_nb > tsolve.RANKED_SOLVE_MAX_NB
 
 
-def test_subtile_cost_matches_reference():
+@pytest.mark.parametrize("table", ["empty", "v5e", "h100"])
+def test_subtile_cost_matches_reference(table, monkeypatch, tmp_path):
+    """The cost that weighs the solve's bin widths is tune/model's, read
+    through the calibration lookup as the reference's is."""
+    from test_torch_plan import TABLES, pin_calibration
     from tpu_spmv.tune.model import _ranked_subtile_cost
+    from tpu_spmv_torch.tune.model import _ranked_subtile_cost as ours
 
+    pin_calibration(monkeypatch, tmp_path, TABLES[table])
     for nb in range(1, 17):
-        assert tsolve.ranked_subtile_cost(nb) == _ranked_subtile_cost(nb)
+        assert ours(nb) == _ranked_subtile_cost(nb)
     assert tsolve.RANKED_SOLVE_MAX_NB == jsolve.RANKED_SOLVE_MAX_NB
+
+
+@pytest.mark.parametrize("table,width", [("v5e", 2), ("empty", 4)])
+def test_binned_width_follows_the_calibration(table, width, monkeypatch,
+                                              tmp_path):
+    """A level-scheduled band whose binned widths cost W = 2: 320
+    sub-tiles of rank 2, W = 4 and 8: 256 of rank 4 and 8. The module
+    defaults (3.3 + 0.95 a pair) pick W = 4, the reference's shipped v5e
+    constants (5.404 + 2.591 a pair) pick W = 2; both packages pick the
+    same W and the same arrays under either, where the port once weighed
+    with the defaults alone."""
+    from test_torch_plan import TABLES, pin_calibration
+
+    pin_calibration(monkeypatch, tmp_path, TABLES[table])
+    sys_ = thost.build_sts(random_banded(1536, 60, 6, seed=0),
+                           order_type="LS")
+    b = thost.compute_b(sys_.lower)
+    port = tsolve.LowerSolveLayout.build(sys_, b, device="cpu")
+    ref = jsolve.LowerSolveLayout.build(sys_, b)
+    _assert_same_solve_layout(ref, port)
+    assert port.slabs.max_nb > tsolve.RANKED_SOLVE_MAX_NB
+    assert port.ranked.rank_nb == width
 
 
 _SOLVES = {

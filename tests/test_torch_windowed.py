@@ -46,7 +46,7 @@ from tpu_spmv_torch.kernels import sell as ksell
 from tpu_spmv_torch.kernels import spmm as kspmm
 from tpu_spmv_torch.tools import spmm as spmm_cli
 from tpu_spmv_torch.tools import spmv as spmv_cli
-from tpu_spmv_torch.tune import plan
+from tpu_spmv_torch.tune import model
 
 from test_torch_formats import rounded
 from test_torch_gpu import _jumping, _long_row
@@ -463,11 +463,13 @@ def test_spmm_cli_takes_the_windowed_route(tiny_l2, kernel, capsys):
 
 
 def test_spmm_cli_auto_skips_packed_past_the_gate(tiny_l2, monkeypatch,
-                                                   capsys):
+                                                   tmp_path, capsys):
     """The planner keeps packed out past the gate; a packed plan that
     reaches the CLI all the same (forced here) is dropped there."""
-    monkeypatch.setattr(plan, "packed_x_fits", lambda mat: True)
-    monkeypatch.setattr(plan, "SPMM_PACKED_OVER_RANKED", 0.1)
+    from test_torch_plan import pin_calibration
+
+    pin_calibration(monkeypatch, tmp_path, {"packed_over": 0.1})
+    monkeypatch.setattr(model, "_packed_x_fits", lambda mat, rank_nb: True)
     assert spmm_cli.main(["synthetic:banded_1k", "--batch", "2", *CPU]) == 0
     out = capsys.readouterr().out
     assert "packed layout past the L2 residency budget" in out
@@ -491,11 +493,13 @@ def test_spmm_cli_splits_columns(tiny_l2, monkeypatch, capsys):
                        "windowed", *CPU])
 
 
-def test_planner_keeps_packed_off_past_the_gate(monkeypatch):
+def test_planner_keeps_packed_off_past_the_gate(monkeypatch, tmp_path):
+    from test_torch_plan import pin_calibration
+
     mat = laplacian_2d(64)
     mat = mat.permuted(rcm(mat.indptr, mat.indices))
-    monkeypatch.setattr(plan, "PACKED_OVER_RANKED", 0.1)
-    assert plan.gpu_plan(mat, assume_rcm=True).kernel == "packed"
+    pin_calibration(monkeypatch, tmp_path, {"packed_over": 0.1})
+    assert model.tpu_plan(mat, assume_rcm=True).kernel == "packed"
     monkeypatch.setattr(hw, "H100_L2_BYTES", 0)
-    p = plan.gpu_plan(mat, assume_rcm=True)
-    assert p.kernel == "ranked" and "no windowed variant" in p.reason
+    p = model.tpu_plan(mat, assume_rcm=True)
+    assert p.kernel != "packed" and "packed" not in p.reason, p

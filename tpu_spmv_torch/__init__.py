@@ -11,13 +11,17 @@ Layer map (SpMV, y = A @ x; SpMM, Y = A @ X; the triangular solve
 L x = b and IC(0)-PCG):
 
     tools/    CLI entry points: spmv and spmm (load, reorder, plan, build,
-              run, validate, time), sts (triangular solve), solve
-              (IC(0)-PCG on one card) and info (card and toolchain)
+              run, validate, time; spmv also sorts rows and caches
+              layouts), sts (triangular solve), solve (IC(0)-PCG on one
+              card), tune (calibration), sweep, the host tools stats,
+              convert, gen, reformat and analyze, and info (card and
+              toolchain)
     sts/      pack schedule (host), LowerSolveLayout and lower_solve,
               IC(0) factor, preconditioner and PCG
-    tune/     gpu_plan: DIA for constant-diagonal matrices, else packed or
-              ranked by sub-tile count and the measured time ratio of the
-              kernels that will run (one for SpMV, one for SpMM)
+    tune/     tpu_plan: the least-cost kernel and layout (dia, sell,
+              ranked and packed, aligned or column-binned, sell stripes,
+              the SELL-C-sigma row sort) on cost constants measured on
+              the card (tools.tune --calibrate, data/calib.json)
     formats/  CSRMatrix, CSRkMatrix; DiaSlabs, SellSlabs, RankedSlabs,
               PackedRanked as torch containers, built on the host with
               NumPy; convert carries JAX layouts across

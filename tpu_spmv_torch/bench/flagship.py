@@ -5,12 +5,12 @@
 The matrix is the 5-point Laplacian of a 1024 x 1024 grid (1.05M rows,
 5.2M nnz; TPU_SPMV_BENCH_N sets the grid side), as in bench.py:
 
-  1. after RCM, the kernel gpu_plan picks (packed or ranked; sell where
+  1. after RCM, the kernel tune/model.tpu_plan picks (packed or ranked; sell where
      a ranked or packed build fails), then the packed candidate and the
      bf16-values candidate of the kernel in hand, each promoted when it
      is faster; bf16 only at Number Wrong 0 and RelL2 < 1e-6 against the
      f32 oracle;
-  2. on the natural order, when gpu_plan picks DIA there, the DIA and
+  2. on the natural order, when tpu_plan picks DIA there, the DIA and
      DIA+bf16 candidates, promoted on the same terms;
   3. the baselines (kernels/segsum, bcoo, dense), library calls on the
      RCM'd matrix: vs_baseline is the flagship's speed over the fastest
@@ -134,7 +134,7 @@ def run(n_grid: int, device) -> dict:
     from tpu_spmv_torch.kernels.segsum import SegsumLayout, spmv_segsum
     from tpu_spmv_torch.kernels.sell import spmv_ranked, spmv_sell
     from tpu_spmv_torch.reorder import rcm
-    from tpu_spmv_torch.tune.plan import gpu_plan
+    from tpu_spmv_torch.tune.model import tpu_plan
 
     device = torch.device(device)
     timed = device.type == "cuda"
@@ -152,10 +152,10 @@ def run(n_grid: int, device) -> dict:
         checked.append((e.name, e.wrong, e.rel))
         return e
 
-    plan = gpu_plan(mat, assume_rcm=True)
+    plan = tpu_plan(mat, assume_rcm=True)
     builds = {
         "packed": (spmv_packed, lambda vdt=None: PackedRanked.from_csr(
-            mat, val_dtype=vdt, bin_blocks=plan.bin_blocks)),
+            mat, val_dtype=vdt, bin_blocks=max(plan.bin_blocks, 0))),
         "ranked": (spmv_ranked, lambda vdt=None: RankedSlabs.from_csr(
             mat, bin_blocks=plan.bin_blocks, val_dtype=vdt)),
     }
@@ -184,7 +184,7 @@ def run(n_grid: int, device) -> dict:
         flag = _promote(flag, check(f"{flag.name}+bf16", fn, build(bf16)),
                         True, timed)
 
-    plan_raw = gpu_plan(mat_raw, assume_rcm=False)
+    plan_raw = tpu_plan(mat_raw, assume_rcm=False)
     if plan_raw.kernel == "dia":
         x_raw_np = np.random.default_rng(2).standard_normal(
             mat_raw.n).astype(np.float32)

@@ -12,9 +12,9 @@ spmv_ranked on their grouped layouts and spmm_packed and spmm_ranked at
 each B (default 5 and 8), one line each with the kernel's largest
 difference from its plain version, after the card's nvidia-smi name and
 power limit. Then it prints R, the packed-to-ranked warm time per walked
-sub-tile of each matrix, for SpMV and for SpMM at the first B
-(tune/plan.py's PACKED_OVER_RANKED and SPMM_PACKED_OVER_RANKED are
-chip_smoke.py's, on lap2d_1024 after RCM at B = 5). It uses only what
+sub-tile of each matrix, for SpMV and for SpMM at the first B (the
+planner's packed surcharge is calibrated by tools.tune instead). It uses
+only what
 every tree of the port has, so another tree's package can be timed by
 running this file with that tree first on PYTHONPATH.
 

@@ -43,8 +43,12 @@ def diagonal_profile(mat: CSRMatrix, sample_rows: int = 0):
             parts.append(mat.indices[lo:hi].astype(np.int64) - r)
         offs = np.unique(np.concatenate(parts)) if parts else np.zeros(0)
     else:
+        # The distinct offsets col - row, counted on a bitmap of the
+        # 2m - 1 possible ones (no sort of the nnz offsets).
         rows = np.repeat(np.arange(mat.m, dtype=np.int64), mat.row_lengths)
-        offs = np.unique(mat.indices.astype(np.int64) - rows)
+        seen = np.zeros(2 * mat.m - 1, dtype=bool)
+        seen[mat.indices.astype(np.int64) - rows + (mat.m - 1)] = True
+        offs = np.flatnonzero(seen)
     d = int(offs.size)
     return d, d * mat.m / max(mat.nnz, 1)
 

@@ -129,6 +129,13 @@ class PackedRanked(TensorLayout):
     def padding_ratio(self) -> float:
         return int(self.vals.shape[0]) * LANES / max(self.nnz, 1)
 
+    def save(self, path, matrix: CSRMatrix | None = None,
+             config: tuple = ()) -> None:
+        """The reference's .npz layout cache (formats/sell.save_layout)."""
+        from tpu_spmv_torch.formats.sell import save_layout
+
+        save_layout(self, path, matrix, config)
+
     @property
     def hbm_bytes(self) -> int:
         """The reference's per-SpMV traffic formula (slabs, x, y and its

@@ -102,6 +102,152 @@ def _uniform_subtiles_per_chunk(sub_chunk, num_chunks: int) -> int:
     return q if np.array_equal(real, expect) else 0
 
 
+def sigma_sort(mat: CSRMatrix, sigma: int = 32 * LANES) -> tuple:
+    """SELL-C-sigma row sort (tpu_spmv.formats.sell.sigma_sort): within
+    windows of `sigma` rows, rows in descending length (stable), so
+    chunks get even slab heights on skewed-degree matrices. A row moves
+    at most sigma - 1 places, so RCM's band survives. Returns
+    (sorted_matrix, perm), perm new -> old; the columns are not
+    relabelled, so callers fold perm into the rows' permutation only."""
+    m = mat.m
+    lens = mat.row_lengths
+    perm = np.empty(m, dtype=np.int64)
+    for w0 in range(0, m, sigma):
+        w1 = min(w0 + sigma, m)
+        order = np.argsort(-lens[w0:w1], kind="stable")
+        perm[w0:w1] = w0 + order
+    new_lens = lens[perm].astype(np.int64)
+    indptr = np.zeros(m + 1, dtype=np.int64)
+    np.cumsum(new_lens, out=indptr[1:])
+    starts = mat.indptr[perm].astype(np.int64)
+    take = (
+        np.arange(int(indptr[-1]), dtype=np.int64)
+        - np.repeat(indptr[:-1], new_lens)
+        + np.repeat(starts, new_lens)
+    )
+    out = CSRMatrix(
+        indptr.astype(np.int32), mat.indices[take], mat.data[take], mat.shape
+    )
+    return out, perm
+
+
+def matrix_key(mat: CSRMatrix, config: tuple = ()) -> np.ndarray:
+    """(m, n, nnz, crc32 of indptr, indices and data, *config) as int64:
+    the fingerprint a layout cache carries (tpu_spmv.formats.sell.
+    matrix_key), so a cache of another matrix or configuration is refused
+    at load. CSRMatrix holds the reference's dtypes (int32, int32,
+    float32), so both packages compute the same key."""
+    import zlib
+
+    h = zlib.crc32(np.ascontiguousarray(mat.indptr).tobytes())
+    h = zlib.crc32(np.ascontiguousarray(mat.indices).tobytes(), h)
+    h = zlib.crc32(np.ascontiguousarray(mat.data).tobytes(), h)
+    return np.asarray([mat.m, mat.n, mat.nnz, h, *config], dtype=np.int64)
+
+
+class LayoutCacheMismatch(ValueError):
+    """A layout cache does not match the matrix or the layout
+    configuration asked for (a type of its own, so the CLIs' build
+    fallbacks say "rebuild it" instead of switching kernels)."""
+
+
+# The arrays and the static fields of a layout cache, in the order of
+# the reference's tree_flatten (tpu_spmv/formats/sell.py:578-581, :814-
+# 823; formats/packed.py:96-104): the .npz holds children c0, c1, ... and
+# __aux__ in this order, so either package reads the other's cache.
+_CACHE_FIELDS = {
+    "SellSlabs": (
+        ("vals", "cols", "sub_b0", "sub_nb", "sub_chunk"),
+        ("m", "n", "nnz", "num_chunks", "max_nb", "chunk_q"),
+    ),
+    "RankedSlabs": (
+        ("vals", "lcols", "sub_b0", "sub_dlo", "sub_dhi", "sub_chunk",
+         "tile_b0", "grp_b0"),
+        ("m", "n", "nnz", "num_chunks", "rank_nb", "chunk_q", "win_w",
+         "tile_k", "group_code"),
+    ),
+    "PackedRanked": (
+        ("vals", "lcols", "sub_b0", "sub_dlo", "sub_dhi", "bmeta", "out_row",
+         "grp_b0"),
+        ("m", "n", "nnz", "num_chunks", "rank_nb", "tile_k", "group_code"),
+    ),
+}
+
+
+def save_layout(layout, path, matrix: CSRMatrix | None = None,
+                config: tuple = ()) -> None:
+    """Write a SellSlabs, RankedSlabs or PackedRanked to `path` in the
+    reference's .npz form (tpu_spmv.formats.sell._save_layout):
+    __class__, __aux__, the arrays c{i}, bf16 arrays as their uint16
+    bits listed in __bf16__, and __mkey__ (matrix_key(matrix, config))
+    when a matrix is given. Only the reference's arrays are written; the
+    port's derived tables are rebuilt from them on load."""
+    children, aux = _CACHE_FIELDS[type(layout).__name__]
+    arrays, bf16 = {}, []
+    for i, name in enumerate(children):
+        t = getattr(layout, name).detach().cpu()
+        if t.dtype == torch.bfloat16:
+            bf16.append(i)
+            arrays[f"c{i}"] = t.view(torch.int16).numpy().view(np.uint16)
+        else:
+            arrays[f"c{i}"] = t.numpy()
+    if bf16:
+        arrays["__bf16__"] = np.asarray(bf16, dtype=np.int64)
+    if matrix is not None:
+        arrays["__mkey__"] = matrix_key(matrix, config)
+    np.savez_compressed(
+        path,
+        __class__=type(layout).__name__,
+        __aux__=np.asarray([getattr(layout, a) for a in aux], dtype=np.int64),
+        **arrays,
+    )
+
+
+def load_layout(path, matrix: CSRMatrix | None = None, config: tuple = ()):
+    """The port's container for a layout cache written by either
+    package's save (tpu_spmv.formats.sell.load_layout), on the CPU.
+    When `matrix` is given, the cache's fingerprint must equal
+    matrix_key(matrix, config), or LayoutCacheMismatch is raised. The
+    derived tables are rebuilt as formats.convert.from_reference builds
+    them, and checked when the container is made."""
+    import types
+
+    from tpu_spmv_torch.formats.convert import from_reference
+
+    with np.load(path, allow_pickle=False) as z:
+        clsname = str(z["__class__"])
+        aux = [int(v) for v in z["__aux__"]]
+        if matrix is not None and "__mkey__" in z:
+            if not np.array_equal(z["__mkey__"], matrix_key(matrix, config)):
+                raise LayoutCacheMismatch(
+                    f"layout cache {path} was built from a different matrix "
+                    "or layout configuration (rcm/sigma/k/bin_blocks); "
+                    "rebuild it"
+                )
+        bf16 = set(int(v) for v in z["__bf16__"]) if "__bf16__" in z else set()
+        children = []
+        while f"c{len(children)}" in z:
+            i = len(children)
+            a = z[f"c{i}"]
+            children.append(
+                torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+                if i in bf16 else a)
+    if clsname not in _CACHE_FIELDS:
+        raise LayoutCacheMismatch(
+            f"layout cache {path} holds a {clsname}, which this loader does "
+            "not support; rebuild it"
+        )
+    names, aux_names = _CACHE_FIELDS[clsname]
+    if len(children) != len(names) or len(aux) != len(aux_names):
+        raise LayoutCacheMismatch(
+            f"layout cache {path} does not hold the {clsname} fields of "
+            "this version; rebuild it"
+        )
+    fields = dict(zip(names, children), **dict(zip(aux_names, aux)))
+    return from_reference(type(clsname, (types.SimpleNamespace,), {})(
+        **fields))
+
+
 def _chunk_ptr(sub_chunk: np.ndarray, num_chunks: int) -> np.ndarray:
     """Sub-tile range per chunk from the sorted owner ids; the sentinel
     tail (id num_chunks) starts at chunk_ptr[num_chunks] and is left
@@ -669,7 +815,10 @@ def delta_bases_np(sub_b0, sub_dlo, sub_dhi) -> np.ndarray:
 def to_tensor(a, dtype=None) -> torch.Tensor:
     """Host array (anything np.asarray reads) -> CPU tensor. bf16, which
     torch.from_numpy rejects in its ml_dtypes form, crosses as its uint16
-    bits, and uint32 as its int32 view (the kernels decode the bits)."""
+    bits, and uint32 as its int32 view (the kernels decode the bits). A
+    tensor is taken as it is."""
+    if isinstance(a, torch.Tensor):
+        return a if dtype is None else a.to(dtype)
     a = np.ascontiguousarray(np.asarray(a))
     if not a.flags.writeable:  # e.g. a view of a JAX array
         a = a.copy()
@@ -756,6 +905,14 @@ class SellSlabs(TensorLayout):
     def num_subtiles(self) -> int:
         return int(self.sub_b0.shape[0])
 
+    def save(self, path, matrix: CSRMatrix | None = None,
+             config: tuple = ()) -> None:
+        save_layout(self, path, matrix, config)
+
+    @property
+    def padding_ratio(self) -> float:
+        return int(self.vals.shape[0]) * LANES / max(self.nnz, 1)
+
     @property
     def hbm_bytes(self) -> int:
         """The reference's per-SpMV traffic formula (slabs, x, y and the
@@ -766,6 +923,18 @@ class SellSlabs(TensorLayout):
             + 4 * (self.n + self.m)
             + self.num_subtiles * LANES * 4
         )
+
+    @classmethod
+    def shape_stats(cls, mat: CSRMatrix, tile_k: int = 2048,
+                    bin_blocks: int = 0, slots=None) -> tuple:
+        """(num_subtiles, max_nb) of the layout from_csr would build, on
+        the host alone (tpu_spmv.formats.sell.SellSlabs.shape_stats): the
+        planner's cost of a stripe candidate. slots: the (ranks, kc) of
+        _binned_slots(mat, bin_blocks), when the caller has them."""
+        host = cls._host_build(mat, tile_k, False, bin_blocks, slabs=False,
+                               slots=slots)
+        sub_nb = host["sub_nb"]
+        return len(sub_nb), int(sub_nb.max()) if len(sub_nb) else 1
 
     @classmethod
     def from_csr(
@@ -794,8 +963,12 @@ class SellSlabs(TensorLayout):
     @staticmethod
     def _host_build(
         mat: CSRMatrix, tile_k: int, align: bool, bin_blocks: int,
+        slabs: bool = True, slots=None,
     ) -> dict:
-        """NumPy half of from_csr, shared with RankedSlabs."""
+        """NumPy half of from_csr, shared with RankedSlabs. slabs=False
+        leaves out vals and cols (the padded arrays), for shape_stats:
+        the sub-tile ranges come from the entries alone. slots: the
+        column-binned (ranks, kc) already computed for bin_blocks."""
         if tile_k % SUBLANES:
             raise ValueError(
                 f"tile_k must be a multiple of {SUBLANES}, got {tile_k}"
@@ -805,7 +978,8 @@ class SellSlabs(TensorLayout):
 
         rows = np.repeat(np.arange(m, dtype=np.int64), mat.row_lengths)
         if bin_blocks:
-            ranks, kc_raw = _binned_slots(mat, bin_blocks)
+            ranks, kc_raw = (slots if slots is not None
+                             else _binned_slots(mat, bin_blocks))
         elif align:
             ranks, kc_raw = _aligned_slots(mat)
         else:
@@ -825,9 +999,6 @@ class SellSlabs(TensorLayout):
         np.cumsum(kc, out=koff[1:])
         total_k = _round_up(int(koff[-1]), min(tile_k, 512))
 
-        vals = np.zeros((total_k, LANES), dtype=np.float32)
-        cols = np.full((total_k, LANES), -1, dtype=np.int32)
-
         from tpu_spmv_torch.reorder import native
 
         if not align and not bin_blocks and native.available():
@@ -835,8 +1006,12 @@ class SellSlabs(TensorLayout):
         else:
             dest_k = koff[rows // LANES] + ranks
             dest_l = rows % LANES
-        vals[dest_k, dest_l] = mat.data
-        cols[dest_k, dest_l] = mat.indices
+        vals = cols = None
+        if slabs:
+            vals = np.zeros((total_k, LANES), dtype=np.float32)
+            cols = np.full((total_k, LANES), -1, dtype=np.int32)
+            vals[dest_k, dest_l] = mat.data
+            cols[dest_k, dest_l] = mat.indices
 
         # Per-sub-tile x block range [b0, b0+nb) over the real entries.
         num_subtiles = total_k // SUBLANES
@@ -852,10 +1027,11 @@ class SellSlabs(TensorLayout):
 
         # Padding slots point at the sub-tile's first block (in range);
         # val 0 keeps them inert.
-        pad_fill = np.broadcast_to(
-            (sub_b0 * LANES).repeat(SUBLANES)[:, None], (total_k, LANES)
-        )
-        np.copyto(cols, pad_fill, where=(cols == -1))
+        if slabs:
+            pad_fill = np.broadcast_to(
+                (sub_b0 * LANES).repeat(SUBLANES)[:, None], (total_k, LANES)
+            )
+            np.copyto(cols, pad_fill, where=(cols == -1))
 
         sub_chunk = np.full(num_subtiles, num_chunks, dtype=np.int64)
         real = int(koff[-1]) // SUBLANES
@@ -939,6 +1115,14 @@ class RankedSlabs(TensorLayout):
     @property
     def num_subtiles(self) -> int:
         return int(self.sub_b0.shape[0])
+
+    def save(self, path, matrix: CSRMatrix | None = None,
+             config: tuple = ()) -> None:
+        save_layout(self, path, matrix, config)
+
+    @property
+    def padding_ratio(self) -> float:
+        return int(self.vals.shape[0]) * LANES / max(self.nnz, 1)
 
     @property
     def hbm_bytes(self) -> int:

@@ -6,12 +6,17 @@ bandwidth, the roofline ceiling. It raises when no card is present: no
 CPU spec is ever dressed up as a device. `toolchain()` reports what this
 machine has for building and running the kernels (nvcc, torch, CUDA,
 triton), so every recorded run says what it was built with.
+`kernel_calibration()` reads the planner's cost constants measured on
+the current card (tools.tune --calibrate) from a table keyed by card
+name.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import importlib.util
+import json
+import os
 import subprocess
 
 import torch
@@ -104,6 +109,52 @@ def smem_per_block(device=None) -> int:
     if not _on_card(device):
         return H100_SMEM_PER_BLOCK
     return device_spec(device).smem_per_block
+
+
+# The variable that names the one calibration file to read (and that
+# tools.tune --calibrate writes), ahead of the user cache and the shipped
+# table.
+CALIB_ENV = "TPU_SPMV_TORCH_CALIB"
+USER_CALIB = os.path.join("~", ".cache", "tpu_spmv_torch", "calib.json")
+SHIPPED_CALIB = os.path.join(os.path.dirname(__file__), "data", "calib.json")
+
+
+def device_kind() -> str:
+    """The key of the current card in a calibration table: its
+    torch.cuda.get_device_name, or "cpu" without a card (no shipped entry
+    has that key, so the planner then runs on its module defaults unless
+    $TPU_SPMV_TORCH_CALIB gives a "cpu" entry)."""
+    return torch.cuda.get_device_name() if torch.cuda.is_available() else "cpu"
+
+
+def calib_paths() -> list:
+    """The calibration files kernel_calibration reads, in order:
+    $TPU_SPMV_TORCH_CALIB alone when set; else the user cache, then the
+    table shipped in tpu_spmv_torch/data/."""
+    env = os.environ.get(CALIB_ENV)
+    if env:
+        return [env]
+    return [os.path.expanduser(USER_CALIB), SHIPPED_CALIB]
+
+
+def kernel_calibration() -> dict:
+    """The planner's measured cost constants (tune/model.py) for the
+    current device kind: the first non-empty entry under device_kind()
+    in calib_paths() (tpu_spmv.hw.kernel_calibration). A file without an
+    entry for this kind does not hide a later one, so a user cache
+    written on another card leaves the shipped entry in force. {} means
+    the module defaults apply."""
+    kind = device_kind()
+    for path in calib_paths():
+        try:
+            with open(path) as f:
+                table = json.load(f)
+        except (OSError, ValueError):
+            continue
+        entry = table.get(kind, {}) if isinstance(table, dict) else {}
+        if isinstance(entry, dict) and entry:
+            return entry
+    return {}
 
 
 def nvidia_smi() -> str:

@@ -9,7 +9,8 @@ The host layout is the reference's, array for array:
     pre-scaled by 1/diag (a division-free solve);
   * the rank-windowed RankedSlabs is kept when its windows stay within
     RANKED_SOLVE_MAX_NB blocks; otherwise the column-binned candidates
-    W in {2, 4, 8} are weighed by the reference's sub-tile cost and the
+    W in {2, 4, 8} are weighed by the planner's sub-tile cost
+    (tune/model._ranked_subtile_cost, on the card's calibration) and the
     cheapest is kept; when none builds, the plain SellSlabs solve runs.
 
 The device solve differs: the TPU kernels rely on a grid that runs in
@@ -44,26 +45,17 @@ from tpu_spmv_torch.kernels.sts import (
     lower_solve_ranked_reference, solve_steps,
 )
 from tpu_spmv_torch.sts.host import TriangularSystem
+from tpu_spmv_torch.tune.model import _ranked_subtile_cost
 
 # Rank-windowed solve: the reference's static gather-iteration cap.
 RANKED_SOLVE_MAX_NB = 8
 
-# The reference's sub-tile cost for choosing a binned width
-# (tpu_spmv/tune/model.py:_ranked_subtile_cost with its defaults,
-# _RANKED_FIXED, _PAIR_COST and _TRAFFIC_FLOOR). These are TPU v5e
-# constants, kept so both packages choose the same layout; calling the
-# reference's function would load JAX through its calibration lookup,
-# which on a CPU returns these same defaults. A cost measured on the
-# H100 is ROADMAP item A6.
-_RANKED_FIXED = 3.3
-_PAIR_COST = 0.95
-_TRAFFIC_FLOOR = 1.7
+# The column-bin widths weighed when the rank windows are too wide
+# (tpu_spmv/sts/solve.py:158-169), each by tune.model's sub-tile cost,
+# which reads the current card's calibration (hw.kernel_calibration): the
+# card's measured constants on the card, the caller's
+# ($TPU_SPMV_TORCH_CALIB) or the module defaults without one.
 _BIN_WIDTHS = (2, 4, 8)
-
-
-def ranked_subtile_cost(rank_nb: int) -> float:
-    pairs = max((rank_nb + 1) // 2, 1)
-    return max(_RANKED_FIXED + _PAIR_COST * pairs, _TRAFFIC_FLOOR)
 
 
 def _round_up_arr(a: np.ndarray, mult: int) -> np.ndarray:
@@ -174,7 +166,7 @@ class LowerSolveLayout(TensorLayout):
                     cand = RankedSlabs.from_csr(strictL, bin_blocks=w)
                 except ValueError:
                     continue
-                cost = cand.num_subtiles * ranked_subtile_cost(cand.rank_nb)
+                cost = cand.num_subtiles * _ranked_subtile_cost(cand.rank_nb)
                 if best is None or cost < best[0]:
                     best = (cost, cand)
             if best is not None:
@@ -267,5 +259,5 @@ def lower_solve_layout_from_jax(jax_layout, sys: TriangularSystem | None = None,
 __all__ = [
     "LowerSolveLayout", "RANKED_SOLVE_MAX_NB", "lower_solve",
     "lower_solve_blocks", "lower_solve_layout_from_jax",
-    "lower_solve_reference", "ranked_subtile_cost",
+    "lower_solve_reference",
 ]

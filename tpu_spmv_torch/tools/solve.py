@@ -79,13 +79,13 @@ def main(argv=None):
     from tpu_spmv_torch.sts.ic0 import (
         IC0Preconditioner, capture_pcg_step, pcg_ic0_init, pcg_ic0_solve,
     )
-    from tpu_spmv_torch.tune.plan import gpu_plan
+    from tpu_spmv_torch.tune.model import tpu_plan
 
     mat = load_input(args.input)
     if mat.m != mat.n:
         raise SystemExit("CG needs a square (SPD) matrix")
     if args.rcm != "never":
-        if args.rcm == "always" or gpu_plan(mat).needs_rcm:
+        if args.rcm == "always" or tpu_plan(mat).needs_rcm:
             from tpu_spmv_torch.reorder import rcm as rcm_fn
 
             mat = mat.permuted(rcm_fn(mat.indptr, mat.indices))

@@ -43,10 +43,11 @@ def build_spmm(mat, kernel: str, B: int, val_dtype=None, device=None):
     """(layout on `device`, spmm function, passes over the slabs), as
     tpu_spmv/tools/spmm.py:85-192 chooses them; device defaults to the
     card (hw.target_device). auto takes packed when the planner
-    picks it for SpMM (gpu_plan(spmm=True)), the build succeeds and X
-    passes the residency gate (resident_x_fits at batch=B); otherwise
-    the ranked layout, with spmm_ranked when X passes the gate (or under
-    resident) and spmm_ranked_windowed past it (or under windowed). The
+    (tune/model.tpu_plan) picks it, the build succeeds and X passes the
+    residency gate (resident_x_fits at batch=B); otherwise the ranked
+    layout at the plan's bin width, with spmm_ranked when X passes the
+    gate (or under resident) and spmm_ranked_windowed past it (or under
+    windowed). The
     windowed route fits the ring to shared memory (tools/spmv.
     fit_window) and runs B/B' column passes when B' < B. A ranked build
     that fails ends the run: SpMM has no sell kernel."""
@@ -56,14 +57,14 @@ def build_spmm(mat, kernel: str, B: int, val_dtype=None, device=None):
     from tpu_spmv_torch.kernels.spmm import (
         spmm_packed, spmm_ranked, spmm_ranked_windowed,
     )
-    from tpu_spmv_torch.tune.plan import gpu_plan
+    from tpu_spmv_torch.tune.model import tpu_plan
 
     device = target_device(device)
-    plan = gpu_plan(mat, assume_rcm=True, spmm=True)
+    plan = tpu_plan(mat, assume_rcm=True)
     if kernel == "auto" and plan.kernel == "packed":
         try:
             layout = PackedRanked.from_csr(
-                mat, bin_blocks=plan.bin_blocks, val_dtype=val_dtype
+                mat, bin_blocks=max(plan.bin_blocks, 0), val_dtype=val_dtype
             ).to(device)
         except ValueError as e:
             print(f"packed layout unavailable ({e}); falling back to ranked")
@@ -165,11 +166,11 @@ def main(argv=None):
         )
 
     from tpu_spmv_torch.bench.harness import validate
-    from tpu_spmv_torch.tune.plan import gpu_plan
+    from tpu_spmv_torch.tune.model import tpu_plan
 
     mat = load_input(args.input)
     if args.rcm != "never" and mat.m == mat.n:
-        if args.rcm == "always" or gpu_plan(mat).needs_rcm:
+        if args.rcm == "always" or tpu_plan(mat).needs_rcm:
             from tpu_spmv_torch.reorder import rcm as rcm_fn
 
             mat = mat.permuted(rcm_fn(mat.indptr, mat.indices))

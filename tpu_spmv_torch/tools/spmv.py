@@ -12,8 +12,18 @@ Usage:
   python -m tpu_spmv_torch.tools.spmv matrix.mtx|synthetic:NAME [num_runs]
       [sizes ...]
       [--kernel auto|dia|packed|ranked|sell|striped|segsum|bcoo|dense]
-      [--val-dtype f32|bf16]
-      [--rcm auto|always|never] [--bin-blocks W] [--cold] [--validate-only]
+      [--val-dtype f32|bf16] [--rcm auto|always|never] [--bin-blocks W]
+      [--sigma S] [--layout-cache PATH.npz] [--cold] [--validate-only]
+
+The planner (tune/model.tpu_plan, on the card's calibration) decides
+RCM under `--rcm auto`, the kernel under `--kernel auto`, the column-bin
+width W unless `--bin-blocks` is given, and the SELL-C-sigma row sort
+unless `--sigma` is given; a sort it recommends is kept only when the
+re-plan on the sorted matrix costs less. `--layout-cache` loads a
+sell/ranked/packed layout from the .npz when it exists (refusing one of
+another matrix or configuration) and writes it after the build
+otherwise, in the reference's format, so a cache of either package loads
+in the other.
 
 An x past the L2 residency gate (half the L2, hw.l2_bytes) takes the
 windowed DIA or ranked kernel, e.g. `synthetic:lap2d_4096` (x 67 MB), or,
@@ -34,55 +44,92 @@ import torch
 
 def load_input(spec: str):
     """A CSRMatrix from a `synthetic:<name>` spec (bench/matrices.py) or
-    a .csr/.csr2/.csr3/.mtx(.gz) file: tpu_spmv.tools.spmv.load_input
-    with the file branch of tpu_spmv.tools.stats.load."""
+    a .csr/.csr2/.csr3/.mtx(.gz) file (tools/stats.load), as
+    tpu_spmv.tools.spmv.load_input loads it."""
     if spec.startswith("synthetic:"):
         from tpu_spmv_torch.bench import matrices
 
         return matrices.make(spec.split(":", 1)[1])
-    from tpu_spmv_torch.io import (
-        read_csr2_text, read_csr3_text, read_csr_text, read_mtx,
-    )
+    from tpu_spmv_torch.tools.stats import load
 
-    if spec.endswith(".csr3"):
-        return read_csr3_text(spec)[0]
-    if spec.endswith(".csr2"):
-        return read_csr2_text(spec)[0]
-    if spec.endswith(".mtx") or spec.endswith(".mtx.gz"):
-        return read_mtx(spec)
-    return read_csr_text(spec)
+    return load(spec)
 
 
-# Options of the JAX CLI that the port does not run yet, and the
-# ROADMAP.md queue-A item that ports each.
-REFUSED_SIGMA = "A6 (planner: SELL-C-sigma row sort)"
-REFUSED_LAYOUT_CACHE = "A7 (CLIs: layout cache)"
-
-
-def prepare(mat, rcm: str = "auto", k: int = 1, sizes: tuple = ()):
+def prepare(mat, rcm: str = "auto", k: int = 1, sizes: tuple = (),
+            with_plan: bool = False):
     """Reorder as the JAX CLI does: RCM (per `rcm`, or the planner's
     needs_rcm under "auto", square matrices only), then CSR-k.
 
     Returns (ck, perm): the CSRkMatrix whose `.matrix` the layout is
-    built from, and the permutation (new -> old) that both x and the
-    oracle's y are gathered with (the port has no row-only sort, which
-    is what made the JAX CLI keep two).
+    built from, and the permutation (new -> old) that x is gathered with
+    (and the oracle's y, unless a sigma row sort follows). with_plan
+    adds a third item: the plan of ck.matrix when the RCM decision
+    planned that very matrix (no RCM, k = 1), else None, so the caller
+    need not plan it again.
     """
     from tpu_spmv_torch.formats.csrk import CSRkMatrix
+    from tpu_spmv_torch.tune.model import tpu_plan
 
-    from tpu_spmv_torch.tune.plan import gpu_plan
-
-    work, pre_perm = mat, None
+    work, pre_perm, plan = mat, None, None
     if rcm != "never" and mat.m == mat.n:
-        apply_rcm = rcm == "always" or gpu_plan(mat).needs_rcm
-        if apply_rcm:
+        if rcm == "auto":
+            plan = tpu_plan(mat)
+        if rcm == "always" or plan.needs_rcm:
             from tpu_spmv_torch.reorder import rcm as rcm_fn
 
             pre_perm = rcm_fn(mat.indptr, mat.indices)
             work = mat.permuted(pre_perm)
             print("RCM applied (converter.m role)")
     ck = CSRkMatrix.build(work, k=k, sup_row_sizes=tuple(sizes))
-    return ck, (ck.perm if pre_perm is None else pre_perm[ck.perm])
+    perm = ck.perm if pre_perm is None else pre_perm[ck.perm]
+    if not with_plan:
+        return ck, perm
+    return ck, perm, (plan if ck.matrix is mat else None)
+
+
+class LayoutCache:
+    """The CLI's --layout-cache (tpu_spmv/tools/spmv.py:205-233): a
+    sell/ranked/packed layout is loaded from `path` when the file exists
+    (formats/sell.load_layout, which refuses a cache of another matrix or
+    configuration), else built and saved there. The configuration is
+    (bin_blocks, sigma, k), plus (1,) for a layout that stores bf16
+    values (a sell fallback stores f32, so its cache carries the f32
+    key)."""
+
+    def __init__(self, path, matrix, config: tuple, bf16: bool):
+        self.path, self.matrix = path, matrix
+        self.config, self.bf16 = tuple(config), bf16
+
+    def holds(self) -> str | None:
+        """The class name of the layout in the cache, None without one."""
+        import os
+
+        if not os.path.exists(self.path):
+            return None
+        with np.load(self.path, allow_pickle=False) as z:
+            return str(z["__class__"])
+
+    def __call__(self, cls, build):
+        import os
+        import time
+
+        from tpu_spmv_torch.formats.sell import SellSlabs, load_layout
+
+        cfg = self.config + ((1,) if self.bf16 and cls is not SellSlabs
+                             else ())
+        if os.path.exists(self.path):
+            t0 = time.perf_counter()
+            lay = load_layout(self.path, matrix=self.matrix, config=cfg)
+            if type(lay) is not cls:
+                raise SystemExit(f"cached layout is {type(lay).__name__}, "
+                                 f"kernel wants {cls.__name__}")
+            print(f"loaded layout from {self.path} "
+                  f"({time.perf_counter() - t0:.2f} s)")
+            return lay
+        lay = build()
+        lay.save(self.path, matrix=self.matrix, config=cfg)
+        print(f"saved layout to {self.path}")
+        return lay
 
 
 def x_budget(n: int, device, batch: int = 1) -> str:
@@ -180,7 +227,7 @@ def _baseline(matrix, kernel: str, device):
 
 
 def build_layout(matrix, kernel: str, val_dtype=None, bin_blocks: int = 0,
-                 device=None):
+                 device=None, cache=None):
     """(layout on `device`, spmv function, kernel actually used) for
     kernel in dia/packed/ranked/sell/striped or a baseline (segsum, bcoo,
     dense); device defaults to the card (hw.target_device). Routed as
@@ -189,7 +236,10 @@ def build_layout(matrix, kernel: str, val_dtype=None, bin_blocks: int = 0,
     each saying so; past the x residency gate (kernels/dia.dia_x_fits,
     kernels/sell.resident_x_fits) dia and ranked take their windowed
     kernels, a column-binned ranked layout takes the column-striped
-    passes (f32 values: bf16 is gated off there), and sell warns."""
+    passes (f32 values: bf16 is gated off there), and sell warns.
+    cache: a LayoutCache through which the sell, ranked and packed
+    layouts are loaded or built (the striped route builds its own
+    stripes); a cache that does not match ends the run (SystemExit)."""
     from tpu_spmv_torch import hw
     from tpu_spmv_torch.formats.dia import DiaSlabs
     from tpu_spmv_torch.formats.packed import PackedRanked
@@ -202,8 +252,15 @@ def build_layout(matrix, kernel: str, val_dtype=None, bin_blocks: int = 0,
         resident_x_fits, spmv_ranked, spmv_ranked_windowed, spmv_sell,
         window_bytes,
     )
+    from tpu_spmv_torch.formats.sell import LayoutCacheMismatch
     from tpu_spmv_torch.kernels.striped import spmv_striped
-    from tpu_spmv_torch.tune.plan import packed_x_fits
+    from tpu_spmv_torch.tune.model import _packed_x_fits
+
+    def get(cls, build):
+        try:
+            return build() if cache is None else cache(cls, build)
+        except LayoutCacheMismatch as e:
+            raise SystemExit(str(e))
 
     device = hw.target_device(device)
     if kernel in ("segsum", "bcoo", "dense"):
@@ -213,11 +270,18 @@ def build_layout(matrix, kernel: str, val_dtype=None, bin_blocks: int = 0,
         print(f"column stripes: P={layout.num_stripes}, "
               f"padding {layout.padding_ratio:.2f}x")
         return layout, spmv_striped, "striped"
+    if kernel == "packed" and cache is not None and (
+            cache.holds() == "RankedSlabs"):
+        # A packed build that fell back to ranked cached the ranked
+        # layout; the reference's next run refuses it as the wrong class.
+        print(f"{cache.path} holds the ranked fallback of a packed build; "
+              "taking the ranked layout")
+        kernel = "ranked"
     if kernel == "packed":
         try:
-            layout = PackedRanked.from_csr(
+            layout = get(PackedRanked, lambda: PackedRanked.from_csr(
                 matrix, val_dtype=val_dtype, bin_blocks=bin_blocks
-            )
+            ))
             print(f"packed mixed-height slabs: pad "
                   f"{layout.padding_ratio:.2f}x, rank {layout.rank_nb}"
                   + (f", W={bin_blocks} bins" if bin_blocks > 0 else ""))
@@ -237,15 +301,16 @@ def build_layout(matrix, kernel: str, val_dtype=None, bin_blocks: int = 0,
               f"{ring.step_rows} rows, a ring of {ring.ring} floats of x, "
               f"{ring.smem} bytes of shared memory a CTA")
         return layout, spmv_dia_windowed, "dia"
-    if kernel == "ranked" and bin_blocks > 0 and not packed_x_fits(matrix):
+    if kernel == "ranked" and bin_blocks > 0 and not _packed_x_fits(
+            matrix, bin_blocks):
         # x alone is past the gate, so the built layout would be too:
         # no ranked layout is built only to be dropped.
         return _striped_route(matrix, bin_blocks, val_dtype, device)
     if kernel == "ranked":
         try:
-            layout = RankedSlabs.from_csr(
+            layout = get(RankedSlabs, lambda: RankedSlabs.from_csr(
                 matrix, bin_blocks=bin_blocks, val_dtype=val_dtype
-            ).to(device)
+            )).to(device)
         except ValueError as e:
             print(f"ranked layout unavailable ({e}); falling back to sell")
             if val_dtype is not None:
@@ -270,7 +335,8 @@ def build_layout(matrix, kernel: str, val_dtype=None, bin_blocks: int = 0,
                   f"{layout.step_lo.numel()} steps of "
                   f"{layout.step_subtiles} sub-tile(s)")
             return layout, spmv_ranked_windowed, "ranked"
-    layout = SellSlabs.from_csr(matrix, bin_blocks=bin_blocks).to(device)
+    layout = get(SellSlabs, lambda: SellSlabs.from_csr(
+        matrix, bin_blocks=bin_blocks)).to(device)
     if not resident_x_fits(layout):
         print(f"warning: x exceeds the L2 residency budget "
               f"({x_budget(matrix.n, device)}) and the sell kernel has no "
@@ -300,11 +366,12 @@ def main(argv=None):
                     "the planner's needs_rcm")
     ap.add_argument("--bin-blocks", type=int, default=-1,
                     help="column-bin width in 128-column x blocks for the "
-                    "packed/ranked/sell layouts; -1 = planner (0), 0 = "
-                    "cluster-aligned slots")
+                    "packed/ranked/sell layouts; -1 = follow the planner, "
+                    "0 = cluster-aligned slots")
     ap.add_argument("--sigma", type=int, default=-1,
-                    help="SELL-C-sigma row sort window (not ported yet: "
-                    "a positive window is refused)")
+                    help="SELL-C-sigma window: sort rows by descending "
+                    "length within windows of this many rows before the "
+                    "layout build; -1 = follow the planner, 0 = off")
     ap.add_argument("--val-dtype", default="f32", choices=("f32", "bf16"),
                     help="value storage (packed/ranked/dia). bf16 runs are "
                     "validated against the bf16-rounded operator, with "
@@ -317,22 +384,14 @@ def main(argv=None):
     ap.add_argument("--validate-only", action="store_true",
                     help="skip the timed benchmark")
     ap.add_argument("--layout-cache", default=None,
-                    help="not ported yet: refused")
+                    help="path to a .npz layout (sell/ranked/packed): "
+                    "loaded when it exists, written after the build "
+                    "otherwise; the matrix is still loaded to validate")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="cpu runs the plain PyTorch versions and needs "
                     "--validate-only")
     args = ap.parse_args(argv)
 
-    if args.sigma > 0:
-        raise SystemExit(
-            f"--sigma is not ported to the GPU yet (ROADMAP.md item "
-            f"{REFUSED_SIGMA})"
-        )
-    if args.layout_cache is not None:
-        raise SystemExit(
-            f"--layout-cache is not ported to the GPU yet (ROADMAP.md "
-            f"item {REFUSED_LAYOUT_CACHE})"
-        )
     device = torch.device(args.device)
     if device.type == "cpu" and not args.validate_only:
         raise SystemExit(
@@ -346,22 +405,53 @@ def main(argv=None):
         )
 
     from tpu_spmv_torch.bench.harness import validate
-    from tpu_spmv_torch.tune.plan import gpu_plan
+    from tpu_spmv_torch.tune.model import tpu_plan
 
     mat = load_input(args.input)
     k = args.k if args.k is not None else (len(args.sizes) + 1 if args.sizes else 1)
     sizes = tuple(args.sizes) if args.sizes else tuple([16] * (k - 1))
-    ck, perm = prepare(mat, args.rcm, k, sizes)
+    ck, perm, rcm_plan = prepare(mat, args.rcm, k, sizes, with_plan=True)
     print(f"k={k} sizes={list(sizes)} rows={mat.m} nnz={mat.nnz}")
+    # x is gathered with perm (columns); the oracle's y with out_perm
+    # (rows), which a sigma row sort extends.
+    out_perm = perm
 
-    kernel = args.kernel
+    # One planner pass serves sigma, the auto kernel and the bin width.
+    kernel, bin_blocks, sigma = args.kernel, args.bin_blocks, args.sigma
+    plan = None
+    if kernel == "auto" or sigma < 0 or (kernel == "ranked" and bin_blocks < 0):
+        plan = rcm_plan or tpu_plan(ck.matrix, assume_rcm=(k > 1))
+    if sigma < 0:
+        sigma = plan.sigma
+        if sigma:
+            print(f"planner recommends sigma={sigma}")
+    if sigma:
+        from tpu_spmv_torch.formats.sell import sigma_sort
+
+        sorted_mat, sperm = sigma_sort(ck.matrix, sigma)
+        # The sort changes the chunks, so re-plan on the sorted matrix;
+        # a recommended sort is kept only when the re-plan costs less, a
+        # sort the user asked for always.
+        plan_s = (tpu_plan(sorted_mat, assume_rcm=(k > 1))
+                  if plan is not None else None)
+        if args.sigma >= 0 or plan is None or plan_s.est_cost < plan.est_cost:
+            ck = type(ck)(matrix=sorted_mat, perm=ck.perm, maps=ck.maps,
+                          k=ck.k, sup_row_sizes=ck.sup_row_sizes)
+            out_perm = out_perm[sperm]
+            plan = plan_s if plan_s is not None else plan
+            print(f"sigma={sigma} row sort applied")
+        else:
+            print(f"sigma={sigma} rejected after re-plan "
+                  f"({plan_s.est_cost:.0f} >= {plan.est_cost:.0f})")
+
     if kernel == "auto":
-        plan = gpu_plan(ck.matrix, assume_rcm=(k > 1))
         kernel = plan.kernel
         print(f"auto kernel: {kernel} ({plan.reason})")
-        bin_blocks = plan.bin_blocks if args.bin_blocks < 0 else args.bin_blocks
-    else:
-        bin_blocks = max(args.bin_blocks, 0)
+    if bin_blocks < 0:
+        bin_blocks = (plan.bin_blocks
+                      if plan and kernel in ("ranked", "sell", "packed") else 0)
+        if bin_blocks:
+            print(f"planner bin width: W={bin_blocks} blocks")
     vdt = torch.bfloat16 if args.val_dtype == "bf16" else None
     if vdt is not None and kernel == "striped":
         # The reference measured bf16 2.3x slower than f32 on its TPU's
@@ -378,8 +468,10 @@ def main(argv=None):
             f"{kernel!r}"
         )
 
+    cache = (None if args.layout_cache is None else LayoutCache(
+        args.layout_cache, ck.matrix, (bin_blocks, sigma, k), vdt is not None))
     layout, fn, kernel = build_layout(ck.matrix, kernel, vdt, bin_blocks,
-                                      device)
+                                      device, cache)
     x = np.random.default_rng(0).standard_normal(mat.n).astype(np.float32)
     # The permutation relabels columns with rows only on a square matrix;
     # a rectangular one is never reordered (prepare), so its x is not
@@ -391,13 +483,14 @@ def main(argv=None):
     # f32 and is judged against the f32 oracle).
     if getattr(layout, "vals", None) is not None and (
             layout.vals.dtype == torch.bfloat16):
-        wrong, rel = validate(y, mat.rounded().matvec(x)[perm], tol=args.tol)
-        y_f32 = mat.matvec(x)[perm]
+        wrong, rel = validate(y, mat.rounded().matvec(x)[out_perm],
+                              tol=args.tol)
+        y_f32 = mat.matvec(x)[out_perm]
         drift = np.linalg.norm(y - y_f32) / max(np.linalg.norm(y_f32), 1e-30)
         print(f"(bf16 values: validated vs the bf16-rounded operator; "
               f"RelL2 vs the f32 oracle = {drift:.2e})")
     else:
-        wrong, rel = validate(y, mat.matvec(x)[perm], tol=args.tol)
+        wrong, rel = validate(y, mat.matvec(x)[out_perm], tol=args.tol)
         if vdt is not None:
             print("(--val-dtype bf16 requested but the built layout "
                   "stores f32; validated vs the f32 oracle)")
