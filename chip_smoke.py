@@ -57,7 +57,7 @@ residency gate):
      rows count as spmv_ranked's;
   2. runs the planner's calibration (tools.tune's protocol, through
      bench/calibration.py) on the card at CALIB_SCALE, printing its
-     points and fit (the scale-1 fit comes from step 5's tools.tune run,
+     points and fit (the scale-1 fit comes from step 6's tools.tune run,
      which prints both beside the shipped entry for this card, or a line
      saying there is none and the planner runs on its module defaults);
      then prints tune/model.tpu_plan's plan (kernel, W, sigma,
@@ -86,7 +86,19 @@ residency gate):
   4. on lap3d_101 and lap2d_1024 checks IC0Preconditioner.apply against
      its plain version, times one CUDA-graph-captured PCG iteration and
      prints the residual as lap3d_101 converges;
-  5. drives each main path with every launch counter zeroed just before
+  5. runs the distributed layer (tpu_spmv_torch.dist) with D shards on
+     the one card, each on its own streams, on lap2d_1024 after RCM:
+     spmv_sharded over ShardedRanked at D = 1 (bit for bit spmv_ranked
+     on its one shard), 2 and 4 (the halo exchange), 4 with x gathered
+     whole, over ShardedSell at D = 4, spmv_overlap at D = 4 (the edge's
+     share of nnz printed), spmm_sharded at B = 8 on D = 1 (X past the
+     gate: windowed) and D = 4 (resident), spmm_overlap at B = 8, D = 4;
+     each held to the same call through the kernels' plain versions and
+     to the oracle, its launches checked (one a shard, two with the
+     overlap), its warm time from a CUDA graph printed beside the
+     single-device kernel's from step 1 and its bound (the layout, the x
+     windows, y and the halo rows once at the HBM rate);
+  6. drives each main path with every launch counter zeroed just before
      and read just after: the SpMV/SpMM CLIs (tools.spmv, tools.spmm on
      lap2d_1024 and banded_1m, and on the windowed routes: tools.spmv on
      lap2d_4096, natural and --kernel ranked after RCM, tools.spmm on
@@ -106,7 +118,12 @@ residency gate):
      windowed ranked run above writes the cache; the second run must
      load it and give the first run's bits), tools.sweep over
      lap2d_256 and banded_100k x auto, ranked and sell (its CSV
-     printed), and tools.tune --calibrate --dry-run;
+     printed), and tools.tune --calibrate --dry-run; and the
+     distributed paths: tools.solve plain CG and --pcg on lap3d_101 with
+     --devices 1 (--tol DIST_TOL), cg_solve's captured iteration over 4
+     shards (the residual at a quarter, half and all of DIST_ITERS),
+     tools.spmm --devices 0 at B = 8 and one call of each sharded entry
+     point on step 5's D = 4 layouts;
      it fails unless every kernel was launched on its path.
 
 It prints the card (nvidia-smi name and power limit), the toolchain, the
@@ -133,6 +150,13 @@ SOLVE_TOL = 1e-5
 # run asks for 1e-3, which IC(0)-PCG reaches in under 50 iterations.
 PCG_ITERS = 60
 PCG_TOL = 1e-3
+# tools.solve plain CG and Jacobi-PCG on lap3d_101 (Jacobi on a constant
+# diagonal is CG), and cg_solve over 4 shards: iterations and the RMS
+# residual bound they must meet. Plain CG in f32 levels off there at
+# ~4.9e-4 (H100: 6.2e-2 at 100 iterations, 4.9e-4 to 5.1e-4 from 200 to
+# 1,600), the level of IC(0)-PCG's floor, so the bound is 1e-3.
+DIST_ITERS = 400
+DIST_TOL = 1e-3
 # The calibration phase's sample scale (tools.tune --scale), at which
 # every sample takes 50 us or more on an H100; the reference's sizes
 # (scale 1), which the card runs in 10-30 us, are measured by the
@@ -947,8 +971,10 @@ def _check_solve(label, sys_, b, ranked, stats, setup, library_s,
                            layout_bytes=slabs.nbytes)
     eager = bench_spmv(kfn, slabs, bflat, nnz=nnz, graph=False, samples=3)
     k = cold.iters[2]
+    # The plain version is timed warm only: its cold time (K copies, one
+    # host loop over the packs each, seconds a solve on the largest
+    # systems) is left out to keep the run inside its time.
     p_warm = _time_eager(pfn, [slabs], bflat, 3)
-    p_cold = _time_eager(pfn, [slabs.clone() for _ in range(k)], bflat, k)
     us = lambda s: f"{s * 1e6:.2f}"  # noqa: E731
     print(
         f"[{label}] {kernel.__name__}: launches +{delta}, RelL2 vs plain "
@@ -970,7 +996,7 @@ def _check_solve(label, sys_, b, ranked, stats, setup, library_s,
           f"{1e6 * warm.time_min / chunk_depth:.3f} us per chunk level",
           flush=True)
     print(f"    plain  us per solve (eager host loop over the packs): warm "
-          f"{us(p_warm)}, cold {us(p_cold)} | bound by bytes "
+          f"{us(p_warm)}, cold not measured | bound by bytes "
           f"{bound_ms * 1e3:.2f} us ({bound_by}), {depth_txt} | timing wall "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     stats.setdefault(kernel.__name__, []).append(
@@ -1103,6 +1129,255 @@ def _ic0_phases():
             print(f"    rms residual by iteration: {' '.join(trace)}",
                   flush=True)
         del pre, lay, graph, state
+
+
+def _dist_bound(lay, batch):
+    """(bound_ms, bound_by) of one sharded call: the layout's tensors,
+    the x windows its kernels read, y and the halo rows the exchange
+    moves, each once at the HBM rate; 2 * nnz * B operations."""
+    from tpu_spmv_torch.dist.sharding import OverlapRanked
+
+    D, H, R = lay.n_devices, lay.halo, lay.rows_per_shard
+    window = R + 2 * H if (H or isinstance(lay, OverlapRanked)) else lay.n
+    nbytes = lay.nbytes + 4 * batch * (D * window + lay.padded_m
+                                       + 2 * (D - 1) * H)
+    return _bound(nbytes, 2 * lay.nnz * batch)
+
+
+def _dist_check(label, call, kernel, lay, mesh, mat, perm, stats,
+                single=None, batch=None, twin=None):
+    """One sharded call on the card: kernels against the same call
+    through their plain versions (PLAIN_TOL), the oracle (Number Wrong 0,
+    RelL2 <= L2_TOL), the kernel's launches (one per shard, two with the
+    overlap's edge), warm TimeMin/TimeAvg from a CUDA graph beside the
+    single-device kernel's (`single`: (name, seconds) or None) and the
+    call's bound. mat: the matrix in its original order (the oracle);
+    the layout was built from mat permuted by perm. twin: a callable
+    whose result must equal the sharded result bit for bit. Appends the
+    error to stats[kernel name]; returns the warm TimeMin in seconds."""
+    import numpy as np
+    import torch
+
+    from tpu_spmv_torch.bench.harness import bench_spmv
+    from tpu_spmv_torch.dist.sharding import (
+        OverlapRanked, gather_vector, shard_vector,
+    )
+
+    t0 = time.perf_counter()
+    shape = (mat.n,) if batch is None else (mat.n, batch)
+    x = np.random.default_rng(X_SEED).standard_normal(shape).astype(np.float32)
+    xs = shard_vector(x[perm], mesh, lay.padded_m)
+    before = kernel.launches
+    yk = call(lay, xs, mesh)
+    torch.cuda.synchronize()
+    delta = kernel.launches - before
+    yp = call(lay, xs, mesh, plain=True)
+    yk_h, yp_h = gather_vector(yk)[: mat.m], gather_vector(yp)[: mat.m]
+    err = float(np.abs(yk_h - yp_h).max())
+    scale = max(1.0, float(np.abs(yp_h).max()))
+    wrong, rel = _validate_columns(yk_h, x, mat, perm)
+    D = lay.n_devices
+    want = D * (2 if isinstance(lay, OverlapRanked) else 1)
+    if delta != want:
+        raise SmokeFailure(f"{label}: {kernel.__name__} launched {delta} "
+                           f"times, not {want}")
+    if not err <= PLAIN_TOL * scale:
+        raise SmokeFailure(f"{label}: kernels differ from plain by {err:.3g}")
+    if wrong != 0 or not rel <= L2_TOL:
+        raise SmokeFailure(f"{label}: Number Wrong {wrong}, RelL2 {rel:.3g}")
+    if twin is not None and not np.array_equal(yk_h, twin()[: mat.m]):
+        raise SmokeFailure(f"{label}: not bit for bit the single-device "
+                           "kernel's result")
+    B = 1 if batch is None else batch
+    warm = bench_spmv(lambda lay_, _x: call(lay_, xs, mesh), lay, xs[0],
+                      nnz=mat.nnz)
+    bound_ms, bound_by = _dist_bound(lay, B)
+    single_txt = "not timed" if single is None else (
+        f"{single[0]} {single[1] * 1e6:.2f} us, sharded / single "
+        f"{warm.time_min / single[1]:.2f}")
+    print(f"[{label}] D={D} halo={lay.halo} rows/shard={lay.rows_per_shard}"
+          f": {kernel.__name__} launches +{delta}, max|kernel-plain| "
+          f"{err:.3g}, Number Wrong {wrong}, RelL2 {rel:.3g}"
+          + (", same bits as the single-device kernel" if twin else ""),
+          flush=True)
+    print(f"    warm TimeMin/TimeAvg us (CUDA graph): "
+          f"{warm.time_min * 1e6:.2f}/{warm.time_avg * 1e6:.2f} | single "
+          f"device: {single_txt} | bound {bound_ms * 1e3:.2f} us "
+          f"({bound_by}: layout {lay.nbytes / 2**20:.1f} MB + x windows + y "
+          f"+ halo once at {HBM_BYTES_PER_S / 1e12:.2f} TB/s), "
+          f"{warm.time_min * 1e3 / bound_ms:.2f}x | phase wall "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    stats.setdefault(kernel.__name__, []).append(
+        dict(label=f"dist {label}", err=err))
+    return warm.time_min
+
+
+def _single_ms(stats, kernel, label):
+    """(label, seconds) of an earlier phase's warm TimeMin, or None."""
+    rows = [r for r in stats.get(kernel, ()) if r["label"].startswith(label)
+            and "ms" in r]
+    return (label, rows[0]["ms"] / 1e3) if rows else None
+
+
+def _dist_phases(stats):
+    """The distributed layer on lap2d_1024 after RCM (1,048,576 rows),
+    D shards on the one card: spmv_sharded with ShardedRanked at D = 1
+    (the bits of spmv_ranked on its shard), 2 and 4 (halo), 4 with
+    halo="never" (x gathered whole), ShardedSell at D = 4, spmv_overlap at
+    D = 4 (the edge's share of nnz printed), spmm_sharded at B = 8 and D =
+    1 (X past the residency gate: windowed) and D = 4 (resident), and
+    spmm_overlap at B = 8, D = 4; each held by _dist_check. Returns the
+    D = 4 layouts and the mesh, for the main path's run."""
+    import torch
+
+    from tpu_spmv_torch.dist import sharding as dsh
+    from tpu_spmv_torch.kernels import sell, spmm
+    from tpu_spmv_torch.kernels.sell import resident_x_fits
+    from tpu_spmv_torch.tools.spmv import load_input, prepare
+
+    dev = torch.device("cuda")
+    mat = load_input("synthetic:lap2d_1024")
+    ck, perm = prepare(mat, "always")
+    a = ck.matrix  # the layouts' rows; mat (original order) is the oracle
+    ranked_single = _single_ms(stats, "spmv_ranked",
+                               "lap2d_1024 rcm ranked grouped")
+    keep = {}
+    for D, halo in ((1, "auto"), (2, "auto"), (4, "auto"), (4, "never")):
+        t0 = time.perf_counter()
+        mesh = dsh.make_row_mesh([dev] * D)
+        lay = dsh.ShardedRanked.build(a, D, halo=halo).device_put(mesh)
+        build_s = time.perf_counter() - t0
+        twin = None
+        if D == 1:
+            if lay.halo or lay.shard_n != a.n:
+                raise SmokeFailure("D=1: a halo or a window past n")
+
+            def twin(lay=lay, mesh=mesh):
+                import numpy as np
+
+                x = np.random.default_rng(X_SEED).standard_normal(
+                    a.n).astype(np.float32)[perm]
+                return sell.spmv_ranked(
+                    lay.shards[0], torch.from_numpy(x).to(dev)).cpu().numpy()
+        label = f"lap2d_1024 rcm spmv_sharded ranked halo={halo}"
+        print(f"    [{label} D={D}] host build {build_s:.2f} s", flush=True)
+        _dist_check(label, dsh.spmv_sharded, sell.spmv_ranked, lay, mesh, mat,
+                    perm, stats, ranked_single, twin=twin)
+        if D == 1:
+            B = 8
+            if resident_x_fits(lay.shards[0], batch=B):
+                raise SmokeFailure("D=1 B=8: X passes the residency gate")
+            _dist_check(f"lap2d_1024 rcm spmm_sharded B={B} (windowed)",
+                        dsh.spmm_sharded, spmm.spmm_ranked_windowed, lay,
+                        mesh, mat, perm, stats,
+                        _single_ms(stats, "spmm_ranked_windowed",
+                                   "lap2d_1024 rcm spmm_ranked_windowed B=8"),
+                        batch=B)
+        if D == 4 and halo == "auto":
+            if not all(resident_x_fits(s, batch=8) for s in lay.shards):
+                raise SmokeFailure("D=4 B=8: X fails the residency gate")
+            _dist_check("lap2d_1024 rcm spmm_sharded B=8 (resident)",
+                        dsh.spmm_sharded, spmm.spmm_ranked, lay, mesh, mat,
+                        perm, stats, _single_ms(
+                            stats, "spmm_ranked",
+                            "lap2d_1024 rcm spmm_ranked B=8"), batch=8)
+            keep["ranked"], keep["mesh"] = lay, mesh
+        del lay
+    mesh = keep["mesh"]
+    sell_lay = dsh.ShardedSell.build(a, 4).device_put(mesh)
+    _dist_check("lap2d_1024 rcm spmv_sharded sell", dsh.spmv_sharded,
+                sell.spmv_sell, sell_lay, mesh, mat, perm, stats,
+                _single_ms(stats, "spmv_sell", "lap2d_1024 rcm sell"))
+    keep["sell"] = sell_lay
+    over = dsh.OverlapRanked.build(a, 4).device_put(mesh)
+    print(f"    [lap2d_1024 rcm overlap D=4] edge nnz {over.edge.nnz} of "
+          f"{over.nnz} ({100 * over.edge.nnz / over.nnz:.2f}%) waits on the "
+          f"exchange; halo {over.halo}", flush=True)
+    _dist_check("lap2d_1024 rcm spmv_overlap", dsh.spmv_overlap,
+                sell.spmv_ranked, over, mesh, mat, perm, stats, ranked_single)
+    _dist_check("lap2d_1024 rcm spmm_overlap B=8", dsh.spmm_overlap,
+                spmm.spmm_ranked, over, mesh, mat, perm, stats,
+                _single_ms(stats, "spmm_ranked",
+                           "lap2d_1024 rcm spmm_ranked B=8"), batch=8)
+    keep["overlap"] = over
+    keep["matrix"], keep["perm"] = mat, perm
+    return keep
+
+
+def _dist_cg(iters):
+    """A _drive step: cg_solve's captured iteration over 4 shards on the
+    one card, on lap3d_101 in natural order (already banded), b = ones,
+    replayed `iters` times: the RMS residual at a quarter, half and all
+    of them (CG's level in f32 shows where it stops falling; the last
+    must be below DIST_TOL) and the us per iteration."""
+    def run():
+        import numpy as np
+        import torch
+
+        from tpu_spmv_torch.dist import sharding as dsh
+        from tpu_spmv_torch.dist import solvers
+        from tpu_spmv_torch.tools.spmv import load_input
+
+        mat = load_input("synthetic:lap3d_101")
+        mesh = dsh.make_row_mesh([torch.device("cuda")] * 4)
+        lay = dsh.ShardedRanked.build(mat, 4).device_put(mesh)
+        b = dsh.shard_vector(np.ones(mat.m, np.float32), mesh, lay.padded_m)
+        state = solvers.cg_init(b, mesh)
+        graph = solvers.capture_step(lay, mesh, state)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        done, ms, res = 0, 0.0, []
+        for upto in (iters // 4, iters // 2, iters):
+            start.record()
+            for _ in range(upto - done):
+                graph.replay()
+            stop.record()
+            stop.synchronize()
+            ms += start.elapsed_time(stop)
+            done = upto
+            x = dsh.gather_vector(state[0])[: mat.m]
+            res.append((upto, float(np.linalg.norm(mat.matvec(x) - 1.0)
+                                    / np.sqrt(mat.m))))
+        print(f"== cg_solve lap3d_101 over D=4 shards on one card (halo "
+              f"{lay.halo}): rms_residual " + ", ".join(
+                  f"{r:.3e} at {i}" for i, r in res)
+              + f" iterations | {ms / iters * 1e3:.2f} us per iteration "
+              "(CUDA graph)", flush=True)
+        if not res[-1][1] < DIST_TOL:
+            raise SmokeFailure(f"cg_solve lap3d_101 D=4: residual "
+                               f"{res[-1][1]:.3e}")
+    return run
+
+
+def _dist_calls(keep):
+    """_drive steps: one call of each sharded entry point on the dist
+    phase's D = 4 layouts (ShardedSell, ShardedRanked resident SpMM, the
+    overlap's SpMV and SpMM), each validated against the oracle."""
+    import numpy as np
+
+    from tpu_spmv_torch.dist import sharding as dsh
+
+    a, perm, mesh = keep["matrix"], keep["perm"], keep["mesh"]
+
+    def step(name, call, lay, batch=None):
+        def run():
+            shape = (a.n,) if batch is None else (a.n, batch)
+            x = np.random.default_rng(X_SEED).standard_normal(shape).astype(
+                np.float32)
+            y = dsh.gather_vector(call(lay, dsh.shard_vector(
+                x[perm], mesh, lay.padded_m), mesh))[: a.m]
+            wrong, rel = _validate_columns(y, x, a, perm)
+            print(f"== {name} lap2d_1024 rcm D=4: Number Wrong {wrong}, "
+                  f"RelL2 {rel:.3g}", flush=True)
+            if wrong or not rel <= L2_TOL:
+                raise SmokeFailure(f"{name}: Number Wrong {wrong}, RelL2 "
+                                   f"{rel:.3g}")
+        return run
+
+    return (step("spmv_sharded(ShardedSell)", dsh.spmv_sharded, keep["sell"]),
+            step("spmm_sharded(B=8)", dsh.spmm_sharded, keep["ranked"], 8),
+            step("spmv_overlap", dsh.spmv_overlap, keep["overlap"]),
+            step("spmm_overlap(B=8)", dsh.spmm_overlap, keep["overlap"], 8))
 
 
 def _calibration():
@@ -1451,10 +1726,10 @@ def _cache_argv(cache):
             "always", "--bin-blocks", "0", "--layout-cache", cache]
 
 
-def _main_path(bin_blocks, calib):
+def _main_path(bin_blocks, calib, dist):
     """Launch counts of each kernel over its own path's run. W: the bin
     width of the striped route's run; calib: the calibration phase's
-    fit."""
+    fit; dist: the dist phase's D = 4 layouts (_dist_phases)."""
     import tempfile
 
     from tpu_spmv_torch.kernels import sell
@@ -1497,6 +1772,18 @@ def _main_path(bin_blocks, calib):
         (solve_cli, ["synthetic:lap3d_101", "--precond", "ic0", "--iters",
                      str(PCG_ITERS), "--tol", str(PCG_TOL)]),
     ))
+    dist_argv = ["synthetic:lap3d_101", "--iters", str(DIST_ITERS), "--tol",
+                 str(DIST_TOL), "--devices", "1"]
+    dist_path = _drive((
+        (solve_cli, dist_argv),
+        (solve_cli, [*dist_argv, "--pcg"]),
+        _dist_cg(DIST_ITERS),
+        # --devices 0 is every card (one here): a D = 1 mesh whose X of
+        # 33.5 MB is past the residency gate, so spmm_ranked_windowed.
+        (spmm_cli, ["synthetic:lap2d_1024", "20", "--batch", "8",
+                    "--devices", "0"]),
+        *_dist_calls(dist),
+    ))
     library = _library_blocks()
     striped_path, baselines, flag_path = _striped_and_baselines(bin_blocks)
     with tmp:
@@ -1506,12 +1793,19 @@ def _main_path(bin_blocks, calib):
                   lower_solve_blocks=library["lower_solve_blocks"])
     counts["spmv_ranked"] += striped_path["spmv_ranked"]
     counts["spmv_striped"] = striped_path["spmv_striped"]
+    dist_kernels = ("spmv_ranked", "spmv_sell", "spmm_ranked",
+                    "spmm_ranked_windowed")
+    for k in dist_kernels:
+        counts[k] += dist_path[k]
     print(f"launches: SpMV/SpMM CLIs {spmv_path} | solve CLIs {sts_path} | "
+          f"dist (tools.solve CG and Jacobi-PCG, cg_solve D=4, tools.spmm "
+          f"--devices 0, the D=4 sharded calls) {dist_path} | "
           f"library lower_solve(ranked=False) {library} | striped CLI "
           f"{striped_path} | baseline CLIs {baselines} | flagship "
           f"{flag_path} | " + " | ".join(
               f"{k} {v}" for k, v in planner.items()), flush=True)
     missing = [k for k, v in counts.items() if v < 1]
+    missing += [f"{k} (dist)" for k in dist_kernels if dist_path[k] < 1]
     missing += [f"{k} (striped CLI)" for k in ("spmv_ranked", "spmv_striped")
                 if striped_path[k] < 1]
     missing += [f"{k} (flagship)" for k in ("spmv_dia", "spmv_packed")
@@ -1633,7 +1927,11 @@ def main() -> int:
         print(f"ic0 phases: wall {time.perf_counter() - t0:.1f} s",
               flush=True)
         t0 = time.perf_counter()
-        counts = _main_path(bin_blocks, calib)
+        dist = _dist_phases(stats)
+        print(f"dist phases: wall {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        t0 = time.perf_counter()
+        counts = _main_path(bin_blocks, calib, dist)
         print(f"CLI runs: wall {time.perf_counter() - t0:.1f} s", flush=True)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -981,3 +981,111 @@ def test_cached_layout_gives_the_built_layouts_bits(cuda, kind, tmp_path):
     x = torch.from_numpy(np.random.default_rng(0).standard_normal(
         mat.n).astype(np.float32)).to(cuda)
     assert torch.equal(fn(built.to(cuda), x), fn(loaded.to(cuda), x))
+
+
+# The distributed layer (tpu_spmv_torch.dist): D shards on the one card,
+# each with its own streams, every sharded call held to the same call
+# through the kernels' plain versions and to the oracle.
+
+def _dist_case(cuda, mat, D, cls="ranked", **kw):
+    from tpu_spmv_torch.dist import sharding as dsh
+
+    mesh = dsh.make_row_mesh([cuda] * D)
+    build = {"ranked": dsh.ShardedRanked, "sell": dsh.ShardedSell,
+             "overlap": dsh.OverlapRanked}[cls]
+    return dsh, mesh, build.build(mat, D, **kw).device_put(mesh)
+
+
+def _dist_check(dsh, call, lay, mesh, mat, X):
+    """kernel vs plain (1e-5 * max(1, max |y|)) and the oracle."""
+    Xs = dsh.shard_vector(X, mesh, lay.padded_m)
+    yk = dsh.gather_vector(call(lay, Xs, mesh))[: mat.m]
+    yp = dsh.gather_vector(call(lay, Xs, mesh, plain=True))[: mat.m]
+    assert np.abs(yk - yp).max() <= 1e-5 * max(1.0, np.abs(yp).max())
+    Xc = X.reshape(mat.n, -1)
+    ref = np.stack([mat.matvec(Xc[:, b]) for b in range(Xc.shape[1])], 1)
+    wrong, rel = validate(yk.reshape(mat.m, -1), ref)
+    assert wrong == 0 and rel <= 1e-6, (wrong, rel)
+    return yk
+
+
+@pytest.mark.parametrize("D", [1, 2, 4])
+@pytest.mark.parametrize("cls", ["ranked", "sell"])
+def test_sharded_spmv_on_one_card(cuda, D, cls):
+    from tpu_spmv_torch.kernels.sell import spmv_ranked, spmv_sell
+
+    mat = _rcm(laplacian_2d(100))
+    dsh, mesh, lay = _dist_case(cuda, mat, D, cls)
+    kernel = spmv_ranked if cls == "ranked" else spmv_sell
+    before = kernel.launches
+    x = np.random.default_rng(0).standard_normal(mat.n).astype(np.float32)
+    y = _dist_check(dsh, dsh.spmv_sharded, lay, mesh, mat, x)
+    assert kernel.launches - before == D
+    if D == 1 and cls == "ranked":
+        # One shard, no halo: spmv_ranked's bits on the shard's layout.
+        one = spmv_ranked(lay.shards[0], dsh.shard_vector(
+            x, mesh, lay.padded_m)[0][: mat.n])[: mat.m]
+        assert np.array_equal(y, one.cpu().numpy())
+
+
+def test_sharded_spmv_allgather_on_one_card(cuda):
+    mat = _rcm(laplacian_2d(100))
+    dsh, mesh, lay = _dist_case(cuda, mat, 4, halo="never")
+    assert lay.halo == 0
+    x = np.random.default_rng(1).standard_normal(mat.n).astype(np.float32)
+    _dist_check(dsh, dsh.spmv_sharded, lay, mesh, mat, x)
+
+
+def test_overlap_on_one_card(cuda):
+    mat = random_banded(8000, 50, 8, seed=2)
+    dsh, mesh, lay = _dist_case(cuda, mat, 4, "overlap")
+    assert lay.edge.nnz > 0
+    x = np.random.default_rng(2).standard_normal(mat.n).astype(np.float32)
+    _dist_check(dsh, dsh.spmv_overlap, lay, mesh, mat, x)
+    X = np.random.default_rng(3).standard_normal((mat.n, 3)).astype(
+        np.float32)
+    _dist_check(dsh, dsh.spmm_overlap, lay, mesh, mat, X)
+
+
+def test_overlap_with_empty_edges_on_one_card(cuda):
+    import scipy.sparse as sp
+
+    blocks = [random_banded(1024, 30, 6, seed=s).to_scipy() for s in range(4)]
+    mat = CSRMatrix.from_scipy(sp.block_diag(blocks, format="csr"))
+    dsh, mesh, lay = _dist_case(cuda, mat, 4, "overlap")
+    assert lay.edge.nnz == 0
+    x = np.random.default_rng(4).standard_normal(mat.n).astype(np.float32)
+    _dist_check(dsh, dsh.spmv_overlap, lay, mesh, mat, x)
+
+
+@pytest.mark.parametrize("kernel", ["resident", "windowed", "auto"])
+def test_sharded_spmm_on_one_card(cuda, kernel):
+    mat = _rcm(laplacian_2d(100))
+    dsh, mesh, lay = _dist_case(cuda, mat, 4)
+    X = np.random.default_rng(5).standard_normal((mat.n, 5)).astype(
+        np.float32)
+
+    def call(lay_, Xs, mesh_, plain=False):
+        return dsh.spmm_sharded(lay_, Xs, mesh_, kernel=kernel, plain=plain)
+
+    _dist_check(dsh, call, lay, mesh, mat, X)
+
+
+def test_sharded_cg_graph_on_one_card(cuda):
+    """CG over 4 shards: a captured iteration replayed gives the eager
+    loop's x (to 1e-5), and both converge."""
+    from tpu_spmv_torch.dist import solvers
+
+    mat = random_banded(8000, 50, 8, seed=1)
+    dsh, mesh, lay = _dist_case(cuda, mat, 4)
+    b = dsh.shard_vector(np.ones(mat.m, np.float32), mesh, lay.padded_m)
+    xg, rzg = solvers.cg_solve(lay, b, mesh, iters=80, graph=True)
+    xe, rze = solvers.cg_solve(lay, b, mesh, iters=80, graph=False)
+    xg, xe = dsh.gather_vector(xg)[: mat.m], dsh.gather_vector(xe)[: mat.m]
+    assert np.linalg.norm(xg - xe) / np.linalg.norm(xe) <= 1e-5
+    assert np.linalg.norm(mat.matvec(xg) - 1.0) / np.sqrt(mat.m) < 1e-4
+    inv = dsh.shard_vector(solvers.jacobi_inv_diag(mat.diagonal(),
+                                                   lay.padded_m), mesh)
+    xp, _ = solvers.pcg_solve(lay, b, mesh, inv, iters=80)
+    xp = dsh.gather_vector(xp)[: mat.m]
+    assert np.linalg.norm(mat.matvec(xp) - 1.0) / np.sqrt(mat.m) < 1e-4

@@ -7,8 +7,9 @@ scipy's two triangular solves in f64, RelL2 <= 1e-6 as
 tests/test_ic0.py holds the reference. pcg_ic0_solve follows JAX's loop
 to RelL2 <= 1e-4 in x after 10 iterations (both in f32; the two
 packages' solves round differently, and CG amplifies the difference).
-The solve CLI runs on the CPU and refuses what runs over the
-distributed layer, naming ROADMAP item A13.
+The solve CLI runs on the CPU as the JAX CLI runs (plain CG, Jacobi,
+IC(0), ic0-bj on one device) and refuses the distributed IC(0)
+preconditioners, naming ROADMAP item A13c.
 """
 
 import jax.numpy as jnp
@@ -23,6 +24,7 @@ from tpu_spmv.formats import sell as jsell
 from tpu_spmv.reorder.rcm import rcm
 from tpu_spmv.sts import ic0 as jic0
 
+from test_torch_dist import one_thread  # noqa: F401 (a fixture)
 from test_torch_sts import _assert_same_solve_layout
 from tpu_spmv_torch.formats.sell import RankedSlabs
 from tpu_spmv_torch.sts import host as thost
@@ -147,14 +149,29 @@ def test_solve_cli_on_cpu(capsys):
     ["--precond", "jacobi"],
     ["--precond", "ic0-bj"],
     ["--precond", "ic0", "--overlap"],
+])
+def test_solve_cli_runs_as_the_reference(args, one_thread):
+    """What the port once refused runs on the CPU: plain CG and Jacobi
+    over one shard, IC(0) with --pcg or --overlap ignored as the JAX CLI
+    ignores them, and ic0-bj on one device as exact IC(0); the residual
+    line agrees with tpu_spmv.tools.solve's at the same --devices."""
+    from test_torch_dist import assert_solve_cli_agrees
+
+    argv = ["synthetic:banded_1k", *args, "--devices", "1"]
+    assert_solve_cli_agrees(argv)
+    assert_solve_cli_agrees(argv, iters=60)
+
+
+@pytest.mark.parametrize("args", [
     ["--precond", "ic0", "--devices", "2"],
+    ["--precond", "ic0-bj", "--devices", "2"],
 ])
 def test_solve_cli_refusals(args):
     from tpu_spmv_torch.tools import solve
 
     with pytest.raises(SystemExit) as e:
         solve.main(["synthetic:banded_1k", *args, "--device", "cpu"])
-    assert "ROADMAP.md item A13" in str(e.value)
+    assert "ROADMAP.md item A13c" in str(e.value)
 
 
 def test_solve_cli_needs_a_card(monkeypatch):

@@ -5,7 +5,8 @@ in a fresh interpreter: it imports every tpu_spmv_torch module (and
 chip_smoke), runs the CLIs on the CPU (SpMV auto, packed, the baselines
 segsum, bcoo and dense, and ranked with the residency gate forced, so the
 windowed and the column-striped routes run; SpMM, the triangular solve
-and IC(0)-PCG), the flagship and scattered benches on small inputs, the
+and IC(0)-PCG, and the distributed layer's CG, Jacobi-PCG and sharded
+SpMM with the overlap), the flagship and scattered benches on small inputs, the
 planner on a matrix large enough to be sampled, the calibration
 protocol, the SpMV CLI's sigma sort and layout cache, the sweep and
 analyze, and asserts that
@@ -26,6 +27,8 @@ import importlib, pkgutil, sys
 import tpu_spmv_torch
 names = [m.name for m in pkgutil.walk_packages(
     tpu_spmv_torch.__path__, "tpu_spmv_torch.")]
+assert {"tpu_spmv_torch.dist.sharding", "tpu_spmv_torch.dist.solvers"} <= set(
+    names)
 for name in names:
     importlib.import_module(name)
 import chip_smoke
@@ -56,6 +59,13 @@ rc = sts.main(["synthetic:banded_1k", "--device", "cpu", "--validate-only"])
 assert rc == 0, rc
 rc = solve.main(["synthetic:banded_1k", "--iters", "25", "--precond", "ic0",
                  "--devices", "1", "--device", "cpu"])
+assert rc == 0, rc
+for argv in (["--devices", "2"], ["--pcg", "--overlap", "--devices", "4"]):
+    rc = solve.main(["synthetic:lap2d_32", "--iters", "60", *argv, "--device",
+                     "cpu"])
+    assert rc == 0, rc
+rc = spmm.main(["synthetic:lap2d_32", "--batch", "3", "--devices", "2",
+                "--overlap", "--device", "cpu", "--validate-only"])
 assert rc == 0, rc
 from tpu_spmv_torch.tune.model import tpu_plan
 tpu_plan(spmv.load_input("synthetic:banded_100k"))  # samples 256 chunks

@@ -130,15 +130,30 @@ def test_cli_windowed_validates(spec, capsys):
     assert "Number Wrong: 0 " in out
 
 
-@pytest.mark.parametrize("args,item", [
-    (["--devices", "2"], "A13"),
-    (["--devices", "0"], "A13"),
-    (["--overlap"], "A13"),
+@pytest.mark.parametrize("args", [
+    ["--devices", "2"],
+    ["--devices", "0"],
+    ["--overlap"],
 ])
-def test_unported_options_are_refused(args, item):
-    with pytest.raises(SystemExit) as e:
-        cli.main(["synthetic:lap2d_32", *args, *CPU])
-    assert f"ROADMAP.md item {item}" in str(e.value)
+def test_distributed_options_run(args):
+    """The options the port once refused run as tpu_spmv.tools.spmm runs
+    them: --devices 2 over two shards (the same devices line), --devices
+    0 over every device (one shard on the CPU, the JAX CLI's 8 virtual
+    devices) and --overlap, which applies only with --devices; Number
+    Wrong 0 in both."""
+    from test_torch_dist import run_cli
+    from tpu_spmv.tools import spmm as jcli
+
+    argv = ["synthetic:lap2d_32", *args, "--validate-only"]
+    rc_j, out_j = run_cli(jcli.main, argv)
+    rc_t, out_t = run_cli(cli.main, [*argv, "--device", "cpu"])
+    assert rc_t == rc_j == 0, (out_t, out_j)
+    assert "Number Wrong: 0 " in out_t and "Number Wrong: 0 " in out_j
+    if args == ["--devices", "2"]:
+        line = [ln for ln in out_t.splitlines() if ln.startswith("devices=")]
+        assert line == [ln for ln in out_j.splitlines()
+                        if ln.startswith("devices=")] == [
+            "devices=2 halo=128 rows/shard=1024"]
 
 
 def test_cli_refuses_timing_without_a_card(monkeypatch):

@@ -136,14 +136,16 @@ def test_plan_sampling_matches_reference():
 
 
 @pytest.mark.parametrize("args,item", [
-    ([], "A13"),
-    (["--pcg"], "A13"),
-    (["--precond", "ic0-bj"], "A13"),
+    (["--precond", "ic0", "--devices", "2"], "A13c"),
+    (["--precond", "ic0-bj", "--devices", "2"], "A13c"),
+    (["--precond", "ic0-bj", "--devices", "4", "--pcg"], "A13c"),
 ])
 def test_unported_options_are_refused(args, item):
-    """What the port still refuses: the solves over the distributed
-    layer. The SpMV CLI's --sigma and --layout-cache run since they were
-    ported (tests/test_torch_layout_cache.py)."""
+    """What the port still refuses: the distributed IC(0)
+    preconditioners. Plain CG, Jacobi and --overlap run since the
+    distributed layer was ported (tests/test_torch_dist.py), and the SpMV
+    CLI's --sigma and --layout-cache since they were
+    (tests/test_torch_layout_cache.py)."""
     from tpu_spmv_torch.tools import solve as solve_cli
 
     with pytest.raises(SystemExit) as e:

@@ -329,7 +329,7 @@ def test_sts_cli_refusals(monkeypatch):
 
     with pytest.raises(SystemExit) as e:
         sts.main(["synthetic:banded_1k", "--devices", "2"])
-    assert "ROADMAP.md item A13" in str(e.value)
+    assert "ROADMAP.md item A13c" in str(e.value)
     with pytest.raises(SystemExit, match="timing needs a CUDA card"):
         sts.main(["synthetic:banded_1k", "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -1,0 +1,259 @@
+"""Times of the distributed layer (tpu_spmv_torch.dist) on the card(s).
+
+    python -m tpu_spmv_torch.bench.dist_times [--iters 1600]
+    python -m tpu_spmv_torch.bench.dist_times --cards
+
+One card (the default): D shards on it, D = 1 and 4.
+  * Where the streams go: spmv_sharded over ShardedRanked on lap2d_1024
+    after RCM and lap3d_101 (warm TimeMin, CUDA graph,
+    bench/harness.bench_spmv, twice each) beside spmv_ranked alone, with
+    the shards' kernels (a) each on a stream of its own, shard 0 too,
+    (b) as make_row_mesh places them, shard 0 on the caller's stream,
+    (c) all on the caller's stream, one after the other.
+  * CG and Jacobi-PCG on lap3d_101 (b = ones): us per iteration of a
+    captured iteration replayed `--iters` times, with the vector updates
+    as dist/solvers has them (one torch.addcmul each) and split into a
+    multiply and an add (as a first version had them), and the RMS
+    residual at 100, 200, 400, ... iterations.
+
+--cards: one shard a card (make_row_mesh() over every card). Each
+sharded call (ranked, all-gather, sell, the overlap; SpMV and SpMM at
+B = 8) on lap2d_1024 after RCM against its plain version and the oracle,
+with its eager time (host clock, every card synchronised; one CUDA graph
+cannot hold several cards), then cg_solve on lap3d_101 eagerly.
+
+The first line is the card's nvidia-smi name and power limit. Exits 1
+when a check fails.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+
+def _sharded_us(lay, xs, mesh) -> str:
+    from tpu_spmv_torch.bench.harness import bench_spmv
+    from tpu_spmv_torch.dist.sharding import spmv_sharded
+
+    def call(lay_, _x):
+        return spmv_sharded(lay_, xs, mesh)
+
+    return " ".join(f"{bench_spmv(call, lay, xs[0]).time_min * 1e6:.2f}"
+                    for _ in range(2))
+
+
+def _streams(dev) -> None:
+    from tpu_spmv_torch.bench.harness import bench_spmv
+    from tpu_spmv_torch.dist import sharding as dsh
+    from tpu_spmv_torch.kernels.sell import spmv_ranked
+    from tpu_spmv_torch.tools.spmv import load_input, prepare
+
+    for name, rcm in (("lap2d_1024", "always"), ("lap3d_101", "never")):
+        mat = load_input(f"synthetic:{name}")
+        a = prepare(mat, rcm)[0].matrix if rcm == "always" else mat
+        x = np.random.default_rng(0).standard_normal(a.n).astype(np.float32)
+        for D in (1, 4):
+            mesh = dsh.make_row_mesh([dev] * D)
+            lay = dsh.ShardedRanked.build(a, D).device_put(mesh)
+            xs = dsh.shard_vector(x, mesh, lay.padded_m)
+            own = dsh.RowMesh(mesh.devices, [torch.cuda.Stream(dev)
+                                             for _ in range(D)],
+                              mesh.halo_streams)
+            caller = dsh.RowMesh(mesh.devices, [None] * D, mesh.halo_streams)
+            alone = ""
+            if D == 1:
+                t = [bench_spmv(spmv_ranked, lay.shards[0], xs[0][: a.n])
+                     .time_min * 1e6 for _ in range(2)]
+                alone = "spmv_ranked alone " + " ".join(
+                    f"{v:.2f}" for v in t) + " | "
+            print(f"{name} D={D} halo={lay.halo}: {alone}sharded, a stream "
+                  f"a shard {_sharded_us(lay, xs, own)} | shard 0 on the "
+                  f"caller's {_sharded_us(lay, xs, mesh)} | all on the "
+                  f"caller's {_sharded_us(lay, xs, caller)} (warm TimeMin "
+                  "us, CUDA graph)", flush=True)
+
+
+def _split_step(layout, mesh, inv_diag, state):
+    """One (P)CG iteration with each vector update as a multiply and an
+    add: dist/solvers' arithmetic in twice the launches."""
+    from tpu_spmv_torch.dist.solvers import _dot, _spmv_any
+
+    x, r, p, rz = state
+    Ap = _spmv_any(layout, p, mesh)
+    alpha = rz / torch.clamp_min(_dot(p, Ap, mesh), 1e-30)
+    x = [xi + alpha.to(xi.device) * pi for xi, pi in zip(x, p)]
+    r = [ri - alpha.to(ri.device) * ai for ri, ai in zip(r, Ap)]
+    z = r if inv_diag is None else [ri * di for ri, di in zip(r, inv_diag)]
+    rz_new = _dot(r, z, mesh)
+    beta = rz_new / torch.clamp_min(rz, 1e-30)
+    p = [zi + beta.to(zi.device) * pi for zi, pi in zip(z, p)]
+    return (x, r, p, rz_new)
+
+
+def _capture(step, state):
+    """A CUDA graph of step(state) copied back into state (as
+    dist/solvers.capture_step, for any step)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step(tuple([t.clone() for t in v] if isinstance(v, list)
+                   else v.clone() for v in state))
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for old, new in zip(state, step(state)):
+            pairs = zip(old, new) if isinstance(old, list) else ((old, new),)
+            for o, n in pairs:
+                o.copy_(n)
+    return graph
+
+
+def _cg(dev, iters: int) -> bool:
+    from tpu_spmv_torch.dist import sharding as dsh
+    from tpu_spmv_torch.dist import solvers
+    from tpu_spmv_torch.tools.spmv import load_input
+
+    mat = load_input("synthetic:lap3d_101")
+    ok = True
+    for D in (1, 4):
+        mesh = dsh.make_row_mesh([dev] * D)
+        lay = dsh.ShardedRanked.build(mat, D).device_put(mesh)
+        b = dsh.shard_vector(np.ones(mat.m, np.float32), mesh, lay.padded_m)
+        jac = dsh.shard_vector(
+            solvers.jacobi_inv_diag(mat.diagonal(), lay.padded_m), mesh)
+        for inv in (None, jac):
+            for updates in ("addcmul", "multiply + add"):
+                state = (solvers.cg_init(b, mesh) if inv is None
+                         else solvers.pcg_init(b, mesh, inv))
+                if updates == "addcmul":
+                    graph = solvers.capture_step(lay, mesh, state, inv)
+                else:
+                    graph = _capture(
+                        lambda s: _split_step(lay, mesh, inv, s), state)
+                done, ms, res = 0, 0.0, []
+                upto = 100
+                while done < iters:
+                    upto = min(upto, iters)
+                    start = torch.cuda.Event(enable_timing=True)
+                    stop = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    for _ in range(upto - done):
+                        graph.replay()
+                    stop.record()
+                    stop.synchronize()
+                    ms += start.elapsed_time(stop)
+                    done = upto
+                    x = dsh.gather_vector(state[0])[: mat.m]
+                    rms = np.linalg.norm(mat.matvec(x) - 1.0) / np.sqrt(mat.m)
+                    res.append(f"{rms:.3e}@{done}")
+                    upto *= 2
+                ok &= done < 200 or rms < 1e-3
+                print(f"lap3d_101 {'CG' if inv is None else 'Jacobi-PCG'} "
+                      f"D={D} ({updates}): {ms / iters * 1e3:.2f} us an "
+                      f"iteration (CUDA graph); rms_residual "
+                      f"{' '.join(res)}", flush=True)
+    return ok
+
+
+def _cards() -> bool:
+    from tpu_spmv_torch.bench.harness import validate
+    from tpu_spmv_torch.dist import sharding as dsh
+    from tpu_spmv_torch.dist import solvers
+    from tpu_spmv_torch.tools.spmv import load_input, prepare
+
+    mesh = dsh.make_row_mesh()
+    D = mesh.size
+
+    def sync():
+        for d in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(d)
+
+    def eager_us(fn, k=20):
+        fn()
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(k):
+            fn()
+        sync()
+        return (time.perf_counter() - t0) / k * 1e6
+
+    peer = [[torch.cuda.can_device_access_peer(i, j) for j in range(D)
+             if j != i] for i in range(D)]
+    print(f"mesh: {[str(d) for d in mesh.devices]}, peer access {peer}",
+          flush=True)
+    a = prepare(load_input("synthetic:lap2d_1024"), "always")[0].matrix
+    ok = True
+    for name, lay in (("ranked", dsh.ShardedRanked.build(a, D)),
+                      ("ranked all-gather",
+                       dsh.ShardedRanked.build(a, D, halo="never")),
+                      ("sell", dsh.ShardedSell.build(a, D)),
+                      ("overlap", dsh.OverlapRanked.build(a, D))):
+        lay = lay.device_put(mesh)
+        for B in (None, 8):
+            if B and name in ("sell", "ranked all-gather"):
+                continue
+            over = name == "overlap"
+            if B is None:
+                call = dsh.spmv_overlap if over else dsh.spmv_sharded
+            else:
+                call = dsh.spmm_overlap if over else dsh.spmm_sharded
+            shape = (a.n,) if B is None else (a.n, B)
+            x = np.random.default_rng(0).standard_normal(shape).astype(
+                np.float32)
+            xs = dsh.shard_vector(x, mesh, lay.padded_m)
+            y = dsh.gather_vector(call(lay, xs, mesh))[: a.m]
+            yp = dsh.gather_vector(call(lay, xs, mesh, plain=True))[: a.m]
+            xc = x.reshape(a.n, -1)
+            ref = np.stack([a.matvec(xc[:, c]) for c in range(xc.shape[1])],
+                           1)
+            wrong, rel = validate(y.reshape(a.m, -1), ref)
+            err = float(np.abs(y - yp).max())
+            good = wrong == 0 and rel <= 1e-6 and err <= 1e-5 * max(
+                1.0, float(np.abs(yp).max()))
+            ok &= good
+            print(f"lap2d_1024 rcm {name} B={B or 1} D={D} halo={lay.halo}: "
+                  f"Number Wrong {wrong}, RelL2 {rel:.3g}, max|kernel-plain| "
+                  f"{err:.3g} | eager us a call "
+                  f"{eager_us(lambda: call(lay, xs, mesh)):.2f} | "
+                  f"{'ok' if good else 'FAILED'}", flush=True)
+    mat = load_input("synthetic:lap3d_101")
+    lay = dsh.ShardedRanked.build(mat, D).device_put(mesh)
+    b = dsh.shard_vector(np.ones(mat.m, np.float32), mesh, lay.padded_m)
+    t0 = time.perf_counter()
+    x, _ = solvers.cg_solve(lay, b, mesh, iters=200)
+    sync()
+    dt = time.perf_counter() - t0
+    x = dsh.gather_vector(x)[: mat.m]
+    res = float(np.linalg.norm(mat.matvec(x) - 1.0) / np.sqrt(mat.m))
+    ok &= res < 1e-3
+    print(f"cg_solve lap3d_101 D={D} eager: 200 iterations, rms_residual "
+          f"{res:.3e}, {dt / 200 * 1e6:.2f} us an iteration (host clock)",
+          flush=True)
+    return ok
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--iters", type=int, default=1600)
+    ap.add_argument("--cards", action="store_true",
+                    help="one shard a card, over every card")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: the times are the card's")
+
+    from tpu_spmv_torch import hw
+
+    print(hw.nvidia_smi(), flush=True)
+    if args.cards:
+        return 0 if _cards() else 1
+    dev = torch.device("cuda")
+    _streams(dev)
+    return 0 if _cg(dev, args.iters) else 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,177 @@
+"""CG and Jacobi-PCG over the sharded SpMV: the port of
+`tpu_spmv/dist/solvers.py`.
+
+Vectors are sharded as the SpMV's (lists of D row pieces, one per mesh
+device). A dot product is the sum of the shards' partial dots (the
+reference's psum), left on the device: no `.item()` and no Python branch
+on a device value, so one iteration can be captured in a CUDA graph
+(`capture_step`) and replayed, the counterpart of the reference's jitted
+loop. The state is the reference's tuple (x, r, p, rz), with the same
+`max(., 1e-30)` guards. On the CPU the loop runs eagerly.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from tpu_spmv_torch.dist.sharding import (
+    OverlapRanked, RowMesh, spmv_overlap, spmv_sharded,
+)
+
+
+def _spmv_any(layout, v, mesh: RowMesh, axis="rows"):
+    """spmv_overlap for an OverlapRanked layout, else spmv_sharded."""
+    if isinstance(layout, OverlapRanked):
+        return spmv_overlap(layout, v, mesh, axis)
+    return spmv_sharded(layout, v, mesh, axis)
+
+
+def _dot(a, b, mesh: RowMesh) -> torch.Tensor:
+    """Sum of the shards' dots, on the first shard's device (shard by
+    shard in order: one shard's dot is the sum, with no extra launch)."""
+    home = mesh.devices[0]
+    total = None
+    for x, y in zip(a, b):
+        part = torch.dot(x, y).to(home, non_blocking=True)
+        total = part if total is None else total + part
+    return total
+
+
+def _axpy(y, s: torch.Tensor, x, sign: float = 1.0) -> list:
+    """[y_d + sign * s * x_d] shard by shard, one launch a shard; s a
+    device scalar, moved to each shard's device."""
+    return [torch.addcmul(yi, s.to(yi.device, non_blocking=True), xi,
+                          value=sign) for yi, xi in zip(y, x)]
+
+
+def cg_step(layout, mesh: RowMesh, state, axis="rows"):
+    """One CG iteration on the sharded state (x, r, p, rz). layout:
+    ShardedSell, ShardedRanked or OverlapRanked."""
+    x, r, p, rz = state
+    Ap = _spmv_any(layout, p, mesh, axis)
+    alpha = rz / torch.clamp_min(_dot(p, Ap, mesh), 1e-30)
+    x = _axpy(x, alpha, p)
+    r = _axpy(r, alpha, Ap, -1.0)
+    rz_new = _dot(r, r, mesh)
+    beta = rz_new / torch.clamp_min(rz, 1e-30)
+    p = _axpy(r, beta, p)
+    return (x, r, p, rz_new)
+
+
+def pcg_step(layout, mesh: RowMesh, inv_diag, state, axis="rows"):
+    """One Jacobi-PCG iteration: z = r * inv_diag, shard by shard (the
+    preconditioner needs no exchange)."""
+    x, r, p, rz = state
+    Ap = _spmv_any(layout, p, mesh, axis)
+    alpha = rz / torch.clamp_min(_dot(p, Ap, mesh), 1e-30)
+    x = _axpy(x, alpha, p)
+    r = _axpy(r, alpha, Ap, -1.0)
+    z = [ri * di for ri, di in zip(r, inv_diag)]
+    rz_new = _dot(r, z, mesh)
+    beta = rz_new / torch.clamp_min(rz, 1e-30)
+    p = _axpy(z, beta, p)
+    return (x, r, p, rz_new)
+
+
+def cg_init(b, mesh: RowMesh):
+    """CG state before the first iteration: x = 0, r = p = b."""
+    return ([torch.zeros_like(t) for t in b], [t.clone() for t in b],
+            [t.clone() for t in b], _dot(b, b, mesh))
+
+
+def pcg_init(b, mesh: RowMesh, inv_diag):
+    """Jacobi-PCG state before the first iteration: z = b * inv_diag."""
+    z = [t * d for t, d in zip(b, inv_diag)]
+    return ([torch.zeros_like(t) for t in b], [t.clone() for t in b], z,
+            _dot(b, z, mesh))
+
+
+def _step_fn(layout, mesh, inv_diag, axis):
+    if inv_diag is None:
+        return lambda s: cg_step(layout, mesh, s, axis)
+    return lambda s: pcg_step(layout, mesh, inv_diag, s, axis)
+
+
+def capture_step(layout, mesh: RowMesh, state, inv_diag=None, axis="rows"):
+    """A CUDA graph of one iteration (CG, or Jacobi-PCG with inv_diag)
+    that advances `state` (from cg_init / pcg_init, on the card) in place
+    at each replay. The shards must share one card: the graph is
+    captured on it (its shard streams fork from the capture and join it
+    again). One iteration runs eagerly first on copies, so the state is
+    untouched, to load the kernels before capture."""
+    devices = set(mesh.devices)
+    if len(devices) != 1 or next(iter(devices)).type != "cuda":
+        raise ValueError("capture_step needs every shard on one CUDA card; "
+                         f"the mesh spans {sorted(map(str, devices))}")
+    step = _step_fn(layout, mesh, inv_diag, axis)
+
+    def copies(st):
+        return tuple([t.clone() for t in v] if isinstance(v, list)
+                     else v.clone() for v in st)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step(copies(state))
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        new = step(state)
+        for old, upd in zip(state, new):
+            if isinstance(old, list):
+                for o, u in zip(old, upd):
+                    o.copy_(u)
+            else:
+                old.copy_(upd)
+    return graph
+
+
+def _run(layout, b, mesh, iters, inv_diag, axis, graph):
+    state = cg_init(b, mesh) if inv_diag is None else pcg_init(
+        b, mesh, inv_diag)
+    if graph is None:
+        graph = len(set(mesh.devices)) == 1 and mesh.devices[0].type == "cuda"
+    if graph and iters > 0:
+        g = capture_step(layout, mesh, state, inv_diag, axis)
+        for _ in range(iters):
+            g.replay()
+    else:
+        step = _step_fn(layout, mesh, inv_diag, axis)
+        for _ in range(iters):
+            state = step(state)
+    return state[0], state[3]
+
+
+def cg_solve(layout, b, mesh: RowMesh, iters: int = 50, axis="rows",
+             graph: bool | None = None):
+    """Solve A x = b (A SPD) with `iters` fixed CG iterations. b: the
+    sharded right-hand side (padded_m rows in D shards). Returns (x
+    sharded, final residual norm^2 as a device scalar). graph: replay a
+    captured iteration (default: when every shard lies on one card)."""
+    return _run(layout, b, mesh, iters, None, axis, graph)
+
+
+def pcg_solve(layout, b, mesh: RowMesh, inv_diag, iters: int = 50,
+              axis="rows", graph: bool | None = None):
+    """Jacobi-preconditioned CG: M^-1 = diag(A)^-1 applied row by row.
+    inv_diag: sharded as b, zeros on padding rows. Returns (x, final
+    r.z)."""
+    return _run(layout, b, mesh, iters, inv_diag, axis, graph)
+
+
+def jacobi_inv_diag(diag, padded_m: int):
+    """The reference's Jacobi scaling (tpu_spmv/tools/solve.py): the
+    signed reciprocal of the diagonal, 1 where it is 0 (identity on a
+    row without a diagonal entry), 0 on padding rows; a host array."""
+    diag = np.asarray(diag, np.float32)
+    inv = np.zeros(padded_m, np.float32)
+    inv[: diag.shape[0]] = np.where(
+        diag != 0, 1.0 / np.where(diag != 0, diag, 1.0), 1.0)
+    return inv
+
+
+__all__ = [
+    "capture_step", "cg_init", "cg_solve", "cg_step", "jacobi_inv_diag",
+    "pcg_init", "pcg_solve", "pcg_step",
+]

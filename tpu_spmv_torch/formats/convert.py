@@ -1,10 +1,12 @@
 """Layouts carried across from the JAX package.
 
 `from_reference` turns a `tpu_spmv` layout (DiaSlabs, SellSlabs,
-RankedSlabs or PackedRanked, whose arrays np.asarray can read) into the
-port's container, so a layout built once can be run through both
-packages' kernels. It reads the arrays through NumPy and never imports
-JAX. The port's derived fields come from the reference's arrays alone:
+RankedSlabs or PackedRanked, or the distributed layer's stacked
+ShardedSell, ShardedRanked and OverlapRanked, whose arrays np.asarray
+can read) into the port's container, so a layout built once can be run
+through both packages' kernels. It reads the arrays through NumPy and
+never imports JAX. The port's derived fields come from the reference's
+arrays alone:
 chunk_ptr from sub_chunk, the segment table from chunk_ptr
 (formats/sell.segment_fields), RankedSlabs' run table from the segment
 table (formats/packed.ranked_walk_fields) and its window table from the
@@ -62,42 +64,63 @@ def from_reference(layout):
             num_chunks=layout.num_chunks, rank_nb=layout.rank_nb,
             tile_k=layout.tile_k, group_code=layout.group_code,
         )
+    if kind == "SellSlabs":
+        return sell_container(layout)
+    if kind == "RankedSlabs":
+        return ranked_container(layout)
+    if kind in ("ShardedSell", "ShardedRanked", "OverlapRanked"):
+        from tpu_spmv_torch.dist import sharding
+
+        return sharding.from_reference(layout)
+    raise TypeError(f"no port container for a {kind}")
+
+
+def _segments(layout, kind: str):
     sub_chunk = np.asarray(layout.sub_chunk)
     chunk_ptr = _chunk_ptr(sub_chunk, layout.num_chunks)
     segments = (ranked_walk_fields if kind == "RankedSlabs"
                 else segment_fields)(chunk_ptr)
-    chunk_ptr = torch.from_numpy(chunk_ptr)
-    if kind == "SellSlabs":
-        return SellSlabs(
-            vals=to_tensor(layout.vals),
-            cols=to_tensor(layout.cols),
-            sub_b0=to_tensor(layout.sub_b0),
-            sub_nb=to_tensor(layout.sub_nb),
-            sub_chunk=to_tensor(sub_chunk),
-            chunk_ptr=chunk_ptr,
-            **segments,
-            m=layout.m, n=layout.n, nnz=layout.nnz,
-            num_chunks=layout.num_chunks, max_nb=layout.max_nb,
-            chunk_q=layout.chunk_q,
-        )
-    if kind == "RankedSlabs":
-        return RankedSlabs(
-            vals=to_tensor(layout.vals),
-            lcols=to_tensor(layout.lcols),
-            sub_b0=to_tensor(layout.sub_b0),
-            sub_dlo=to_tensor(layout.sub_dlo),
-            sub_dhi=to_tensor(layout.sub_dhi),
-            sub_chunk=to_tensor(sub_chunk),
-            tile_b0=to_tensor(layout.tile_b0),
-            grp_b0=to_tensor(layout.grp_b0),
-            chunk_ptr=chunk_ptr,
-            **segments,
-            m=layout.m, n=layout.n, nnz=layout.nnz,
-            num_chunks=layout.num_chunks, rank_nb=layout.rank_nb,
-            chunk_q=layout.chunk_q, win_w=layout.win_w,
-            tile_k=layout.tile_k, group_code=layout.group_code,
-            **window_fields(segments["seg_ptr"], layout.sub_b0,
-                            layout.sub_dlo, layout.sub_dhi, layout.rank_nb),
-        )
-    raise TypeError(f"no port container for a {kind}")
+    return sub_chunk, torch.from_numpy(chunk_ptr), segments
 
+
+def sell_container(layout) -> SellSlabs:
+    """A SellSlabs from the arrays and fields of `layout` (any object
+    holding the reference's names: a JAX-package SellSlabs, or one shard
+    of a stacked layout), with the derived tables built from them."""
+    sub_chunk, chunk_ptr, segments = _segments(layout, "SellSlabs")
+    return SellSlabs(
+        vals=to_tensor(layout.vals),
+        cols=to_tensor(layout.cols),
+        sub_b0=to_tensor(layout.sub_b0),
+        sub_nb=to_tensor(layout.sub_nb),
+        sub_chunk=to_tensor(sub_chunk),
+        chunk_ptr=chunk_ptr,
+        **segments,
+        m=layout.m, n=layout.n, nnz=layout.nnz,
+        num_chunks=layout.num_chunks, max_nb=layout.max_nb,
+        chunk_q=layout.chunk_q,
+    )
+
+
+def ranked_container(layout) -> RankedSlabs:
+    """A RankedSlabs from the arrays and fields of `layout`, as
+    sell_container (the run and window tables too)."""
+    sub_chunk, chunk_ptr, segments = _segments(layout, "RankedSlabs")
+    return RankedSlabs(
+        vals=to_tensor(layout.vals),
+        lcols=to_tensor(layout.lcols),
+        sub_b0=to_tensor(layout.sub_b0),
+        sub_dlo=to_tensor(layout.sub_dlo),
+        sub_dhi=to_tensor(layout.sub_dhi),
+        sub_chunk=to_tensor(sub_chunk),
+        tile_b0=to_tensor(layout.tile_b0),
+        grp_b0=to_tensor(layout.grp_b0),
+        chunk_ptr=chunk_ptr,
+        **segments,
+        m=layout.m, n=layout.n, nnz=layout.nnz,
+        num_chunks=layout.num_chunks, rank_nb=layout.rank_nb,
+        chunk_q=layout.chunk_q, win_w=layout.win_w,
+        tile_k=layout.tile_k, group_code=layout.group_code,
+        **window_fields(segments["seg_ptr"], layout.sub_b0,
+                        layout.sub_dlo, layout.sub_dhi, layout.rank_nb),
+    )

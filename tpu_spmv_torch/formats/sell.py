@@ -761,10 +761,15 @@ def _binned_slots(mat: CSRMatrix, bin_blocks: int):
     return slots, kc
 
 
-def group_windows(sub_base, hi_units, rank_nb0: int):
+def group_windows(sub_base, hi_units, rank_nb0: int, group_plan=None,
+                  group_plan_budget=None):
     """Greedily merge sublanes whose gather windows always coincide
-    (tpu_spmv.formats.sell.group_windows without the shared-plan path,
-    which only the distributed layer uses).
+    (tpu_spmv.formats.sell.group_windows). With group_plan (a partition
+    of the 8 sublanes as member tuples), that partition is validated
+    against group_plan_budget (default: this layout's own read budget)
+    instead: the shared plan of the distributed layer, where every shard
+    of a stack must run the same groups. Raises ValueError when the plan
+    is not a partition or a member spans the budget or more.
 
     Returns (sub_base_grouped, grp_b0, group_code): sub_base rewritten
     to each sublane's group minimum, grp_b0 the sub-tile-major (S*G,)
@@ -773,21 +778,45 @@ def group_windows(sub_base, hi_units, rank_nb0: int):
     """
     S = sub_base.shape[0]
     target = 1 if rank_nb0 == 1 else 2 * max((rank_nb0 + 1) // 2, 1)
-    med = np.median(sub_base - sub_base.min(axis=1, keepdims=True), axis=0)
-    order = np.argsort(med, kind="stable")
-    members = [[int(order[0])]]
-    glo = sub_base[:, order[0]].copy()
-    ghi = hi_units[:, order[0]].copy()
-    for r in order[1:]:
-        nlo = np.minimum(glo, sub_base[:, r])
-        nhi = np.maximum(ghi, hi_units[:, r])
-        if int((nhi - nlo).max()) < target:
-            members[-1].append(int(r))
-            glo, ghi = nlo, nhi
-        else:
-            members.append([int(r)])
-            glo = sub_base[:, r].copy()
-            ghi = hi_units[:, r].copy()
+    if group_plan is not None:
+        members = [list(mem) for mem in group_plan]
+        covered = sorted(r for mem in members for r in mem)
+        if covered != list(range(SUBLANES)):
+            raise ValueError(
+                f"group_plan {group_plan} is not a partition of "
+                f"the {SUBLANES} sublanes"
+            )
+        budget = (
+            group_plan_budget if group_plan_budget is not None else target
+        )
+        for mem in members:
+            ext = int(
+                (hi_units[:, mem].max(axis=1)
+                 - sub_base[:, mem].min(axis=1)).max()
+            )
+            if ext >= budget:
+                raise ValueError(
+                    f"group_plan member {tuple(mem)} spans {ext + 1} "
+                    f"blocks, past the {budget}-block read budget "
+                    "for this shard"
+                )
+    else:
+        med = np.median(sub_base - sub_base.min(axis=1, keepdims=True),
+                        axis=0)
+        order = np.argsort(med, kind="stable")
+        members = [[int(order[0])]]
+        glo = sub_base[:, order[0]].copy()
+        ghi = hi_units[:, order[0]].copy()
+        for r in order[1:]:
+            nlo = np.minimum(glo, sub_base[:, r])
+            nhi = np.maximum(ghi, hi_units[:, r])
+            if int((nhi - nlo).max()) < target:
+                members[-1].append(int(r))
+                glo, ghi = nlo, nhi
+            else:
+                members.append([int(r)])
+                glo = sub_base[:, r].copy()
+                ghi = hi_units[:, r].copy()
     G = len(members)
     gb = np.empty_like(sub_base)
     gmat = np.empty((G, S), np.int64)
@@ -1134,15 +1163,33 @@ class RankedSlabs(TensorLayout):
             + self.num_subtiles * LANES * 4
         )
 
+    @property
+    def group_members(self) -> tuple:
+        """The group partition as member tuples ((sublanes of group 0),
+        ...): the group_plan that from_csr takes, so one layout's groups
+        can be applied to its sibling shards."""
+        g = self.groups
+        return tuple(tuple(r for r in range(SUBLANES) if g[r] == gi)
+                     for gi in range(max(g) + 1))
+
     @classmethod
     def from_csr(
         cls, mat: CSRMatrix, tile_k: int = 2048, align: bool = True,
-        bin_blocks: int = 0, allow_groups: bool = True, val_dtype=None,
+        bin_blocks: int = 0, allow_groups: bool = True,
+        group_plan: tuple | None = None,
+        group_plan_budget: int | None = None, val_dtype=None,
     ) -> "RankedSlabs":
         """val_dtype: value storage, torch.float32 (default) or
         torch.bfloat16 (the kernels widen to f32 on load, so only the
         storage is rounded). Raises ValueError when a sub-tile's window
-        bases span more than the 256-block packed-delta range."""
+        bases span more than the 256-block packed-delta range.
+
+        group_plan: a group partition fixed from outside (member tuples,
+        see group_members) in place of the greedy merge, as the
+        distributed layer's ShardedRanked gives every shard shard 0's
+        plan; group_plan_budget: the read budget (x blocks) the plan is
+        validated against, the planning shard's. Raises ValueError when
+        this matrix's windows cannot keep the plan within the budget."""
         from tpu_spmv_torch.formats.packed import ranked_walk_fields
 
         host = SellSlabs._host_build(mat, tile_k, align, bin_blocks)
@@ -1167,12 +1214,13 @@ class RankedSlabs(TensorLayout):
 
         group_code = 0
         grp_b0 = np.zeros(0, np.int32)
-        if allow_groups and S:
+        if (allow_groups or group_plan is not None) and S:
             hi_units = flat_hi.reshape(S, SUBLANES)
             hi_units = np.where(hi_units < 0, sub_base, hi_units)
             rank_nb0 = int((hi_units - sub_base).max()) + 1
             sub_base, grp_b0, group_code = group_windows(
-                sub_base, hi_units, rank_nb0
+                sub_base, hi_units, rank_nb0, group_plan=group_plan,
+                group_plan_budget=group_plan_budget,
             )
 
         # Local columns; padding slots point at the window's first entry.

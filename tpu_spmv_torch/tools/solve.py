@@ -1,22 +1,32 @@
-"""Iterative-solver CLI of the port: IC(0)-preconditioned CG on one CUDA
-card.
+"""Iterative-solver CLI of the port: CG, Jacobi-PCG and IC(0)-PCG over
+the row-sharded SpMV on CUDA cards.
 
-Counterpart of `python -m tpu_spmv.tools.solve --precond ic0` on one
-device: A x = b (b = ones) by a fixed number of PCG iterations, each one
-`spmv_ranked` and two chunk-ordered triangular solves, validated by the
-RMS residual on the host; it prints the same `ic0: rows=...
-breakdowns=...` and `iters=... rms_residual=...` lines and exits 0 when
-the residual is below --tol. On the card the loop runs from a CUDA graph
-of one iteration (the counterpart of the JAX loop's jit); `--device cpu`
-runs the plain PyTorch versions eagerly.
+Counterpart of `python -m tpu_spmv.tools.solve`, with its flags and
+printed lines: A x = b (b = ones) by a fixed number of iterations,
+validated by the RMS residual on the host, exit 0 when it is below
+--tol. Plain CG and Jacobi-PCG (--pcg / --precond jacobi) run over
+dist.ShardedRanked (dist.OverlapRanked with --overlap, which falls back
+to the exchange-then-compute path when the banded halo does not apply)
+on D shards, printing `devices=D halo=H rows/shard=R`; --precond ic0 on
+one device runs IC(0)-PCG (`ic0: rows=... breakdowns=...`), and
+--precond ic0-bj on one device is exact IC(0), as the reference routes
+it. --pcg and --overlap do not apply to IC(0) and are ignored with the
+reference's message.
 
-Everything else the JAX CLI runs goes over its distributed layer and is
-refused, naming ROADMAP.md item A13: plain CG, --pcg / --precond jacobi,
---precond ic0-bj, --overlap, and --devices other than 0 or 1.
+--devices counts CUDA cards (0: all of them; more than the machine has
+is refused). On the card the iterations replay a CUDA graph of one
+iteration when the shards share one card (the counterpart of the JAX
+loop's jit), and the line `graph: ... us per iteration` follows.
+`--device cpu` runs the plain PyTorch versions eagerly with the D
+shards on the CPU (0: one shard).
+
+The distributed IC(0) preconditioners (--precond ic0 or ic0-bj on more
+than one device) are refused, naming ROADMAP.md item A13c.
 
 Usage:
   python -m tpu_spmv_torch.tools.solve matrix.mtx|synthetic:NAME
-      --precond ic0 [--iters 100] [--rcm auto|always|never] [--tol 1e-4]
+      [--iters 100] [--pcg] [--precond jacobi|ic0|ic0-bj] [--devices N]
+      [--overlap] [--rcm auto|always|never] [--tol 1e-4]
       [--device cuda|cpu]
 """
 
@@ -31,65 +41,29 @@ import torch
 
 from tpu_spmv_torch.tools.spmv import load_input
 
-REFUSED = "A13 (distributed layer)"
+REFUSED = "A13c (distributed IC(0))"
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("input", help=".csr/.csr3/.mtx file, or synthetic:<name>")
-    ap.add_argument("--iters", type=int, default=100)
-    ap.add_argument("--pcg", action="store_true",
-                    help="Jacobi preconditioning (not ported: refused)")
-    ap.add_argument("--precond", default=None,
-                    choices=("jacobi", "ic0", "ic0-bj"),
-                    help="ic0: incomplete Cholesky, M^-1 applied by two "
-                    "triangular solves per iteration (jacobi and ic0-bj "
-                    "are refused)")
-    ap.add_argument("--devices", type=int, default=0,
-                    help="0 or 1: one device (more is refused)")
-    ap.add_argument("--rcm", default="auto", choices=("auto", "always", "never"))
-    ap.add_argument("--tol", type=float, default=1e-4,
-                    help="RMS residual bound for exit status")
-    ap.add_argument("--overlap", action="store_true",
-                    help="not ported: refused")
-    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
-                    help="cpu runs the plain PyTorch versions")
-    args = ap.parse_args(argv)
+def mesh_devices(requested: int, device: torch.device) -> list:
+    """The devices of a D-shard mesh as --devices asks for them: cards
+    0..D-1 on cuda (0: every card; more than the machine has raises
+    SystemExit with the reference's message), D shards on the CPU (0:
+    one)."""
+    if device.type == "cpu":
+        return [device] * max(requested, 1)
+    avail = torch.cuda.device_count()
+    D = requested or avail
+    if D > avail:
+        raise SystemExit(f"requested {D} devices, only {avail} available")
+    return [torch.device("cuda", i) for i in range(D)]
 
-    for refused, what in (
-        (args.precond is None and not args.pcg, "plain CG (no --precond)"),
-        (args.pcg or args.precond == "jacobi", "Jacobi PCG (--pcg)"),
-        (args.precond == "ic0-bj", "--precond ic0-bj"),
-        (args.overlap, "--overlap"),
-        (args.devices not in (0, 1), f"--devices {args.devices}"),
-    ):
-        if refused:
-            raise SystemExit(
-                f"{what} runs over the distributed layer, not ported to "
-                f"the GPU yet (ROADMAP.md item {REFUSED})"
-            )
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit(
-            "no CUDA device: the port runs on a CUDA card (use --device cpu "
-            "for a CPU check)"
-        )
 
+def _ic0(mat, args, device) -> int:
+    """IC(0)-PCG on one device (tpu_spmv/tools/solve.py's D = 1 path)."""
     from tpu_spmv_torch.formats.sell import RankedSlabs
     from tpu_spmv_torch.sts.ic0 import (
         IC0Preconditioner, capture_pcg_step, pcg_ic0_init, pcg_ic0_solve,
     )
-    from tpu_spmv_torch.tune.model import tpu_plan
-
-    mat = load_input(args.input)
-    if mat.m != mat.n:
-        raise SystemExit("CG needs a square (SPD) matrix")
-    if args.rcm != "never":
-        if args.rcm == "always" or tpu_plan(mat).needs_rcm:
-            from tpu_spmv_torch.reorder import rcm as rcm_fn
-
-            mat = mat.permuted(rcm_fn(mat.indptr, mat.indices))
-            print("RCM applied")
 
     b_host = np.ones(mat.m, np.float32)
     t0 = time.perf_counter()
@@ -111,12 +85,141 @@ def main(argv=None):
     else:
         sol, rz = pcg_ic0_solve(lay, b, pre, iters=args.iters)
     sol = sol.cpu().numpy()
-    dt = time.perf_counter() - t0
-    resid = float(np.linalg.norm(mat.matvec(sol) - b_host) / np.sqrt(mat.m))
+    return _report(mat, sol, rz, args, time.perf_counter() - t0, device)
+
+
+def _report(mat, sol, rz, args, dt, device) -> int:
+    resid = float(np.linalg.norm(mat.matvec(sol) - 1.0) / np.sqrt(mat.m))
     print(f"iters={args.iters} rms_residual={resid:.3e} "
           f"device_rz={float(rz):.3e} wall={dt:.2f}s"
           + (" (incl. graph capture)" if device.type == "cuda" else ""))
     return 0 if resid < args.tol else 1
+
+
+def _time_iteration(lay, mesh, b, inv) -> float:
+    """Microseconds of one replay of a captured iteration (CUDA events
+    over 20 replays, after one), on a state of its own."""
+    from tpu_spmv_torch.dist.solvers import capture_step, cg_init, pcg_init
+
+    state = cg_init(b, mesh) if inv is None else pcg_init(b, mesh, inv)
+    graph = capture_step(lay, mesh, state, inv)
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(20):
+        graph.replay()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / 20 * 1e3
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("input", help=".csr/.csr3/.mtx file, or synthetic:<name>")
+    ap.add_argument("--iters", type=int, default=100)
+    ap.add_argument("--pcg", action="store_true",
+                    help="Jacobi (diagonal) preconditioning")
+    ap.add_argument("--precond", default=None,
+                    choices=("jacobi", "ic0", "ic0-bj"),
+                    help="jacobi (= --pcg); ic0: incomplete Cholesky, M^-1 "
+                    "applied by two triangular solves per iteration (one "
+                    "device); ic0-bj: block-Jacobi IC(0), exact IC(0) on "
+                    "one device (more devices are refused)")
+    ap.add_argument("--devices", type=int, default=0,
+                    help="shards: CUDA cards (0 = all), or shards on the "
+                    "CPU with --device cpu (0 = one)")
+    ap.add_argument("--rcm", default="auto", choices=("auto", "always", "never"))
+    ap.add_argument("--tol", type=float, default=1e-4,
+                    help="RMS residual bound for exit status")
+    ap.add_argument("--overlap", action="store_true",
+                    help="the overlapped layout (OverlapRanked: the halo "
+                    "copies run behind the main kernel); falls back to the "
+                    "exchange-then-compute path when the banded halo does "
+                    "not apply")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                    help="cpu runs the plain PyTorch versions")
+    args = ap.parse_args(argv)
+
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(
+            "no CUDA device: the port runs on a CUDA card (use --device cpu "
+            "for a CPU check)"
+        )
+    devices = mesh_devices(args.devices, device)
+    D = len(devices)
+    if args.precond in ("ic0", "ic0-bj") and D > 1:
+        raise SystemExit(
+            f"--precond {args.precond} on {D} devices runs the distributed "
+            "IC(0) preconditioners, not ported to the GPU yet (ROADMAP.md "
+            f"item {REFUSED})"
+        )
+
+    from tpu_spmv_torch.tune.model import tpu_plan
+
+    mat = load_input(args.input)
+    if mat.m != mat.n:
+        raise SystemExit("CG needs a square (SPD) matrix")
+    if args.rcm != "never":
+        if args.rcm == "always" or tpu_plan(mat).needs_rcm:
+            from tpu_spmv_torch.reorder import rcm as rcm_fn
+
+            mat = mat.permuted(rcm_fn(mat.indptr, mat.indices))
+            print("RCM applied")
+
+    if args.precond == "jacobi":
+        args.pcg = True
+    if args.precond in ("ic0", "ic0-bj"):
+        if args.overlap or args.pcg:
+            print("(--overlap/--pcg do not apply to --precond ic0; "
+                  "ignored)")
+        if args.precond == "ic0-bj":
+            # One shard: its block is the whole matrix, so block-Jacobi
+            # IC(0) is exact IC(0).
+            print("ic0-bj with --devices 1 == exact ic0; "
+                  "using single-chip ic0 path")
+        return _ic0(mat, args, device)
+
+    from tpu_spmv_torch.dist.sharding import (
+        OverlapRanked, ShardedRanked, gather_vector, make_row_mesh,
+        shard_vector,
+    )
+    from tpu_spmv_torch.dist.solvers import (
+        cg_solve, jacobi_inv_diag, pcg_solve,
+    )
+
+    mesh = make_row_mesh(devices)
+    lay = None
+    if args.overlap and D > 1:
+        try:
+            lay = OverlapRanked.build(mat, D)
+            print(f"overlap split: edge nnz = {lay.edge.nnz} "
+                  f"({100 * lay.edge.nnz / max(mat.nnz, 1):.1f}% waits "
+                  "on the exchange)")
+        except ValueError as e:
+            print(f"overlap unavailable ({e}); using spmv_sharded")
+    if lay is None:
+        lay = ShardedRanked.build(mat, D)
+    lay = lay.device_put(mesh)
+    print(f"devices={D} halo={lay.halo} rows/shard={lay.padded_m // D}")
+
+    b = shard_vector(np.ones(mat.m, np.float32), mesh, lay.padded_m)
+    inv = None
+    if args.pcg:
+        inv = shard_vector(jacobi_inv_diag(mat.diagonal(), lay.padded_m),
+                           mesh)
+    t0 = time.perf_counter()
+    if inv is None:
+        sol, rz = cg_solve(lay, b, mesh, iters=args.iters)
+    else:
+        sol, rz = pcg_solve(lay, b, mesh, inv, iters=args.iters)
+    sol = gather_vector(sol)[: mat.m]
+    rc = _report(mat, sol, rz, args, time.perf_counter() - t0, device)
+    if device.type == "cuda" and len(set(devices)) == 1:
+        print(f"graph: {_time_iteration(lay, mesh, b, inv):.2f} us per "
+              f"iteration ({'Jacobi-PCG' if args.pcg else 'CG'}, D={D})")
+    return rc
 
 
 if __name__ == "__main__":

@@ -16,11 +16,19 @@ The windowed route cuts the window table at a smaller step and then
 splits B into column passes until the ring of X blocks fits shared
 memory.
 
+--devices D other than 1 row-shards A over D shards and runs the
+distributed SpMM (dist.spmm_sharded, each shard resident or windowed by
+the residency gate on its own X window; --overlap takes dist.spmm_overlap,
+resident only, and falls back to windowed spmm_sharded when the shard's X
+is past the gate), validated against the serial oracle, printing
+`devices=D halo=H rows/shard=R`. --devices counts CUDA cards (0: all of
+them); with --device cpu it places D shards on the CPU (0: one).
+
 Usage:
   python -m tpu_spmv_torch.tools.spmm matrix.mtx|synthetic:NAME [num_runs]
       [--batch B] [--kernel auto|resident|windowed]
       [--rcm auto|always|never] [--val-dtype f32|bf16] [--tol T]
-      [--validate-only]
+      [--devices D] [--overlap] [--validate-only]
 """
 
 from __future__ import annotations
@@ -33,11 +41,6 @@ import torch
 
 from tpu_spmv_torch.hw import target_device
 from tpu_spmv_torch.tools.spmv import fit_window, load_input, x_budget
-
-# Options of the JAX CLI that the port does not run yet, and the
-# ROADMAP.md queue-A item that ports each.
-REFUSED_DISTRIBUTED = "A13 (distributed layer)"
-
 
 def build_spmm(mat, kernel: str, B: int, val_dtype=None, device=None):
     """(layout on `device`, spmm function, passes over the slabs), as
@@ -136,9 +139,12 @@ def main(argv=None):
                     help="slab value storage; bf16 runs are validated "
                     "against the bf16-rounded operator")
     ap.add_argument("--devices", type=int, default=1,
-                    help="not ported yet: only 1 is accepted")
+                    help="other than 1: row-shard A and run the distributed "
+                    "SpMM (dist.spmm_sharded) on D CUDA cards (0 = all), or "
+                    "D shards on the CPU with --device cpu (0 = one)")
     ap.add_argument("--overlap", action="store_true",
-                    help="not ported yet: refused")
+                    help="with --devices: overlap the halo exchange behind "
+                    "the main kernel (dist.OverlapRanked)")
     ap.add_argument("--validate-only", action="store_true",
                     help="skip the timed benchmark")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
@@ -146,11 +152,6 @@ def main(argv=None):
                     "--validate-only")
     args = ap.parse_args(argv)
 
-    if args.devices != 1 or args.overlap:
-        raise SystemExit(
-            "--devices other than 1 and --overlap are not ported to the GPU "
-            f"yet (ROADMAP.md item {REFUSED_DISTRIBUTED})"
-        )
     if args.batch < 1:
         raise SystemExit("--batch must be >= 1")
     device = torch.device(args.device)
@@ -178,6 +179,8 @@ def main(argv=None):
 
     B = args.batch
     vdt = torch.bfloat16 if args.val_dtype == "bf16" else None
+    if args.devices != 1:
+        return _distributed(mat, args, B, vdt, device)
     layout, fn, passes = build_spmm(mat, args.kernel, B, vdt, device)
     X = np.random.default_rng(0).standard_normal((mat.n, B)).astype(np.float32)
     Xt = torch.from_numpy(X).to(device)
@@ -212,6 +215,73 @@ def main(argv=None):
     print(f"vals/s: {res.vals_per_s:.4g} "
           f"({100 * res.vals_per_s / roof:.0f}% of roofline) B={B}"
           + (f" in {passes} passes" if passes > 1 else ""))
+    print(f"Number Wrong: {wrong} ")
+    print(f"RelL2: {rel:.3g}")
+    return 0 if wrong == 0 else 1
+
+
+def _distributed(mat, args, B, vdt, device) -> int:
+    """Row-sharded SpMM over D shards (tpu_spmv/tools/spmm.py's
+    _distributed): spmm_overlap with --overlap when the banded halo
+    applies and each shard's X window passes the residency gate, else
+    spmm_sharded (per shard resident or windowed by the gate, unless
+    --kernel names one), validated against the serial oracle."""
+    import functools
+    import types
+
+    from tpu_spmv_torch.bench.harness import bench_spmv, validate
+    from tpu_spmv_torch.dist.sharding import (
+        OverlapRanked, ShardedRanked, gather_vector, make_row_mesh,
+        shard_vector, spmm_overlap, spmm_sharded,
+    )
+    from tpu_spmv_torch.kernels.sell import resident_x_fits
+    from tpu_spmv_torch.tools.solve import mesh_devices
+
+    devices = mesh_devices(args.devices, device)
+    D = len(devices)
+    mesh = make_row_mesh(devices)
+    lay = None
+    if args.overlap and D > 1:
+        try:
+            lay = OverlapRanked.build(mat, D, val_dtype=vdt).device_put(mesh)
+            # A shard stages its own rows and the 2H exchanged ones.
+            staged = types.SimpleNamespace(
+                n=lay.rows_per_shard + 2 * lay.halo,
+                rank_nb=lay.main.rank_nb, vals=lay.main.shards[0].vals)
+            if not resident_x_fits(staged, batch=B):
+                print("staged X exceeds the residency budget; overlap is "
+                      "resident-only — using windowed spmm_sharded")
+                lay = None
+            else:
+                fn = functools.partial(spmm_overlap, mesh=mesh)
+                print(f"overlap split: edge nnz = {lay.edge.nnz}")
+        except ValueError as e:
+            print(f"overlap unavailable ({e}); using spmm_sharded")
+    if lay is None:
+        lay = ShardedRanked.build(mat, D, val_dtype=vdt).device_put(mesh)
+        fn = functools.partial(spmm_sharded, mesh=mesh, kernel=args.kernel)
+        if args.kernel != "auto":
+            print(f"per-shard kernel: {args.kernel}")
+    print(f"devices={D} halo={lay.halo} rows/shard={lay.padded_m // D}")
+
+    X = np.random.default_rng(0).standard_normal((mat.n, B)).astype(
+        np.float32)
+    Xs = shard_vector(X, mesh, lay.padded_m)
+    Y = gather_vector(fn(lay, Xs))[: mat.m]
+    mat_v = mat if vdt is None else mat.rounded()
+    if vdt is not None:
+        print("(bf16 values: validated vs the bf16-rounded operator)")
+    Y_ref = np.stack([mat_v.matvec(X[:, b]) for b in range(B)], axis=1)
+    wrong, rel = validate(Y, Y_ref, tol=args.tol)
+    if not args.validate_only:
+        # One CUDA graph cannot hold launches on several cards: a mesh
+        # of cards is timed eagerly, by events on the first card's
+        # stream, which every sharded call joins.
+        res = bench_spmv(lambda lay_, _x: fn(lay_, Xs), lay, Xs[0],
+                         samples=max(args.num_runs, 1), nnz=mat.nnz,
+                         graph=len(set(devices)) == 1)
+        print(res.summary(), end="")
+        print(f"vals/s: {res.vals_per_s:.4g} B={B} D={D}")
     print(f"Number Wrong: {wrong} ")
     print(f"RelL2: {rel:.3g}")
     return 0 if wrong == 0 else 1

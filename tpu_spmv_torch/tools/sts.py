@@ -24,8 +24,8 @@ import torch
 
 from tpu_spmv_torch.tools.spmv import load_input
 
-# The JAX CLI's distributed solve runs over dist/, not ported yet.
-REFUSED_DEVICES = "A13 (distributed layer)"
+# The JAX CLI's distributed solve runs over dist/sts.py, not ported yet.
+REFUSED_DEVICES = "A13c (distributed triangular solve)"
 
 
 def main(argv=None):
