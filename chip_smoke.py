@@ -98,6 +98,21 @@ residency gate):
      overlap), its warm time from a CUDA graph printed beside the
      single-device kernel's from step 1 and its bound (the layout, the x
      windows, y and the halo rows once at the HBM rate);
+  5b. runs the sharded triangular solve (dist/sts.py) with D shards on
+     the one card on lap2d_1024 LS at D = 1, 2 and 4: sts_solve_sharded
+     against the same solve through the kernels' plain versions and the
+     float64 substitution (RelL2 <= 1e-5, Number Wrong 0 for x = ones,
+     padding rows 0, a fresh b too), its launches (D of spmv_sell and of
+     lower_solve_blocks), two graph replays at D > 1, its warm time from
+     a CUDA graph beside the single-device lower_solve_blocks of step 3
+     and its bound (bytes; and the floor of this design, the shards'
+     chunk depths times step 3's us per link); first a line gives
+     spmv_ranked's bytes a nonzero on lap2d_1024 RCM (hw.
+     SPMV_BYTES_PER_NNZ); then on lap3d_101 at D = 4 both distributed
+     IC(0) preconditioners (exact, two chains an application, and
+     block-Jacobi): apply against its plain version, apply's warm time,
+     one captured PCG iteration in us and the RMS residual by iteration
+     beside step 4's single-device trace, below PCG_TOL at 100;
   6. drives each main path with every launch counter zeroed just before
      and read just after: the SpMV/SpMM CLIs (tools.spmv, tools.spmm on
      lap2d_1024 and banded_1m, and on the windowed routes: tools.spmv on
@@ -123,7 +138,11 @@ residency gate):
      --devices 1 (--tol DIST_TOL), cg_solve's captured iteration over 4
      shards (the residual at a quarter, half and all of DIST_ITERS),
      tools.spmm --devices 0 at B = 8 and one call of each sharded entry
-     point on step 5's D = 4 layouts;
+     point on step 5's D = 4 layouts; and the CLIs' D > 1 solve paths
+     through the functions they call, 4 shards on the card
+     (tools.sts.sharded on lap2d_1024 LS, tools.solve.ic0_sharded ic0 and
+     ic0-bj on lap3d_101), with tools.sts --devices 4 and tools.solve
+     --precond ic0 --devices 4 themselves on a machine of 4 cards;
      it fails unless every kernel was launched on its path.
 
 It prints the card (nvidia-smi name and power limit), the toolchain, the
@@ -1009,7 +1028,8 @@ def _check_solve(label, sys_, b, ranked, stats, setup, library_s,
 
 def _solve_phases(stats):
     """Both solve kernels at full size, on the schedules users run, after
-    the bidiagonal chain that measures a link."""
+    the bidiagonal chain that measures a link. Returns each kernel's us
+    per link on the chain."""
     from tpu_spmv_torch.bench.solve_times import CHAIN_ROWS, system
     from tpu_spmv_torch.sts.host import build_sts, compute_b, find_levels
     from tpu_spmv_torch.sts.solve import RANKED_SOLVE_MAX_NB, LowerSolveLayout
@@ -1068,11 +1088,13 @@ def _solve_phases(stats):
     print(f"[lap2d_1024 LS k=3] packs {sys_.num_packs}, dependency levels "
           f"{rows} (rows) / {_chunk_depth(sys_, lay)} (chunks), chunks "
           f"{lay.slabs.num_chunks}", flush=True)
+    return link_us
 
 
 def _ic0_phases():
     """IC(0) apply, kernel vs plain, and one graph-captured PCG iteration
-    on lap3d_101 and lap2d_1024; the residual as lap3d_101 converges."""
+    on lap3d_101 and lap2d_1024; the residual as lap3d_101 converges.
+    Returns lap3d_101's residual trace."""
     import numpy as np
     import torch
 
@@ -1128,7 +1150,9 @@ def _ic0_phases():
         if trace:
             print(f"    rms residual by iteration: {' '.join(trace)}",
                   flush=True)
+            lap3d_trace = " ".join(trace)
         del pre, lay, graph, state
+    return lap3d_trace
 
 
 def _dist_bound(lay, batch):
@@ -1378,6 +1402,281 @@ def _dist_calls(keep):
             step("spmm_sharded(B=8)", dsh.spmm_sharded, keep["ranked"], 8),
             step("spmv_overlap", dsh.spmv_overlap, keep["overlap"]),
             step("spmm_overlap(B=8)", dsh.spmm_overlap, keep["overlap"], 8))
+
+
+def _wait_depth(slabs):
+    """Dependency depth of a solve layout at chunk granularity, from its
+    wait table: the chain the solve kernel itself walks."""
+    import numpy as np
+
+    ptr = slabs.wait_ptr.cpu().numpy()
+    chunk = slabs.wait_chunk.cpu().numpy()
+    depth = np.zeros(slabs.num_chunks, np.int64)
+    for c in range(slabs.num_chunks):
+        w = chunk[ptr[c]:ptr[c + 1]]
+        depth[c] = 1 + (int(depth[w].max()) if w.size else 0)
+    return int(depth.max()) if depth.size else 0
+
+
+def _dist_solve(label, sys_, b, D, stats, x_ref, single, link_us):
+    """sts_solve_sharded over D shards on the one card: kernels against
+    the same solve through their plain versions and against the float64
+    oracle x_ref (RelL2 <= SOLVE_TOL, Number Wrong 0 for x = ones,
+    padding rows 0), the launches (D of spmv_sell and of
+    lower_solve_blocks), a fresh b, two graph replays (D > 1), then warm
+    TimeMin from a CUDA graph beside the single-device blocks solve
+    (`single`: (label, seconds)) and the bound: bytes once at the HBM
+    rate, and the floor of this design (the shards' chunk depths, which
+    the chain runs one after the other, times the kernel's us per
+    link)."""
+    import numpy as np
+    import torch
+
+    from tpu_spmv_torch.bench.harness import bench_spmv
+    from tpu_spmv_torch.dist import sharding as dsh
+    from tpu_spmv_torch.dist.sts import ShardedLowerSolve, sts_solve_sharded
+    from tpu_spmv_torch.kernels import sell, sts as ksts
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    lay, pad = ShardedLowerSolve.build(sys_, b, D)
+    build_s = time.perf_counter() - t0
+    mesh = dsh.make_row_mesh([dev] * D)
+    lay = lay.device_put(mesh)
+    t0 = time.perf_counter()
+    before = (sell.spmv_sell.launches, ksts.lower_solve_blocks.launches)
+    xk = dsh.gather_vector(sts_solve_sharded(lay, mesh))
+    delta = (sell.spmv_sell.launches - before[0],
+             ksts.lower_solve_blocks.launches - before[1])
+    xp = dsh.gather_vector(sts_solve_sharded(lay, mesh, plain=True))
+    err = float(np.abs(xk - xp).max())
+    rel_plain = float(np.linalg.norm(xk - xp) / np.linalg.norm(xp))
+    x = xk[pad]
+    wrong = int(np.sum(np.abs(x - 1.0) > 0.01))
+    rel = float(np.linalg.norm(x - x_ref) / np.linalg.norm(x_ref))
+    padding = np.ones(lay.padded_m, bool)
+    padding[pad] = False
+    bp = np.zeros(lay.padded_m, np.float32)
+    bp[pad] = b
+    xf = dsh.gather_vector(sts_solve_sharded(
+        lay, mesh, b=dsh.shard_vector(bp, mesh)))[pad]
+    rel_fresh = float(np.linalg.norm(xf - x_ref) / np.linalg.norm(x_ref))
+    if delta != (D, D):
+        raise SmokeFailure(f"{label}: spmv_sell and lower_solve_blocks "
+                           f"launched {delta} times, not {D} each")
+    if not rel_plain <= SOLVE_TOL:
+        raise SmokeFailure(f"{label}: kernels differ from plain, RelL2 "
+                           f"{rel_plain:.3g}")
+    if wrong or not rel <= SOLVE_TOL or not rel_fresh <= SOLVE_TOL:
+        raise SmokeFailure(f"{label}: Number Wrong {wrong}, RelL2 {rel:.3g}"
+                           f" (fresh b {rel_fresh:.3g})")
+    if xk[padding].any() or xp[padding].any():
+        raise SmokeFailure(f"{label}: a padding row solved to nonzero")
+    if D > 1:
+        _replay_check(label, "sts_solve_sharded",
+                      lambda: torch.cat(sts_solve_sharded(lay, mesh)))
+    warm = bench_spmv(lambda lay_, _x: sts_solve_sharded(lay_, mesh), lay,
+                      lay.b_local[0], nnz=sys_.lower.nnz)
+    slab_bytes = sum(s.nbytes for s in lay.diag + lay.off)
+    bound_ms, bound_by = _bound(
+        slab_bytes + 4 * (D * lay.b_local[0].numel() + lay.padded_m),
+        2 * sys_.lower.nnz)
+    depth = [_wait_depth(s) for s in lay.diag]
+    link = link_us.get("lower_solve_blocks")
+    floor = ("no chain link measured" if link is None else
+             f"floor of this design (sum of the shards' chunk depths x own "
+             f"link) {sum(depth)} x {link:.3f} us = {sum(depth) * link:.2f}"
+             " us")
+    single_txt = "not timed" if single is None else (
+        f"{single[0]} {single[1] * 1e6:.2f} us, sharded / single "
+        f"{warm.time_min / single[1]:.2f}")
+    print(f"[{label}] D={D} rows/shard={lay.rows_per_shard} padded_m "
+          f"{lay.padded_m}: spmv_sell +{delta[0]}, lower_solve_blocks "
+          f"+{delta[1]}, RelL2 vs plain {rel_plain:.3g} (max abs {err:.3g}),"
+          f" Number Wrong {wrong}, RelL2 vs f64 oracle {rel:.3g} (fresh b "
+          f"{rel_fresh:.3g}), padding rows 0 | chunk depth a shard {depth}"
+          f" | stacks: diagonal {lay.dvals.numel() // 128} and off-diagonal"
+          f" {lay.ovals.numel() // 128} slot rows of 128 "
+          f"({(lay.dvals.nbytes + lay.dcols.nbytes) / 1e6:.1f} and "
+          f"{(lay.ovals.nbytes + lay.ocols.nbytes) / 1e6:.1f} MB) | host "
+          f"build {build_s:.2f} s", flush=True)
+    print(f"    warm TimeMin/TimeAvg us (CUDA graph): "
+          f"{warm.time_min * 1e6:.2f}/{warm.time_avg * 1e6:.2f} | single "
+          f"device: {single_txt} | bound by bytes {bound_ms * 1e3:.2f} us "
+          f"({bound_by}), {floor} | phase wall "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    stats.setdefault("lower_solve_blocks", []).append(
+        dict(label=f"dist sts {label} D={D}", err=err))
+    return warm.time_min
+
+
+def _dist_precond(name, cls, mat, mesh, lay, trace_single):
+    """One distributed IC(0) preconditioner on lap3d_101 over the mesh's
+    4 shards on one card: apply with the kernels against apply with the
+    plain versions (RelL2 <= SOLVE_TOL, padding rows 0, the launches),
+    apply's warm TimeMin from a CUDA graph, one captured PCG iteration in
+    us, and the RMS residual by iteration beside the single-device
+    IC(0)'s, the last below PCG_TOL."""
+    import numpy as np
+    import torch
+
+    from tpu_spmv_torch.bench.harness import bench_spmv
+    from tpu_spmv_torch.dist import sharding as dsh
+    from tpu_spmv_torch.kernels import sell, sts as ksts
+    from tpu_spmv_torch.sts.ic0 import (
+        capture_pcg_sharded_step, pcg_ic0_sharded_init,
+    )
+
+    D = mesh.size
+    t0 = time.perf_counter()
+    pre = cls.build(mat, D, lay.padded_m).device_put(mesh)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    r = dsh.shard_vector(np.random.default_rng(X_SEED).standard_normal(
+        mat.m).astype(np.float32), mesh, lay.padded_m)
+    before = (sell.spmv_sell.launches, ksts.lower_solve_blocks.launches)
+    zk = dsh.gather_vector(pre.apply(r, mesh))
+    delta = (sell.spmv_sell.launches - before[0],
+             ksts.lower_solve_blocks.launches - before[1])
+    zp = dsh.gather_vector(pre.apply(r, mesh, plain=True))
+    rel = float(np.linalg.norm(zk - zp) / np.linalg.norm(zp))
+    want = (2 * D, 2 * D) if name == "ic0" else (0, 2 * D)
+    if delta != want:
+        raise SmokeFailure(f"{name} apply: spmv_sell and lower_solve_blocks "
+                           f"launched {delta} times, not {want}")
+    if not rel <= SOLVE_TOL or zk[mat.m:].any():
+        raise SmokeFailure(f"{name} apply: RelL2 vs plain {rel:.3g}, or a "
+                           "padding row nonzero")
+    apply_us = bench_spmv(lambda p, _x: p.apply(r, mesh), pre, r[0],
+                          nnz=mat.nnz).time_min * 1e6
+
+    b = dsh.shard_vector(np.ones(mat.m, np.float32), mesh, lay.padded_m)
+    state = pcg_ic0_sharded_init(b, pre, mesh)
+    graph = capture_pcg_sharded_step(lay, pre, mesh, state)
+    trace, done, res = [], 0, float("nan")
+    for it in (10, 20, 30, 40, 50, 60, 100):
+        for _ in range(it - done):
+            graph.replay()
+        done = it
+        x = dsh.gather_vector(state[0])[: mat.m]
+        res = float(np.linalg.norm(mat.matvec(x) - 1.0) / np.sqrt(mat.m))
+        if not np.isfinite(res):
+            raise SmokeFailure(f"{name} pcg D={D}: residual {res} at {it}")
+        trace.append(f"{it}:{res:.3e}")
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(10):
+        graph.replay()
+    stop.record()
+    stop.synchronize()
+    it_us = start.elapsed_time(stop) / 10 * 1e3
+    print(f"[lap3d_101 {name} D={D}] apply: spmv_sell +{delta[0]}, "
+          f"lower_solve_blocks +{delta[1]}, RelL2 vs plain {rel:.3g}, padding "
+          f"rows 0 | breakdowns {pre.breakdowns} | host build {build_s:.2f} s"
+          f" | apply warm TimeMin (CUDA graph) {apply_us:.1f} us | PCG "
+          f"iteration (CUDA graph) {it_us:.1f} us | phase wall "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"    rms residual by iteration: {' '.join(trace)} | single-device"
+          f" IC(0): {trace_single}", flush=True)
+    if not res < PCG_TOL:
+        raise SmokeFailure(f"{name} pcg D={D}: residual {res:.3e} after "
+                           f"100 iterations")
+
+
+def _dist_sts_phases(stats, link_us, trace_single):
+    """The sharded solve on lap2d_1024 LS at D = 1, 2 and 4 (_dist_solve),
+    then both distributed IC(0) preconditioners on lap3d_101 at D = 4
+    (_dist_precond), every shard on the one card. First, the port's
+    bytes a nonzero of spmv_ranked on lap2d_1024 RCM (hw.
+    SPMV_BYTES_PER_NNZ, tools/scaling.py's single-card rate)."""
+    import torch
+
+    from tpu_spmv_torch import hw
+    from tpu_spmv_torch.dist import sharding as dsh
+    from tpu_spmv_torch.sts.host import build_sts, compute_b
+    from tpu_spmv_torch.sts.ic0 import (
+        BlockJacobiIC0Preconditioner, ShardedIC0Preconditioner,
+    )
+    from tpu_spmv_torch.tools.spmv import load_input
+
+    ranked = _single_ms(stats, "spmv_ranked", "lap2d_1024 rcm ranked grouped")
+    if ranked is not None:
+        nnz = 5_238_784
+        print(f"spmv_ranked on lap2d_1024 RCM: {ranked[1] * 1e6:.2f} us, "
+              f"{HBM_BYTES_PER_S * ranked[1] / nnz:.2f} B a nonzero at "
+              f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s (hw.SPMV_BYTES_PER_NNZ = "
+              f"{hw.SPMV_BYTES_PER_NNZ})", flush=True)
+    t0 = time.perf_counter()
+    mat = load_input("synthetic:lap2d_1024")
+    sys_ = build_sts(mat, order_type="LS")
+    b = compute_b(sys_.lower)
+    x_ref = _solve_oracle(sys_, b)
+    print(f"    [lap2d_1024 LS] host set-up (system, oracle) "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    single = _single_ms(stats, "lower_solve_blocks", "lap2d_1024 LS blocks")
+    for D in (1, 2, 4):
+        _dist_solve("lap2d_1024 LS sts_solve_sharded", sys_, b, D, stats,
+                    x_ref, single, link_us)
+    del sys_, x_ref
+
+    mat = load_input("synthetic:lap3d_101")
+    mesh = dsh.make_row_mesh([torch.device("cuda")] * 4)
+    lay = dsh.ShardedRanked.build(mat, 4).device_put(mesh)
+    for name, cls in (("ic0", ShardedIC0Preconditioner),
+                      ("ic0-bj", BlockJacobiIC0Preconditioner)):
+        _dist_precond(name, cls, mat, mesh, lay, trace_single)
+
+
+def _dist_sts_steps():
+    """_drive steps: the CLIs' D > 1 paths through the functions they
+    call, with 4 shards on the one card (tools.sts.sharded on lap2d_1024
+    LS; tools.solve.ic0_sharded, exact and block-Jacobi, on lap3d_101 at
+    --tol PCG_TOL), and on a machine of 4 cards or more the CLIs
+    themselves with --devices 4."""
+    import torch
+
+    from tpu_spmv_torch.tools import solve as solve_cli
+    from tpu_spmv_torch.tools import sts as sts_cli
+    from tpu_spmv_torch.tools.spmv import load_input
+
+    four = [torch.device("cuda")] * 4
+
+    def sts_run():
+        from tpu_spmv_torch.sts.host import build_sts, compute_b
+
+        def run():
+            sys_ = build_sts(load_input("synthetic:lap2d_1024"),
+                             order_type="LS")
+            return sts_cli.sharded(sys_, compute_b(sys_.lower), four, 0.01)
+
+        rc, out = _captured("tools.sts.sharded(lap2d_1024 LS, [cuda:0] * 4)",
+                            run)
+        if rc != 0 or "Number Wrong: 0" not in out:
+            raise SmokeFailure(f"tools.sts.sharded: rc {rc}")
+
+    def ic0_run(precond):
+        def run():
+            mat = load_input("synthetic:lap3d_101")
+            rc, out = _captured(
+                f"tools.solve.ic0_sharded(lap3d_101, {precond!r}, "
+                f"[cuda:0] * 4, {PCG_ITERS}, {PCG_TOL})",
+                lambda: solve_cli.ic0_sharded(mat, precond, four, PCG_ITERS,
+                                              PCG_TOL))
+            if rc != 0 or "us per iteration" not in out:
+                raise SmokeFailure(f"tools.solve.ic0_sharded({precond}): rc "
+                                   f"{rc}")
+        return run
+
+    steps = [sts_run, ic0_run("ic0"), ic0_run("ic0-bj")]
+    if torch.cuda.device_count() >= 4:
+        steps += [
+            (sts_cli, ["synthetic:lap2d_1024", "--devices", "4"]),
+            (solve_cli, ["synthetic:lap3d_101", "--precond", "ic0",
+                         "--devices", "4", "--iters", str(PCG_ITERS), "--tol",
+                         str(PCG_TOL)]),
+        ]
+    return steps
 
 
 def _calibration():
@@ -1784,6 +2083,7 @@ def _main_path(bin_blocks, calib, dist):
                     "--devices", "0"]),
         *_dist_calls(dist),
     ))
+    dist_sts_path = _drive(_dist_sts_steps())
     library = _library_blocks()
     striped_path, baselines, flag_path = _striped_and_baselines(bin_blocks)
     with tmp:
@@ -1797,15 +2097,22 @@ def _main_path(bin_blocks, calib, dist):
                     "spmm_ranked_windowed")
     for k in dist_kernels:
         counts[k] += dist_path[k]
+    dist_sts_kernels = ("spmv_sell", "lower_solve_blocks", "spmv_ranked")
+    for k in dist_sts_kernels:
+        counts[k] += dist_sts_path[k]
     print(f"launches: SpMV/SpMM CLIs {spmv_path} | solve CLIs {sts_path} | "
           f"dist (tools.solve CG and Jacobi-PCG, cg_solve D=4, tools.spmm "
-          f"--devices 0, the D=4 sharded calls) {dist_path} | "
+          f"--devices 0, the D=4 sharded calls) {dist_path} | dist sts "
+          f"(tools.sts.sharded, tools.solve.ic0_sharded ic0 and ic0-bj, "
+          f"D=4 on one card) {dist_sts_path} | "
           f"library lower_solve(ranked=False) {library} | striped CLI "
           f"{striped_path} | baseline CLIs {baselines} | flagship "
           f"{flag_path} | " + " | ".join(
               f"{k} {v}" for k, v in planner.items()), flush=True)
     missing = [k for k, v in counts.items() if v < 1]
     missing += [f"{k} (dist)" for k in dist_kernels if dist_path[k] < 1]
+    missing += [f"{k} (dist sts)" for k in dist_sts_kernels
+                if dist_sts_path[k] < 1]
     missing += [f"{k} (striped CLI)" for k in ("spmv_ranked", "spmv_striped")
                 if striped_path[k] < 1]
     missing += [f"{k} (flagship)" for k in ("spmv_dia", "spmv_packed")
@@ -1919,16 +2226,20 @@ def main() -> int:
         _plans(times)
         print(f"plans: wall {time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
-        _solve_phases(stats)
+        link_us = _solve_phases(stats)
         print(f"solve phases: wall {time.perf_counter() - t0:.1f} s",
               flush=True)
         t0 = time.perf_counter()
-        _ic0_phases()
+        ic0_trace = _ic0_phases()
         print(f"ic0 phases: wall {time.perf_counter() - t0:.1f} s",
               flush=True)
         t0 = time.perf_counter()
         dist = _dist_phases(stats)
         print(f"dist phases: wall {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        t0 = time.perf_counter()
+        _dist_sts_phases(stats, link_us, ic0_trace)
+        print(f"dist sts phases: wall {time.perf_counter() - t0:.1f} s",
               flush=True)
         t0 = time.perf_counter()
         counts = _main_path(bin_blocks, calib, dist)

@@ -5,8 +5,8 @@ The JAX side runs on tests/conftest.py's 8 virtual CPU devices, its
 Pallas kernels in interpret mode; the port runs its shards on
 ["cpu"] * D, through the kernels' plain versions. Both get the same
 seeded numpy inputs, on tests/test_dist.py's matrices and shard counts
-(the cases of the single-axis mesh; the hybrid (hosts, rows) mesh is not
-ported yet).
+(the cases of the single-axis mesh, and the four of the (hosts, rows)
+mesh of tpu_spmv_torch.dist.multihost over the tuple axis).
 
 Each case holds:
   * the port's stacked arrays equal to the reference's, array for array
@@ -551,6 +551,88 @@ def test_mesh_of_another_size_is_refused():
         tsh.spmv_sharded(placed, xs, _tmesh(2))
 
 
+# The (hosts, rows) mesh: tests/test_dist.py's four hybrid cases, the
+# JAX side on tpu_spmv.dist.multihost's (2, 4) mesh of the virtual
+# devices, the port on multihost.make_hybrid_mesh over ["cpu"] * 8, both
+# sharding rows over the tuple axis.
+
+_HYBRID = ("hosts", "rows")
+
+
+def _hybrid_both(jl, tl, X, call):
+    """(port Y, JAX Y) of `call` ("spmv_sharded", "spmm_sharded" or
+    "spmv_overlap") over the hybrid meshes."""
+    from tpu_spmv.dist.multihost import make_hybrid_mesh as jhybrid
+    from tpu_spmv_torch.dist.multihost import make_hybrid_mesh
+
+    jm = jhybrid(num_hosts=2)
+    tm = make_hybrid_mesh(num_hosts=2, devices=["cpu"] * 8)
+    assert jm.devices.shape == tm.shape == (2, 4)
+    out = np.zeros((jl.padded_m, *X.shape[1:]), np.float32)
+    out[: X.shape[0]] = X
+    Xj = jsh.shard_vector(out, jm, _HYBRID)
+    Yj = getattr(jsh, call)(jl.device_put(jm, _HYBRID), Xj, jm, _HYBRID)
+    Ys = getattr(tsh, call)(tl.device_put(tm, _HYBRID),
+                            tsh.shard_vector(X, tm, tl.padded_m), tm,
+                            _HYBRID)
+    return tsh.gather_vector(Ys), np.asarray(Yj)
+
+
+def test_hybrid_mesh_spmv_and_groups():
+    """Rows sharded over the flattened (hosts, rows) axes, the halo pairs
+    crossing the host boundary, and the shared group plan across all
+    eight shards."""
+    mat = random_banded(8192, 60, 8, seed=0)
+    jl = jsh.ShardedRanked.build(mat, 8)
+    tl = tsh.ShardedRanked.build(_port(mat), 8)
+    _assert_same_stack(tl, jl)
+    assert tl.halo > 0 and tl.group_code != 0
+    x = _x(mat.n, 0)
+    y, yj = _hybrid_both(jl, tl, x, "spmv_sharded")
+    _check(y[: mat.m], mat.matvec(x), yj[: mat.m])
+
+
+def test_hybrid_mesh_axis_size_guard():
+    """Naming only the "rows" sub-axis (4 devices) of the (2, 4) mesh:
+    the 8-shard layout is refused with the reference's message; a name
+    the mesh lacks raises, as the reference's mesh.shape[name] does."""
+    from tpu_spmv_torch.dist.multihost import make_hybrid_mesh
+
+    mesh = make_hybrid_mesh(num_hosts=2, devices=["cpu"] * 8)
+    lay = tsh.ShardedRanked.build(_port(random_banded(8192, 60, 8, seed=0)),
+                                  8).device_put(mesh, _HYBRID)
+    xs = tsh.shard_vector(np.zeros(lay.padded_m, np.float32), mesh)
+    with pytest.raises(ValueError, match="spans 4 devices"):
+        tsh.spmv_sharded(lay, xs, mesh, "rows")
+    with pytest.raises(ValueError, match="spans 4 devices"):
+        lay.device_put(mesh, "rows")
+    with pytest.raises(KeyError, match="no axis 'row'"):
+        tsh.spmv_sharded(lay, xs, mesh, ("hosts", "row"))
+    assert tsh.gather_vector(tsh.spmv_sharded(lay, xs, mesh, _HYBRID)).shape \
+        == (lay.padded_m,)
+
+
+def test_spmm_sharded_hybrid_mesh():
+    mat = random_banded(8192, 60, 8, seed=1)
+    jl = jsh.ShardedRanked.build(mat, 8)
+    tl = tsh.ShardedRanked.build(_port(mat), 8)
+    X = _x(mat.n, 4, B=2)
+    Y, Yj = _hybrid_both(jl, tl, X, "spmm_sharded")
+    _check(Y[: mat.m], _oracle(mat, X), Yj[: mat.m])
+
+
+def test_overlap_hybrid_mesh():
+    """The overlap over the tuple axis: the edge copies cross the host
+    boundary as spmv_sharded's do."""
+    mat = random_banded(9000, 50, 8, seed=3)
+    jl = jsh.OverlapRanked.build(mat, 8)
+    tl = tsh.OverlapRanked.build(_port(mat), 8)
+    _assert_same_stack(tl, jl)
+    x = _x(mat.n, 1)
+    y, yj = _hybrid_both(jl, tl, x, "spmv_overlap")
+    _check(y[: mat.m], mat.matvec(x), yj[: mat.m])
+
+
 def test_cg_on_overlap_layout():
     mat = random_banded(2000, 50, 8, seed=2)
     jl = jsh.OverlapRanked.build(mat, 4)
@@ -599,11 +681,9 @@ def test_dist_exports():
 
     for name in ("OverlapRanked", "ShardedRanked", "ShardedSell",
                  "make_row_mesh", "spmm_overlap", "spmm_sharded",
-                 "spmv_overlap", "spmv_sharded", "cg_solve", "pcg_solve"):
+                 "spmv_overlap", "spmv_sharded", "cg_solve", "pcg_solve",
+                 "ShardedLowerSolve", "sts_solve_sharded"):
         assert hasattr(jdist, name) and hasattr(tdist, name), name
-    for name in ("ShardedLowerSolve", "sts_solve_sharded"):
-        with pytest.raises(AttributeError, match="A13c"):
-            getattr(tdist, name)
 
 
 def run_cli(main, argv):
@@ -638,7 +718,8 @@ def assert_solve_cli_agrees(argv, iters=2):
     rc_j, out_j = run_cli(jcli.main, argv)
     rc_t, out_t = run_cli(tcli.main, [*argv, "--device", "cpu"])
     assert rc_t == rc_j, (out_t, out_j)
-    keys = ("devices=", "overlap", "ignored", "ic0: rows", "ic0-bj", "RCM")
+    keys = ("devices=", "overlap", "ignored", "ic0: rows", "ic0-bj", "RCM",
+            "D=")
     assert _lines(out_t, *keys) == _lines(out_j, *keys), (out_t, out_j)
     r_t, r_j = residual(out_t), residual(out_j)
     if iters >= 60:

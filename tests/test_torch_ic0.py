@@ -8,8 +8,16 @@ tests/test_ic0.py holds the reference. pcg_ic0_solve follows JAX's loop
 to RelL2 <= 1e-4 in x after 10 iterations (both in f32; the two
 packages' solves round differently, and CG amplifies the difference).
 The solve CLI runs on the CPU as the JAX CLI runs (plain CG, Jacobi,
-IC(0), ic0-bj on one device) and refuses the distributed IC(0)
-preconditioners, naming ROADMAP item A13c.
+IC(0), ic0-bj on one device, and both distributed preconditioners on
+D > 1 shards).
+
+The distributed preconditioners (tests/test_ic0.py's cases), the JAX
+side on tests/conftest.py's virtual devices in interpret mode, the port
+on ["cpu"] * D: arrays and index maps equal to the reference's; z of
+one application within RelL2 <= 1e-5 of the JAX z (the block-Jacobi z
+also within 1e-6 of blockwise scipy solves in f64, the reference's own
+bar); PCG x within RelL2 <= 1e-4 of the JAX x after the same 25
+iterations, with the reference's residual bound.
 """
 
 import jax.numpy as jnp
@@ -166,12 +174,171 @@ def test_solve_cli_runs_as_the_reference(args, one_thread):
     ["--precond", "ic0", "--devices", "2"],
     ["--precond", "ic0-bj", "--devices", "2"],
 ])
-def test_solve_cli_refusals(args):
-    from tpu_spmv_torch.tools import solve
+def test_solve_cli_distributed_ic0(args, one_thread):
+    """The distributed preconditioners through the CLI, D shards on the
+    CPU beside the JAX CLI on the virtual devices: the same route lines
+    and residuals (tests/test_ic0.py:235, :251 at D = 4 below)."""
+    from test_torch_dist import assert_solve_cli_agrees
 
-    with pytest.raises(SystemExit) as e:
-        solve.main(["synthetic:banded_1k", *args, "--device", "cpu"])
-    assert "ROADMAP.md item A13c" in str(e.value)
+    kind = "distributed" if "ic0" in args else "block-Jacobi"
+    out = assert_solve_cli_agrees(["synthetic:banded_1k", *args])
+    assert f"({kind}, D=2): rows=1000 breakdowns=0" in out
+
+
+# The distributed preconditioners: tests/test_ic0.py's matrices and D.
+
+def _meshes(D):
+    import jax
+
+    from tpu_spmv.dist.sharding import make_row_mesh as jmesh
+    from tpu_spmv_torch.dist.sharding import make_row_mesh
+
+    return jmesh(jax.devices()[:D]), make_row_mesh(["cpu"] * D)
+
+
+def _jshard(v, mesh):
+    import jax
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    return jax.device_put(jnp.asarray(v), NamedSharding(mesh, P("rows")))
+
+
+def _sharded_case(mat, D, kind):
+    """(port precond placed, JAX precond placed, port and JAX ShardedRanked
+    placed, meshes), the arrays and maps held equal to the reference's."""
+    from tpu_spmv.dist import sharding as jsh
+    from tpu_spmv_torch.dist import sharding as tsh
+    from test_torch_dist_sts import assert_same_solve_stack
+
+    jm, tm = _meshes(D)
+    jl = jsh.ShardedRanked.build(mat, D)
+    tl = tsh.ShardedRanked.build(mat, D)
+    jp = getattr(jic0, kind).build(mat, D, jl.padded_m)
+    tp = getattr(tic0, kind).build(mat, D, tl.padded_m)
+    assert tp.breakdowns == jp.breakdowns == 0
+    if kind == "ShardedIC0Preconditioner":
+        assert_same_solve_stack(tp.lay_l, jp.lay_l)
+        assert_same_solve_stack(tp.lay_u, jp.lay_u)
+        names = ("bl_gather", "bl_scatter", "bu_gather", "bu_scatter",
+                 "z_gather")
+        static = ("m", "padded_m_a")
+    else:
+        names = ("lvals", "lcols", "lsub_b0", "lsub_nb", "lsub_chunk",
+                 "uvals", "ucols", "usub_b0", "usub_nb", "usub_chunk",
+                 "g_l", "inv_l", "g_u", "inv_u", "g_z")
+        static = ("m", "padded_m_a", "rows_per_shard", "nc_l", "nc_u",
+                  "l_max_nb", "u_max_nb", "n_devices")
+    for name in names:
+        a, b = np.asarray(getattr(jp, name)), getattr(tp, name).numpy()
+        assert a.shape == b.shape and np.array_equal(a, b), name
+    for name in static:
+        assert getattr(tp, name) == getattr(jp, name), name
+    return (tp.device_put(tm), jp.device_put(jm), tl.device_put(tm),
+            jl.device_put(jm), tm, jm)
+
+
+def _apply_both(tp, jp, tm, jm, r):
+    from tpu_spmv_torch.dist import sharding as tsh
+
+    z = tsh.gather_vector(tp.apply(tsh.shard_vector(r, tm), tm))
+    zj = np.asarray(jp.apply(_jshard(r, jm), jm, interpret=True))
+    return z, zj
+
+
+def _pcg_both(tp, jp, tl, jl, tm, jm, mat, iters=25):
+    from tpu_spmv_torch.dist import sharding as tsh
+
+    bp = np.zeros(tl.padded_m, np.float32)
+    bp[: mat.m] = 1.0
+    x, rz = tic0.pcg_ic0_sharded(tl, tsh.shard_vector(bp, tm), tp, tm,
+                                 iters=iters)
+    xj, _ = jic0.pcg_ic0_sharded(jl, _jshard(bp, jm), jp, jm, iters=iters)
+    assert rz.dim() == 0 and np.isfinite(float(rz))
+    x = tsh.gather_vector(x)
+    assert not x[mat.m:].any()
+    return x[: mat.m], np.asarray(xj)[: mat.m]
+
+
+@pytest.mark.parametrize("kind", ["ShardedIC0Preconditioner",
+                                  "BlockJacobiIC0Preconditioner"])
+def test_pcg_ic0_sharded_matches_jax(kind, one_thread):
+    """Exact distributed IC(0) (two chains an application) and
+    block-Jacobi IC(0) at D = 4 on the RCM-ordered banded system: z of
+    one application, then PCG's x after 25 iterations, against JAX's."""
+    mat = random_banded(3000, 50, 8, seed=2)
+    mat = mat.permuted(rcm(mat.indptr, mat.indices))
+    tp, jp, tl, jl, tm, jm = _sharded_case(mat, 4, kind)
+    r = np.zeros(tl.padded_m, np.float32)
+    r[: mat.m] = np.random.default_rng(0).standard_normal(mat.m)
+    z, zj = _apply_both(tp, jp, tm, jm, r)
+    assert _rel(z, zj) <= 1e-5 and not z[mat.m:].any()
+    if kind == "ShardedIC0Preconditioner":
+        # Exact IC(0): the single-device preconditioner's z.
+        one = tic0.IC0Preconditioner.build(mat, device="cpu")
+        assert _rel(z[: mat.m], one.apply(torch.from_numpy(
+            r[: mat.m])).numpy()) <= 1e-5
+    x, xj = _pcg_both(tp, jp, tl, jl, tm, jm, mat)
+    assert _rel(x, xj) <= 1e-4
+    assert np.linalg.norm(mat.matvec(x) - 1.0) / np.sqrt(mat.m) < 1e-5
+
+
+def _block_jacobi_oracle(mat, D, rows_per_shard, r):
+    """Blockwise (L_d L_d^T)^-1 r by scipy's triangular solves in f64."""
+    z = np.zeros_like(r, dtype=np.float64)
+    sp_mat = mat.to_scipy().tocsr()
+    for d in range(D):
+        r0 = min(d * rows_per_shard, mat.m)
+        r1 = min((d + 1) * rows_per_shard, mat.m)
+        if r1 == r0:
+            continue
+        from tpu_spmv_torch.formats.csr import CSRMatrix
+
+        L, bad = tic0.ic0_factor(CSRMatrix.from_scipy(
+            sp_mat[r0:r1, r0:r1].tocsr()))
+        assert bad == 0
+        Ls = L.to_scipy().astype(np.float64).tocsr()
+        rb = r[d * rows_per_shard : d * rows_per_shard + (r1 - r0)]
+        y = spsolve_triangular(Ls, rb.astype(np.float64), lower=True)
+        z[d * rows_per_shard : d * rows_per_shard + (r1 - r0)] = (
+            spsolve_triangular(sp.csr_matrix(Ls.T), y, lower=False))
+    return z
+
+
+def test_block_jacobi_ic0_apply_matches_blockwise_scipy(one_thread):
+    """D = 8 over 3,000 rows: a partly filled last real shard and five
+    all-padding shards (the 1x1 identity), z equal to blockwise solves
+    and to JAX's, padding rows exactly zero."""
+    mat = random_banded(3000, 50, 8, seed=7)
+    tp, jp, tl, jl, tm, jm = _sharded_case(
+        mat, 8, "BlockJacobiIC0Preconditioner")
+    r = np.zeros(tl.padded_m, np.float32)
+    r[: mat.m] = np.random.default_rng(0).standard_normal(mat.m)
+    z, zj = _apply_both(tp, jp, tm, jm, r)
+    z_ref = _block_jacobi_oracle(mat, 8, tp.rows_per_shard, r)
+    assert _rel(z, z_ref) < 1e-6 and _rel(z, zj) <= 1e-5
+    assert not z[mat.m:].any()
+
+
+def test_sharded_preconditioners_from_reference(one_thread):
+    """Carried from the JAX package (chunk-by-chunk plain steps), both
+    give the port's own z."""
+    mat = random_banded(1500, 40, 8, seed=4)
+    from tpu_spmv_torch.dist import sharding as tsh
+
+    _, tm = _meshes(2)
+    r = np.zeros(2048, np.float32)
+    r[: mat.m] = np.random.default_rng(1).standard_normal(mat.m)
+    for kind in ("ShardedIC0Preconditioner", "BlockJacobiIC0Preconditioner"):
+        ours = getattr(tic0, kind).build(mat, 2, 2048).device_put(tm)
+        carried = tic0.from_reference(getattr(jic0, kind).build(
+            mat, 2, 2048)).device_put(tm)
+        z1, z2 = (tsh.gather_vector(p.apply(tsh.shard_vector(r, tm), tm))
+                  for p in (ours, carried))
+        assert np.array_equal(z1, z2), kind
+    with pytest.raises(ValueError, match="preconditioner built for 2 "
+                       "devices, mesh axis 'rows' spans 4 devices"):
+        ours.apply(tsh.shard_vector(np.zeros(4096, np.float32),
+                                    _meshes(4)[1]), _meshes(4)[1])
 
 
 def test_solve_cli_needs_a_card(monkeypatch):

@@ -327,11 +327,10 @@ def test_sts_cli_validates_on_cpu(args, capsys):
 def test_sts_cli_refusals(monkeypatch):
     from tpu_spmv_torch.tools import sts
 
-    with pytest.raises(SystemExit) as e:
-        sts.main(["synthetic:banded_1k", "--devices", "2"])
-    assert "ROADMAP.md item A13c" in str(e.value)
     with pytest.raises(SystemExit, match="timing needs a CUDA card"):
         sts.main(["synthetic:banded_1k", "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="no CUDA device"):
         sts.main(["synthetic:banded_1k", "--validate-only"])
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        sts.main(["synthetic:banded_1k", "--devices", "2"])

@@ -205,3 +205,120 @@ def test_run_config_matches_reference(tmp_path, monkeypatch):
         p.write_text(bad)
         with pytest.raises(ValueError):
             tconfig.RunConfig.parse_file(str(p))
+
+
+# tools/scaling.py, the (hosts, rows) mesh and the distributed STS CLI:
+# tests/test_tools.py's cases (:132, :173, :233, :288).
+
+def test_multihost_mesh_simulated():
+    from tpu_spmv_torch.dist.multihost import (
+        initialize, make_hybrid_mesh, row_spec,
+    )
+
+    assert initialize() is False  # one process
+    mesh = make_hybrid_mesh(devices=["cpu"] * 8)
+    assert mesh.size == 8 and mesh.shape == (1, 8)
+    assert mesh.axis_names == ("hosts", "rows")
+    assert row_spec() == ("hosts", "rows")
+
+
+def test_scaling_report_matches_reference():
+    from tpu_spmv.bench.matrices import random_general
+    from tpu_spmv.tools import scaling as jscaling
+    from tpu_spmv_torch.tools import scaling as tscaling
+
+    banded = random_banded(100_000, 500, 12, seed=0)
+    scattered = random_general(100_000, 8, seed=1)
+    for mat, halo in ((banded, True), (scattered, False)):
+        for D in (2, 8):
+            assert tscaling.report(mat, D) == jscaling.report(mat, D)
+        assert tscaling.report(mat, 8)["halo_applicable"] == halo
+    r = tscaling.report(banded, 8)
+    assert r["ici_bytes_per_dev_halo"] < r["ici_bytes_per_dev_allgather"]
+
+
+def test_scaling_cli_matches_reference(capsys):
+    from tpu_spmv.tools import scaling as jscaling
+    from tpu_spmv_torch.tools import scaling as tscaling
+
+    argv = ["synthetic:banded_1k", "--devices", "2", "4", "--rcm"]
+    assert jscaling.main(argv) == 0
+    ref = capsys.readouterr().out
+    assert tscaling.main(argv) == 0
+    assert capsys.readouterr().out == ref
+
+
+_V5E_RATES = (819e9 / 17.0, 45e9, 12.5e9)
+
+
+def test_weak_scaling_matches_reference(monkeypatch):
+    """Under the same rates (both packages pinned to the reference's own
+    off-device v5e row), the rows are the reference's key for key; the
+    port executes every D (shards on the CPU), on the (2, 2) hybrid mesh
+    at D = 4, with Number Wrong 0."""
+    from tpu_spmv.tools import scaling as jscaling
+    from tpu_spmv_torch.tools import scaling as tscaling
+
+    monkeypatch.setattr(jscaling, "_model_rates", lambda: _V5E_RATES)
+    monkeypatch.setattr(tscaling, "_model_rates", lambda: _V5E_RATES)
+    kw = dict(base_rows=2048, band=48)
+    rows = tscaling.weak_scaling([1, 2, 4], device="cpu", **kw)
+    ref = jscaling.weak_scaling([1, 2, 4], **kw)
+    for r, j in zip(rows, ref, strict=True):
+        assert r["executed"] and j["executed"]
+        assert r["num_wrong"] == j["num_wrong"] == 0
+        assert float(r["rel_l2"]) <= 1e-6 and float(j["rel_l2"]) <= 1e-6
+        for k in j:
+            if k != "rel_l2":
+                assert r[k] == j[k], k
+    halo_bytes = {r["ici_bytes_per_dev"] for r in rows if r["devices"] > 1}
+    assert len(halo_bytes) == 1 and rows[-1]["hosts"] == 2
+    assert all(r["model_efficiency"] >= 0.70 for r in rows)
+
+
+def test_weak_scaling_on_the_h100_rates():
+    """Off the card the model takes the H100's rates: its HBM rate over
+    the port's bytes a nonzero, NVLink and the network from the data
+    sheets. At the reference's sizes they give a lower efficiency than
+    the v5e row (the compute is faster, the host link not as much)."""
+    from tpu_spmv_torch import hw
+    from tpu_spmv_torch.tools import scaling as tscaling
+
+    nnzs, peer, net = tscaling._model_rates()
+    assert nnzs == hw.hbm_bytes_per_s("H100") / hw.SPMV_BYTES_PER_NNZ
+    assert (peer, net) == (450e9, 50e9)
+    rows = tscaling.weak_scaling([2, 4], execute=False)
+    assert not any(r["executed"] for r in rows)
+    assert 0.70 <= rows[1]["model_efficiency"] < 0.90  # v5e rates: 0.901
+
+
+def test_weak_scaling_cli_on_cpu(tmp_path, capsys):
+    from tpu_spmv_torch.tools import scaling as tscaling
+
+    out = tmp_path / "weak.csv"
+    rc = tscaling.main(["--weak", "--devices", "1", "2", "--base-rows",
+                        "2048", "--device", "cpu", "--out", str(out)])
+    text = capsys.readouterr().out
+    assert rc == 0 and "executed wrong=0" in text
+    assert "worst model efficiency" in text
+    assert len(list(csv.DictReader(open(out)))) == 2
+
+
+def test_sts_cli_distributed(capsys):
+    """tools.sts --devices 4 (the reference's argv; shards on the CPU):
+    the reference's lines, Number Wrong 0."""
+    from tpu_spmv.tools import sts as jsts
+    from tpu_spmv_torch.tools import sts as tsts
+
+    argv = ["synthetic:banded_1k", "--devices", "4"]
+    assert jsts.main(argv) == 0
+    ref = capsys.readouterr().out
+    assert tsts.main([*argv, "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "devices=4" in out and "Number Wrong: 0" in out
+
+    def lines(text):
+        return [ln for ln in text.splitlines()
+                if not ln.startswith("Total Error")]
+
+    assert lines(out) == lines(ref)

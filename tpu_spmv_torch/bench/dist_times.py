@@ -16,11 +16,20 @@ One card (the default): D shards on it, D = 1 and 4.
     multiply and an add (as a first version had them), and the RMS
     residual at 100, 200, 400, ... iterations.
 
+  * The sharded triangular solve (dist/sts.py) on lap2d_1024 LS at D = 1,
+    2 and 4 (warm TimeMin, CUDA graph, twice each, beside
+    lower_solve_blocks alone), and IC(0)-PCG on lap3d_101 with
+    ShardedIC0Preconditioner and BlockJacobiIC0Preconditioner at D = 1, 2
+    and 4: us per iteration of a captured iteration (20 replays) and the
+    RMS residual after 60.
+
 --cards: one shard a card (make_row_mesh() over every card). Each
 sharded call (ranked, all-gather, sell, the overlap; SpMV and SpMM at
 B = 8) on lap2d_1024 after RCM against its plain version and the oracle,
 with its eager time (host clock, every card synchronised; one CUDA graph
-cannot hold several cards), then cg_solve on lap3d_101 eagerly.
+cannot hold several cards), then cg_solve on lap3d_101 eagerly; then the
+sharded solve on lap2d_1024 LS (against the float64 substitution) and
+both IC(0)-PCG iterations on lap3d_101, eagerly.
 
 The first line is the card's nvidia-smi name and power limit. Exits 1
 when a check fails.
@@ -94,24 +103,6 @@ def _split_step(layout, mesh, inv_diag, state):
     return (x, r, p, rz_new)
 
 
-def _capture(step, state):
-    """A CUDA graph of step(state) copied back into state (as
-    dist/solvers.capture_step, for any step)."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        step(tuple([t.clone() for t in v] if isinstance(v, list)
-                   else v.clone() for v in state))
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for old, new in zip(state, step(state)):
-            pairs = zip(old, new) if isinstance(old, list) else ((old, new),)
-            for o, n in pairs:
-                o.copy_(n)
-    return graph
-
-
 def _cg(dev, iters: int) -> bool:
     from tpu_spmv_torch.dist import sharding as dsh
     from tpu_spmv_torch.dist import solvers
@@ -132,8 +123,8 @@ def _cg(dev, iters: int) -> bool:
                 if updates == "addcmul":
                     graph = solvers.capture_step(lay, mesh, state, inv)
                 else:
-                    graph = _capture(
-                        lambda s: _split_step(lay, mesh, inv, s), state)
+                    graph = solvers.capture(
+                        lambda s: _split_step(lay, mesh, inv, s), mesh, state)
                 done, ms, res = 0, 0.0, []
                 upto = 100
                 while done < iters:
@@ -156,6 +147,89 @@ def _cg(dev, iters: int) -> bool:
                       f"D={D} ({updates}): {ms / iters * 1e3:.2f} us an "
                       f"iteration (CUDA graph); rms_residual "
                       f"{' '.join(res)}", flush=True)
+    return ok
+
+
+def _solve_system():
+    """lap2d_1024 in level order, b for x = ones, and the float64
+    forward substitution."""
+    from tpu_spmv_torch.sts.host import build_sts, compute_b
+    from tpu_spmv_torch.tools.spmv import load_input
+
+    sys_ = build_sts(load_input("synthetic:lap2d_1024"), order_type="LS")
+    return sys_, compute_b(sys_.lower)
+
+
+def _graph_us(graph, replays: int = 20) -> float:
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / replays * 1e3
+
+
+def _solves(dev) -> bool:
+    """The sharded solve and both distributed IC(0)-PCG iterations, D
+    shards on one card (CUDA graphs)."""
+    from tpu_spmv_torch.bench.harness import bench_spmv
+    from tpu_spmv_torch.dist import sharding as dsh
+    from tpu_spmv_torch.dist.sts import ShardedLowerSolve, sts_solve_sharded
+    from tpu_spmv_torch.kernels.sts import lower_solve_blocks
+    from tpu_spmv_torch.sts import ic0
+    from tpu_spmv_torch.sts.solve import LowerSolveLayout
+    from tpu_spmv_torch.tools.spmv import load_input
+
+    ok = True
+    sys_, b = _solve_system()
+    one = LowerSolveLayout.build(sys_, b, ranked=False)
+    def blocks(lay, v):
+        return lower_solve_blocks(lay, v.view(-1, 128))
+
+    alone = [bench_spmv(blocks, one.slabs, one.b_scale.reshape(-1)).time_min
+             * 1e6 for _ in range(2)]
+    print("lap2d_1024 LS lower_solve_blocks alone "
+          + " ".join(f"{t:.2f}" for t in alone) + " us", flush=True)
+    del one
+    for D in (1, 2, 4):
+        mesh = dsh.make_row_mesh([dev] * D)
+        lay, pad = ShardedLowerSolve.build(sys_, b, D)
+        lay = lay.device_put(mesh)
+        x = dsh.gather_vector(sts_solve_sharded(lay, mesh))[pad]
+        wrong = int(np.sum(np.abs(x - 1.0) > 0.01))
+        ok &= wrong == 0
+        t = [bench_spmv(lambda lay_, _v: sts_solve_sharded(lay_, mesh), lay,
+                        lay.b_local[0], nnz=sys_.lower.nnz).time_min * 1e6
+             for _ in range(2)]
+        print(f"lap2d_1024 LS sts_solve_sharded D={D}: Number Wrong {wrong} |"
+              " " + " ".join(f"{v:.2f}" for v in t) + " us (warm TimeMin, "
+              "CUDA graph)", flush=True)
+        del lay
+    mat = load_input("synthetic:lap3d_101")
+    for D in (1, 2, 4):
+        mesh = dsh.make_row_mesh([dev] * D)
+        lay = dsh.ShardedRanked.build(mat, D).device_put(mesh)
+        b3 = dsh.shard_vector(np.ones(mat.m, np.float32), mesh, lay.padded_m)
+        for cls in (ic0.ShardedIC0Preconditioner,
+                    ic0.BlockJacobiIC0Preconditioner):
+            t0 = time.perf_counter()
+            pre = cls.build(mat, D, lay.padded_m).device_put(mesh)
+            build_s = time.perf_counter() - t0
+            state = ic0.pcg_ic0_sharded_init(b3, pre, mesh)
+            graph = ic0.capture_pcg_sharded_step(lay, pre, mesh, state)
+            us = _graph_us(graph)
+            for _ in range(60 - 21):
+                graph.replay()
+            x = dsh.gather_vector(state[0])[: mat.m]
+            rms = np.linalg.norm(mat.matvec(x) - 1.0) / np.sqrt(mat.m)
+            ok &= rms < 1e-3
+            print(f"lap3d_101 {cls.__name__} D={D}: {us:.2f} us an "
+                  f"iteration (CUDA graph); rms_residual {rms:.3e} after 60 "
+                  f"| host build {build_s:.2f} s", flush=True)
+            del pre, state, graph
     return ok
 
 
@@ -233,6 +307,37 @@ def _cards() -> bool:
     print(f"cg_solve lap3d_101 D={D} eager: 200 iterations, rms_residual "
           f"{res:.3e}, {dt / 200 * 1e6:.2f} us an iteration (host clock)",
           flush=True)
+
+    from tpu_spmv_torch.dist.sts import ShardedLowerSolve, sts_solve_sharded
+    from tpu_spmv_torch.sts import ic0
+
+    sys_, b = _solve_system()
+    slay, pad = ShardedLowerSolve.build(sys_, b, D)
+    slay = slay.device_put(mesh)
+    x = dsh.gather_vector(sts_solve_sharded(slay, mesh))[pad]
+    rel = float(np.linalg.norm(x - 1.0) / np.sqrt(x.size))
+    ok &= rel <= 1e-5
+    print(f"lap2d_1024 LS sts_solve_sharded D={D}: RMS |x - 1| {rel:.3g} | "
+          f"eager us a solve "
+          f"{eager_us(lambda: sts_solve_sharded(slay, mesh), k=5):.2f}",
+          flush=True)
+    del slay
+    b3 = dsh.shard_vector(np.ones(mat.m, np.float32), mesh, lay.padded_m)
+    for cls in (ic0.ShardedIC0Preconditioner,
+                ic0.BlockJacobiIC0Preconditioner):
+        pre = cls.build(mat, D, lay.padded_m).device_put(mesh)
+        state = ic0.pcg_ic0_sharded_init(b3, pre, mesh)
+        t0 = time.perf_counter()
+        for _ in range(60):
+            state = ic0.pcg_ic0_sharded_step(lay, pre, mesh, state)
+        sync()
+        dt = time.perf_counter() - t0
+        x = dsh.gather_vector(state[0])[: mat.m]
+        res = float(np.linalg.norm(mat.matvec(x) - 1.0) / np.sqrt(mat.m))
+        ok &= res < 1e-3
+        print(f"lap3d_101 {cls.__name__} D={D} eager: 60 iterations, "
+              f"rms_residual {res:.3e}, {dt / 60 * 1e6:.2f} us an iteration "
+              "(host clock)", flush=True)
     return ok
 
 
@@ -252,7 +357,8 @@ def main(argv=None) -> int:
         return 0 if _cards() else 1
     dev = torch.device("cuda")
     _streams(dev)
-    return 0 if _cg(dev, args.iters) else 1
+    ok = _cg(dev, args.iters)
+    return 0 if _solves(dev) and ok else 1
 
 
 if __name__ == "__main__":

@@ -61,11 +61,21 @@ class RowMesh:
     """D devices along the row axis, with the streams of the shards that
     lie on a card: `streams[d]` runs shard d's kernels (None: the
     caller's current stream, shard 0's; and every shard's on the CPU),
-    `halo_streams[d]` its overlap halo copies."""
+    `halo_streams[d]` its overlap halo copies. `shape` and `axis_names`
+    name the mesh's axes as the reference's Mesh does: ("rows",) over D
+    by default, ("hosts", "rows") over (H, D / H) from
+    multihost.make_hybrid_mesh, whose `devices` are the mesh flattened
+    hosts-major, the order rows are sharded in over the tuple axis."""
 
     devices: list
     streams: list
     halo_streams: list
+    shape: tuple = None
+    axis_names: tuple = ("rows",)
+
+    def __post_init__(self):
+        if self.shape is None:
+            self.shape = (len(self.devices),)
 
     @property
     def size(self) -> int:
@@ -74,10 +84,10 @@ class RowMesh:
 
 def make_row_mesh(devices=None) -> RowMesh:
     """A RowMesh over `devices` (torch devices or their names; default:
-    every CUDA card, one shard each). A device may repeat: D shards on
-    one card each get their own streams. Shard 0 runs on the caller's
-    stream: a one-shard call forks nothing (a fork and join cost about
-    2.5 us in a CUDA graph on the H100)."""
+    every CUDA card, one shard each), its one axis named "rows". A device
+    may repeat: D shards on one card each get their own streams. Shard 0
+    runs on the caller's stream: a one-shard call forks nothing (a fork
+    and join cost about 2.5 us in a CUDA graph on the H100)."""
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError("no CUDA device: pass the devices (e.g. "
@@ -97,9 +107,18 @@ def make_row_mesh(devices=None) -> RowMesh:
 
 
 def mesh_axis_size(mesh: RowMesh, axis="rows") -> int:
-    """Devices along the mesh's one axis (`axis` names it in messages,
-    as the reference's mesh axis)."""
-    return mesh.size
+    """Devices under `axis`: a name, or a tuple of names whose sizes
+    multiply (the multi-host ("hosts", "rows") case shards rows over
+    both). A name the mesh lacks raises KeyError, as the reference's
+    `mesh.shape[name]` does."""
+    names = (axis,) if isinstance(axis, str) else tuple(axis)
+    size = 1
+    for name in names:
+        if name not in mesh.axis_names:
+            raise KeyError(f"mesh has no axis {name!r}; its axes are "
+                           f"{mesh.axis_names}")
+        size *= mesh.shape[mesh.axis_names.index(name)]
+    return size
 
 
 def _check_mesh(layout, mesh: RowMesh, axis="rows") -> None:
@@ -191,6 +210,37 @@ def _padk(a: torch.Tensor, target: int, fill) -> torch.Tensor:
     return torch.cat([a, torch.full((pad, *a.shape[1:]), fill, dtype=a.dtype)])
 
 
+_SELL_FIELDS = ("vals", "cols", "sub_b0", "sub_nb", "sub_chunk")
+
+
+def stack_sell(shards, num_chunks_local: int):
+    """The shards' SellSlabs arrays stacked to common shapes, as the
+    reference stacks them: ([vals, cols, sub_b0, sub_nb, sub_chunk],
+    max_nb); padding slots hold 0, padding sub-tiles nb 1 and chunk
+    num_chunks_local."""
+    total_k = max(int(s.vals.shape[0]) for s in shards)
+    S = max(s.num_subtiles for s in shards)
+    out = []
+    for name, fill in zip(_SELL_FIELDS, (0.0, 0, 0, 1, num_chunks_local)):
+        target = total_k if name in ("vals", "cols") else S
+        out.append(torch.stack([_padk(getattr(s, name), target, fill)
+                                for s in shards]))
+    return out, max(s.max_nb for s in shards)
+
+
+def local_sell(stack, d: int, m: int, n: int, num_chunks: int, max_nb: int,
+               nnz: int = 0, chunk_q: int = 0) -> SellSlabs:
+    """Shard d's SellSlabs from the slices of a stack (vals, cols,
+    sub_b0, sub_nb, sub_chunk), with its segment table; its tables end
+    at the shard's real sub-tiles."""
+    vals, cols, b0, nb, chunk = stack
+    return sell_container(types.SimpleNamespace(
+        vals=vals[d], cols=cols[d], sub_b0=b0[d], sub_nb=nb[d],
+        sub_chunk=chunk[d].numpy(), m=m, n=n, nnz=nnz,
+        num_chunks=num_chunks, max_nb=max_nb, chunk_q=chunk_q,
+    ))
+
+
 def _uniform_q(shards, S: int, num_chunks_local: int) -> int:
     """The shards' common chunk_q, or 0: padding to common shapes keeps
     per-shard uniformity only when every shard agrees."""
@@ -252,13 +302,10 @@ class ShardedSell(_Stacked):
         return self.rows_per_shard + 2 * self.halo if self.halo else self.n
 
     def _local(self, d: int) -> SellSlabs:
-        return sell_container(types.SimpleNamespace(
-            vals=self.vals[d], cols=self.cols[d], sub_b0=self.sub_b0[d],
-            sub_nb=self.sub_nb[d], sub_chunk=self.sub_chunk[d].numpy(),
-            m=self.rows_per_shard, n=self.local_n, nnz=self.nnz,
-            num_chunks=self.num_chunks_local, max_nb=self.max_nb,
-            chunk_q=self.chunk_q,
-        ))
+        return local_sell(
+            (self.vals, self.cols, self.sub_b0, self.sub_nb, self.sub_chunk),
+            d, self.rows_per_shard, self.local_n, self.num_chunks_local,
+            self.max_nb, self.nnz, self.chunk_q)
 
     @classmethod
     def build(cls, mat: CSRMatrix, n_devices: int,
@@ -273,20 +320,15 @@ class ShardedSell(_Stacked):
             mat, n_devices, halo
         )
         shards = [SellSlabs.from_csr(block) for block in blocks]
-        total_k = max(int(s.vals.shape[0]) for s in shards)
-        S = max(s.num_subtiles for s in shards)
         num_chunks_local = rows_per_shard // LANES
+        (vals, cols, b0, nb, chunk), max_nb = stack_sell(shards,
+                                                         num_chunks_local)
         return cls(
-            vals=torch.stack([_padk(s.vals, total_k, 0.0) for s in shards]),
-            cols=torch.stack([_padk(s.cols, total_k, 0) for s in shards]),
-            sub_b0=torch.stack([_padk(s.sub_b0, S, 0) for s in shards]),
-            sub_nb=torch.stack([_padk(s.sub_nb, S, 1) for s in shards]),
-            sub_chunk=torch.stack(
-                [_padk(s.sub_chunk, S, num_chunks_local) for s in shards]),
+            vals=vals, cols=cols, sub_b0=b0, sub_nb=nb, sub_chunk=chunk,
             m=m, n=n, nnz=mat.nnz, rows_per_shard=rows_per_shard,
-            num_chunks_local=num_chunks_local,
-            max_nb=max(s.max_nb for s in shards), n_devices=n_devices,
-            halo=halo_rows, chunk_q=_uniform_q(shards, S, num_chunks_local),
+            num_chunks_local=num_chunks_local, max_nb=max_nb,
+            n_devices=n_devices, halo=halo_rows,
+            chunk_q=_uniform_q(shards, int(b0.shape[1]), num_chunks_local),
         )
 
 
@@ -761,13 +803,17 @@ def spmm_overlap(layout: OverlapRanked, Xs, mesh: RowMesh, axis="rows",
 
 
 def from_reference(layout):
-    """The port's ShardedSell, ShardedRanked or OverlapRanked for the
-    JAX package's (its stacked arrays read through NumPy), on the host;
-    device_put places it."""
+    """The port's ShardedSell, ShardedRanked, OverlapRanked or
+    ShardedLowerSolve (dist/sts.py) for the JAX package's (its stacked
+    arrays read through NumPy), on the host; device_put places it."""
     kind = type(layout).__name__
     if kind == "OverlapRanked":
         return OverlapRanked(main=from_reference(layout.main),
                              edge=from_reference(layout.edge))
+    if kind == "ShardedLowerSolve":
+        from tpu_spmv_torch.dist import sts
+
+        return sts.from_reference(layout)
     cls = {"ShardedSell": ShardedSell, "ShardedRanked": ShardedRanked}[kind]
     fields = {}
     for f in dataclasses.fields(cls):

@@ -93,18 +93,18 @@ def _step_fn(layout, mesh, inv_diag, axis):
     return lambda s: pcg_step(layout, mesh, inv_diag, s, axis)
 
 
-def capture_step(layout, mesh: RowMesh, state, inv_diag=None, axis="rows"):
-    """A CUDA graph of one iteration (CG, or Jacobi-PCG with inv_diag)
-    that advances `state` (from cg_init / pcg_init, on the card) in place
-    at each replay. The shards must share one card: the graph is
-    captured on it (its shard streams fork from the capture and join it
-    again). One iteration runs eagerly first on copies, so the state is
-    untouched, to load the kernels before capture."""
+def capture(step, mesh: RowMesh, state):
+    """A CUDA graph of step(state) that advances `state` (a tuple of
+    lists of shards and device scalars, on the card) in place at each
+    replay. The shards must share one card: the graph is captured on it
+    (its shard streams fork from the capture and join it again). One
+    step runs eagerly first on copies, so the state is untouched, to
+    load the kernels before capture."""
     devices = set(mesh.devices)
     if len(devices) != 1 or next(iter(devices)).type != "cuda":
-        raise ValueError("capture_step needs every shard on one CUDA card; "
-                         f"the mesh spans {sorted(map(str, devices))}")
-    step = _step_fn(layout, mesh, inv_diag, axis)
+        raise ValueError("a captured iteration needs every shard on one "
+                         "CUDA card; the mesh spans "
+                         f"{sorted(map(str, devices))}")
 
     def copies(st):
         return tuple([t.clone() for t in v] if isinstance(v, list)
@@ -125,6 +125,13 @@ def capture_step(layout, mesh: RowMesh, state, inv_diag=None, axis="rows"):
             else:
                 old.copy_(upd)
     return graph
+
+
+def capture_step(layout, mesh: RowMesh, state, inv_diag=None, axis="rows"):
+    """A CUDA graph of one iteration (CG, or Jacobi-PCG with inv_diag)
+    that advances `state` (from cg_init / pcg_init, on the card) in place
+    at each replay (see capture)."""
+    return capture(_step_fn(layout, mesh, inv_diag, axis), mesh, state)
 
 
 def _run(layout, b, mesh, iters, inv_diag, axis, graph):
@@ -172,6 +179,6 @@ def jacobi_inv_diag(diag, padded_m: int):
 
 
 __all__ = [
-    "capture_step", "cg_init", "cg_solve", "cg_step", "jacobi_inv_diag",
-    "pcg_init", "pcg_solve", "pcg_step",
+    "capture", "capture_step", "cg_init", "cg_solve", "cg_step",
+    "jacobi_inv_diag", "pcg_init", "pcg_solve", "pcg_step",
 ]

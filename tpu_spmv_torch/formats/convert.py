@@ -2,11 +2,11 @@
 
 `from_reference` turns a `tpu_spmv` layout (DiaSlabs, SellSlabs,
 RankedSlabs or PackedRanked, or the distributed layer's stacked
-ShardedSell, ShardedRanked and OverlapRanked, whose arrays np.asarray
-can read) into the port's container, so a layout built once can be run
-through both packages' kernels. It reads the arrays through NumPy and
-never imports JAX. The port's derived fields come from the reference's
-arrays alone:
+ShardedSell, ShardedRanked, OverlapRanked and ShardedLowerSolve, whose
+arrays np.asarray can read) into the port's container, so a layout built
+once can be run through both packages' kernels. It reads the arrays
+through NumPy and never imports JAX. The port's derived fields come from
+the reference's arrays alone:
 chunk_ptr from sub_chunk, the segment table from chunk_ptr
 (formats/sell.segment_fields), RankedSlabs' run table from the segment
 table (formats/packed.ranked_walk_fields) and its window table from the
@@ -68,7 +68,8 @@ def from_reference(layout):
         return sell_container(layout)
     if kind == "RankedSlabs":
         return ranked_container(layout)
-    if kind in ("ShardedSell", "ShardedRanked", "OverlapRanked"):
+    if kind in ("ShardedSell", "ShardedRanked", "OverlapRanked",
+                "ShardedLowerSolve"):
         from tpu_spmv_torch.dist import sharding
 
         return sharding.from_reference(layout)

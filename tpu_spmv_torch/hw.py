@@ -26,6 +26,19 @@ import torch
 # card set lower (nvidia-smi's power.limit) streams slower under load.
 _HBM_BYTES_PER_S = {"H100": 3.35e12, "H200": 4.8e12}
 
+# The effective traffic of the port's SpMV a nonzero: the card's HBM rate
+# times spmv_ranked's warm time, over nnz, on lap2d_1024 after RCM
+# (5,238,784 nonzeros; chip_smoke.py prints it as "bytes per nonzero").
+# tools/scaling.py divides the HBM rate by it for the single-card rate.
+# H100 80GB HBM3 at 700 W: 19.32 us (chip_smoke.py) -> 12.36 B.
+SPMV_BYTES_PER_NNZ = 12.36
+# Interconnect rates of the H100 SXM, for the scaling model: NVLink 4 at
+# 900 GB/s a GPU both ways (NVIDIA H100 Tensor Core GPU data sheet), 450
+# GB/s each way to a peer over NVSwitch; and one 400 Gb/s ConnectX-7
+# port a GPU between hosts (NVIDIA DGX H100 data sheet), 50 GB/s.
+H100_PEER_BYTES_PER_S = 450e9
+H100_NETWORK_BYTES_PER_S = 50e9
+
 # The H100's L2 cache (50 MB, as torch.cuda.get_device_properties reports
 # it): what the x-residency gates (kernels/dia.dia_x_fits,
 # kernels/sell.resident_x_fits) charge against when no card is at hand,

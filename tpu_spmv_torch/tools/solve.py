@@ -10,8 +10,13 @@ to the exchange-then-compute path when the banded halo does not apply)
 on D shards, printing `devices=D halo=H rows/shard=R`; --precond ic0 on
 one device runs IC(0)-PCG (`ic0: rows=... breakdowns=...`), and
 --precond ic0-bj on one device is exact IC(0), as the reference routes
-it. --pcg and --overlap do not apply to IC(0) and are ignored with the
-reference's message.
+it. On D > 1 devices, --precond ic0 runs exact IC(0) by two block
+forward substitutions an application (sts/ic0.ShardedIC0Preconditioner,
+`ic0 (distributed, D=...)`) and ic0-bj block-Jacobi IC(0), one factor a
+shard (BlockJacobiIC0Preconditioner, `ic0-bj (block-Jacobi, D=...)`),
+both in PCG over ShardedRanked (`ic0_sharded`, which chip_smoke.py
+drives with D shards on one card). --pcg and --overlap do not apply to
+IC(0) and are ignored with the reference's message.
 
 --devices counts CUDA cards (0: all of them; more than the machine has
 is refused). On the card the iterations replay a CUDA graph of one
@@ -19,9 +24,6 @@ iteration when the shards share one card (the counterpart of the JAX
 loop's jit), and the line `graph: ... us per iteration` follows.
 `--device cpu` runs the plain PyTorch versions eagerly with the D
 shards on the CPU (0: one shard).
-
-The distributed IC(0) preconditioners (--precond ic0 or ic0-bj on more
-than one device) are refused, naming ROADMAP.md item A13c.
 
 Usage:
   python -m tpu_spmv_torch.tools.solve matrix.mtx|synthetic:NAME
@@ -40,8 +42,6 @@ import numpy as np
 import torch
 
 from tpu_spmv_torch.tools.spmv import load_input
-
-REFUSED = "A13c (distributed IC(0))"
 
 
 def mesh_devices(requested: int, device: torch.device) -> list:
@@ -85,24 +85,71 @@ def _ic0(mat, args, device) -> int:
     else:
         sol, rz = pcg_ic0_solve(lay, b, pre, iters=args.iters)
     sol = sol.cpu().numpy()
-    return _report(mat, sol, rz, args, time.perf_counter() - t0, device)
+    return _report(mat, sol, rz, args.iters, args.tol,
+                   time.perf_counter() - t0, device.type == "cuda")
 
 
-def _report(mat, sol, rz, args, dt, device) -> int:
+def ic0_sharded(mat, precond: str, devices, iters: int, tol: float) -> int:
+    """IC(0)-PCG over len(devices) shards (tpu_spmv/tools/solve.py's
+    D > 1 path): precond "ic0" (exact, distributed) or "ic0-bj"
+    (block-Jacobi). Prints the reference's lines, and on one card the
+    us of a captured iteration; returns the exit code."""
+    from tpu_spmv_torch.dist.sharding import (
+        ShardedRanked, gather_vector, make_row_mesh, shard_vector,
+    )
+    from tpu_spmv_torch.sts.ic0 import (
+        BlockJacobiIC0Preconditioner, ShardedIC0Preconditioner,
+        capture_pcg_sharded_step, pcg_ic0_sharded, pcg_ic0_sharded_init,
+    )
+
+    mesh = make_row_mesh(devices)
+    D = mesh.size
+    lay = ShardedRanked.build(mat, D).device_put(mesh)
+    if precond == "ic0-bj":
+        cls, kind = BlockJacobiIC0Preconditioner, "ic0-bj (block-Jacobi"
+    else:
+        cls, kind = ShardedIC0Preconditioner, "ic0 (distributed"
+    pre = cls.build(mat, D, lay.padded_m).device_put(mesh)
+    print(f"{kind}, D={D}): rows={mat.m} breakdowns={pre.breakdowns}")
+    b = shard_vector(np.ones(mat.m, np.float32), mesh, lay.padded_m)
+    t0 = time.perf_counter()
+    sol, rz = pcg_ic0_sharded(lay, b, pre, mesh, iters=iters)
+    sol = gather_vector(sol)[: mat.m]
+    graph = _one_card(mesh.devices)
+    rc = _report(mat, sol, rz, iters, tol, time.perf_counter() - t0, graph)
+    if graph:
+        state = pcg_ic0_sharded_init(b, pre, mesh)
+        us = _time_graph(capture_pcg_sharded_step(lay, pre, mesh, state))
+        print(f"graph: {us:.2f} us per iteration ({precond}-PCG, D={D})")
+    return rc
+
+
+def _one_card(devices) -> bool:
+    """Whether every shard lies on one CUDA card (the iterations then
+    replay a captured CUDA graph)."""
+    return len(set(devices)) == 1 and devices[0].type == "cuda"
+
+
+def _report(mat, sol, rz, iters, tol, dt, graph: bool) -> int:
     resid = float(np.linalg.norm(mat.matvec(sol) - 1.0) / np.sqrt(mat.m))
-    print(f"iters={args.iters} rms_residual={resid:.3e} "
+    print(f"iters={iters} rms_residual={resid:.3e} "
           f"device_rz={float(rz):.3e} wall={dt:.2f}s"
-          + (" (incl. graph capture)" if device.type == "cuda" else ""))
-    return 0 if resid < args.tol else 1
+          + (" (incl. graph capture)" if graph else ""))
+    return 0 if resid < tol else 1
 
 
 def _time_iteration(lay, mesh, b, inv) -> float:
-    """Microseconds of one replay of a captured iteration (CUDA events
-    over 20 replays, after one), on a state of its own."""
+    """Microseconds of one replay of a captured CG or Jacobi-PCG
+    iteration, on a state of its own (_time_graph)."""
     from tpu_spmv_torch.dist.solvers import capture_step, cg_init, pcg_init
 
     state = cg_init(b, mesh) if inv is None else pcg_init(b, mesh, inv)
-    graph = capture_step(lay, mesh, state, inv)
+    return _time_graph(capture_step(lay, mesh, state, inv))
+
+
+def _time_graph(graph) -> float:
+    """Microseconds of one replay of a captured iteration (CUDA events
+    over 20 replays, after one)."""
     graph.replay()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
@@ -123,9 +170,10 @@ def main(argv=None):
     ap.add_argument("--precond", default=None,
                     choices=("jacobi", "ic0", "ic0-bj"),
                     help="jacobi (= --pcg); ic0: incomplete Cholesky, M^-1 "
-                    "applied by two triangular solves per iteration (one "
-                    "device); ic0-bj: block-Jacobi IC(0), exact IC(0) on "
-                    "one device (more devices are refused)")
+                    "applied by two triangular solves per iteration (on "
+                    "D > 1 devices, two block forward substitutions); "
+                    "ic0-bj: block-Jacobi IC(0), one factor a shard, no "
+                    "communication (exact IC(0) on one device)")
     ap.add_argument("--devices", type=int, default=0,
                     help="shards: CUDA cards (0 = all), or shards on the "
                     "CPU with --device cpu (0 = one)")
@@ -149,12 +197,6 @@ def main(argv=None):
         )
     devices = mesh_devices(args.devices, device)
     D = len(devices)
-    if args.precond in ("ic0", "ic0-bj") and D > 1:
-        raise SystemExit(
-            f"--precond {args.precond} on {D} devices runs the distributed "
-            "IC(0) preconditioners, not ported to the GPU yet (ROADMAP.md "
-            f"item {REFUSED})"
-        )
 
     from tpu_spmv_torch.tune.model import tpu_plan
 
@@ -174,6 +216,9 @@ def main(argv=None):
         if args.overlap or args.pcg:
             print("(--overlap/--pcg do not apply to --precond ic0; "
                   "ignored)")
+        if D > 1:
+            return ic0_sharded(mat, args.precond, devices, args.iters,
+                               args.tol)
         if args.precond == "ic0-bj":
             # One shard: its block is the whole matrix, so block-Jacobi
             # IC(0) is exact IC(0).
@@ -215,8 +260,9 @@ def main(argv=None):
     else:
         sol, rz = pcg_solve(lay, b, mesh, inv, iters=args.iters)
     sol = gather_vector(sol)[: mat.m]
-    rc = _report(mat, sol, rz, args, time.perf_counter() - t0, device)
-    if device.type == "cuda" and len(set(devices)) == 1:
+    rc = _report(mat, sol, rz, args.iters, args.tol,
+                 time.perf_counter() - t0, _one_card(devices))
+    if _one_card(devices):
         print(f"graph: {_time_iteration(lay, mesh, b, inv):.2f} us per "
               f"iteration ({'Jacobi-PCG' if args.pcg else 'CG'}, D={D})")
     return rc

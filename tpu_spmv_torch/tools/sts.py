@@ -8,10 +8,16 @@ the card with CUDA events (bench/harness.py, warm regime: the layout is
 reused every call). `--device cpu` runs the plain PyTorch versions and
 is accepted only with `--validate-only`.
 
+--devices D > 1 runs the block forward substitution over D shards
+(dist/sts.py) on cards 0..D-1 (D shards on the CPU with --device cpu),
+prints `devices=D rows/shard=R` and validates only, as the reference
+does; `sharded` is that path, for D devices of any kind (chip_smoke.py
+runs it with D shards on one card).
+
 Usage:
   python -m tpu_spmv_torch.tools.sts matrix.mtx|synthetic:NAME [num_runs]
       [--order LS|COLOR] [--part lower|upper] [--k 2|3|4] [--sizes 8 ...]
-      [--tol 0.01] [--validate-only] [--device cuda|cpu]
+      [--tol 0.01] [--devices D] [--validate-only] [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -24,8 +30,24 @@ import torch
 
 from tpu_spmv_torch.tools.spmv import load_input
 
-# The JAX CLI's distributed solve runs over dist/sts.py, not ported yet.
-REFUSED_DEVICES = "A13c (distributed triangular solve)"
+
+def sharded(sys_, b, devices, tol: float) -> int:
+    """Solve the system over len(devices) shards (one a device, devices
+    may repeat), print the reference's lines and return the exit code
+    (0 when no entry of x misses x = ones by more than tol)."""
+    from tpu_spmv_torch.dist.sharding import gather_vector, make_row_mesh
+    from tpu_spmv_torch.dist.sts import ShardedLowerSolve, sts_solve_sharded
+    from tpu_spmv_torch.sts.host import check_error
+
+    mesh = make_row_mesh(devices)
+    lay, pad_index = ShardedLowerSolve.build(sys_, b, mesh.size)
+    x = gather_vector(sts_solve_sharded(lay.device_put(mesh), mesh))[
+        pad_index]
+    num_wrong = int(np.sum(np.abs(x - 1.0) > tol))
+    print(f"devices={mesh.size} rows/shard={lay.rows_per_shard}")
+    print(f"Total Error: {check_error(x):g}")
+    print(f"Number Wrong: {num_wrong}")
+    return 0 if num_wrong == 0 else 1
 
 
 def main(argv=None):
@@ -42,7 +64,9 @@ def main(argv=None):
     ap.add_argument("--sizes", type=int, nargs="*", default=None)
     ap.add_argument("--tol", type=float, default=0.01)
     ap.add_argument("--devices", type=int, default=1,
-                    help="one device only (more is refused)")
+                    help=">1: the block forward substitution over D shards "
+                    "(cards, or shards on the CPU with --device cpu), "
+                    "validated only")
     ap.add_argument("--validate-only", action="store_true",
                     help="skip the timed benchmark")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
@@ -50,13 +74,8 @@ def main(argv=None):
                     "--validate-only")
     args = ap.parse_args(argv)
 
-    if args.devices > 1:
-        raise SystemExit(
-            "--devices > 1 (the distributed block back-substitution) is not "
-            f"ported to the GPU yet (ROADMAP.md item {REFUSED_DEVICES})"
-        )
     device = torch.device(args.device)
-    if device.type == "cpu" and not args.validate_only:
+    if device.type == "cpu" and not args.validate_only and args.devices <= 1:
         raise SystemExit(
             "--device cpu runs only with --validate-only: timing needs a "
             "CUDA card"
@@ -84,6 +103,11 @@ def main(argv=None):
     )
 
     b = compute_b(sys_.lower)  # x_exact = ones
+    if args.devices > 1:
+        from tpu_spmv_torch.tools.solve import mesh_devices
+
+        return sharded(sys_, b, mesh_devices(args.devices, device), args.tol)
+
     layout = LowerSolveLayout.build(sys_, b, device=device)
     kind = layout.kernel
     detail = (f"rank_nb {layout.ranked.rank_nb}" if layout.ranked is not None
