@@ -113,6 +113,19 @@ residency gate):
      block-Jacobi): apply against its plain version, apply's warm time,
      one captured PCG iteration in us and the RMS residual by iteration
      beside step 4's single-device trace, below PCG_TOL at 100;
+  5c. runs the distributed layer across processes (bench/multiproc.py,
+     started once the kernels are built, within MULTIPROC_WALL_S): 2
+     processes x 2 shards on the one card over gloo (4 x 1, a card
+     each, over NCCL on a machine of 4 cards or more), spmv_sharded,
+     spmv_overlap and spmm_sharded at B = 8 on lap2d_1024 RCM, cg_solve
+     on lap3d_101 for DIST_ITERS, sts_solve_sharded on lap2d_1024 LS and
+     exact and block-Jacobi IC(0)-PCG on lap3d_101 for PCG_ITERS; each
+     process holds its paths to their plain versions and times them
+     (eager us a call or an iteration, printed per process); each
+     process's rows are held to the oracle and to the one-process D = 4
+     call's bits; its launches (spmv_ranked, spmv_sell, spmm_ranked and
+     lower_solve_blocks, each at least once) join the kernels line
+     (`python chip_smoke.py --multiproc-only` runs this phase alone);
   6. drives each main path with every launch counter zeroed just before
      and read just after: the SpMV/SpMM CLIs (tools.spmv, tools.spmm on
      lap2d_1024 and banded_1m, and on the windowed routes: tools.spmv on
@@ -176,6 +189,9 @@ PCG_TOL = 1e-3
 # 1,600), the level of IC(0)-PCG's floor, so the bound is 1e-3.
 DIST_ITERS = 400
 DIST_TOL = 1e-3
+# The multiproc phase's wall limit: a process that hangs in a collective
+# (or fails while the others wait in one) ends the phase here.
+MULTIPROC_WALL_S = 300
 # The calibration phase's sample scale (tools.tune --scale), at which
 # every sample takes 50 us or more on an H100; the reference's sizes
 # (scale 1), which the card runs in 10-30 us, are measured by the
@@ -1628,6 +1644,151 @@ def _dist_sts_phases(stats, link_us, trace_single):
         _dist_precond(name, cls, mat, mesh, lay, trace_single)
 
 
+def _multiproc_phase(stats):
+    """The distributed layer across processes (bench/multiproc.py, suite
+    "full"): 2 processes x 2 shards on the one card (gloo, host-staged;
+    on a machine of 4 cards or more, 4 processes x 1 shard, a card each,
+    NCCL), started after the kernels are built and held to a wall limit:
+    spmv_sharded, spmv_overlap and spmm_sharded at B = 8 on lap2d_1024
+    RCM, cg_solve on lap3d_101 for DIST_ITERS, sts_solve_sharded on
+    lap2d_1024 LS and exact and block-Jacobi IC(0)-PCG on lap3d_101 for
+    PCG_ITERS. Each process holds each path to its plain version
+    (PLAIN_TOL) and times it (eager us a call or an iteration; with NCCL
+    also from a CUDA graph); here each process's rows are held to the
+    oracle and to the same calls in one process over [cuda:0] * 4, bit
+    for bit (built while the processes run). Returns the processes'
+    kernel launches over their paths, summed."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from tpu_spmv_torch.bench import multiproc
+    from tpu_spmv_torch.bench.harness import validate
+    from tpu_spmv_torch.dist import sharding as dsh
+
+    n = 4 if torch.cuda.device_count() >= 4 else 2
+    want = "nccl" if n == 4 else "gloo"
+    argv = ["--suite", "full", "--device", "cuda", "--check", "--time",
+            "--cg-iters", str(DIST_ITERS), "--pcg-iters", str(PCG_ITERS)]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out, \
+            ThreadPoolExecutor(1) as pool:
+        group = pool.submit(multiproc.spawn, n, argv, out, MULTIPROC_WALL_S)
+        built = multiproc.build("full")
+        res = group.result()
+        wall = time.perf_counter() - t0
+        for r, (code, log) in enumerate(res):
+            if code != 0 or f"OK process {r}" not in log:
+                how = "timed out" if code is None else f"exited {code}"
+                raise SmokeFailure(f"multiproc: process {r} of {n} {how}:"
+                                   f"\n{log[-3000:]}")
+        loaded = multiproc.load(out, n)
+    print(f"[multiproc] {n} processes x {4 // n} shards, {want}: group "
+          f"wall {wall:.1f} s, parent host build {built.seconds:.1f} s, "
+          "process host builds " + ", ".join(
+              f"{f['host_build_s']:.1f}" for f, _ in loaded) + " s, paths "
+          + ", ".join(f"{f['paths_s']:.1f}" for f, _ in loaded) + " s",
+          flush=True)
+    mesh = dsh.make_row_mesh([torch.device("cuda")] * 4)
+    one, _ = multiproc.run_paths(built, mesh, cg_iters=DIST_ITERS,
+                                 pcg_iters=PCG_ITERS)
+
+    def whole(name):  # every process's rows, joined
+        got = {d: y for _, rows in loaded for d, y in rows[name].items()}
+        return np.concatenate([got[d] for d in sorted(got)])
+
+    def rms(mat, name):
+        x = whole(name)[: mat.m]
+        return float(np.linalg.norm(mat.matvec(x) - 1.0) / np.sqrt(mat.m))
+
+    a = built.spmv
+    X = {"spmv": built.x, "overlap": built.x, "spmm": built.X}
+    kernel = {"spmv": "spmv_ranked", "overlap": "spmv_ranked",
+              "spmm": "spmm_ranked", "sts": "lower_solve_blocks",
+              "ic0": "lower_solve_blocks", "ic0_bj": "lower_solve_blocks"}
+    launches = {}
+    for facts, _ in loaded:
+        if facts["backend"] != want or facts["library_stale"]:
+            raise SmokeFailure(f"multiproc: process {facts['rank']} ran "
+                               f"{facts['backend']} (not {want}) or built "
+                               "the kernel library itself")
+        for k, v in facts["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    for name in ("spmv", "overlap", "spmm", "cg", "sts", "ic0", "ic0_bj"):
+        oracle = ""
+        for facts, rows in loaded:
+            got = rows[name]
+            f = facts["paths"][name]
+            if "plain" in f:
+                err, scale = f["plain"]
+                if not err <= PLAIN_TOL * max(1.0, scale):
+                    raise SmokeFailure(f"multiproc {name}: process "
+                                       f"{facts['rank']}'s kernels differ "
+                                       f"from plain by {err:.3g}")
+                stats.setdefault(kernel[name], []).append(
+                    dict(label=f"multiproc {name}", err=err))
+            if any(not np.array_equal(y, one[name][d].cpu().numpy())
+                   for d, y in got.items()):
+                raise SmokeFailure(f"multiproc {name}: process "
+                                   f"{facts['rank']}'s rows are not the "
+                                   "one-process D = 4 call's bits")
+            if name in X:
+                R = built.ranked.rows_per_shard
+                v = X[name].reshape(a.n, -1)
+                ref = np.stack([a.matvec(c) for c in v.T], 1)
+                ref = np.concatenate([ref, np.zeros(
+                    (built.ranked.padded_m - a.m, v.shape[1]))])
+                for d, y in got.items():
+                    w, rel = validate(y.reshape(R, -1),
+                                      ref[d * R:(d + 1) * R])
+                    if w or not rel <= L2_TOL:
+                        raise SmokeFailure(
+                            f"multiproc {name} shard {d}: Number Wrong "
+                            f"{w}, RelL2 {rel:.3g}")
+                oracle = f"Number Wrong 0, RelL2 <= {L2_TOL}"
+        if name == "cg":
+            res = rms(built.cg, name)
+            if not res < DIST_TOL:
+                raise SmokeFailure(f"multiproc cg: residual {res:.3e}")
+            oracle = f"rms residual {res:.3e} after {DIST_ITERS}"
+        elif name == "sts":
+            x = whole(name)[built.sts_pad]
+            wrong = int(np.sum(np.abs(x - 1.0) > 0.01))
+            rel = float(np.linalg.norm(x - 1.0) / np.sqrt(x.size))
+            if wrong or not rel <= SOLVE_TOL:
+                raise SmokeFailure(f"multiproc sts: Number Wrong {wrong}, "
+                                   f"RelL2 {rel:.3g}")
+            oracle = f"x = ones: Number Wrong 0, RelL2 {rel:.3g}"
+        elif name in ("ic0", "ic0_bj"):
+            res = rms(built.ic0, name)
+            if not res < PCG_TOL:
+                raise SmokeFailure(f"multiproc {name}: residual {res:.3e}")
+            oracle = f"rms residual {res:.3e} after {PCG_ITERS}"
+
+        def us(v):
+            return f"{v:.2f}" if isinstance(v, float) else str(v)
+
+        times = " | ".join(
+            f"process {f['rank']}: eager {us(f['paths'][name]['eager_us'])}"
+            + (f", graph {us(f['paths'][name]['graph_us'])}"
+               if "graph_us" in f["paths"][name] else "")
+            for f, _ in loaded)
+        per = "an iteration" if name in ("cg", "ic0", "ic0_bj") else "a call"
+        print(f"[multiproc {name}] {oracle}; the one-process D=4 call's "
+              f"bits; us {per}: {times}", flush=True)
+    missing = [f"{k} (multiproc)" for k in (
+        "spmv_ranked", "spmv_sell", "spmm_ranked", "lower_solve_blocks")
+        if launches.get(k, 0) < 1]
+    if missing:
+        raise SmokeFailure(f"multiproc path never launched {missing}: "
+                           f"{launches}")
+    print(f"[multiproc] launches over the processes' paths: {launches} | "
+          f"phase wall {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
 def _dist_sts_steps():
     """_drive steps: the CLIs' D > 1 paths through the functions they
     call, with 4 shards on the one card (tools.sts.sharded on lap2d_1024
@@ -2025,10 +2186,12 @@ def _cache_argv(cache):
             "always", "--bin-blocks", "0", "--layout-cache", cache]
 
 
-def _main_path(bin_blocks, calib, dist):
+def _main_path(bin_blocks, calib, dist, multiproc):
     """Launch counts of each kernel over its own path's run. W: the bin
     width of the striped route's run; calib: the calibration phase's
-    fit; dist: the dist phase's D = 4 layouts (_dist_phases)."""
+    fit; dist: the dist phase's D = 4 layouts (_dist_phases); multiproc:
+    the multiproc phase's launches (its processes count their own paths
+    from 0)."""
     import tempfile
 
     from tpu_spmv_torch.kernels import sell
@@ -2100,11 +2263,16 @@ def _main_path(bin_blocks, calib, dist):
     dist_sts_kernels = ("spmv_sell", "lower_solve_blocks", "spmv_ranked")
     for k in dist_sts_kernels:
         counts[k] += dist_sts_path[k]
+    multiproc_kernels = ("spmv_ranked", "spmv_sell", "spmm_ranked",
+                         "lower_solve_blocks")
+    for k in multiproc_kernels:
+        counts[k] += multiproc.get(k, 0)
     print(f"launches: SpMV/SpMM CLIs {spmv_path} | solve CLIs {sts_path} | "
           f"dist (tools.solve CG and Jacobi-PCG, cg_solve D=4, tools.spmm "
           f"--devices 0, the D=4 sharded calls) {dist_path} | dist sts "
           f"(tools.sts.sharded, tools.solve.ic0_sharded ic0 and ic0-bj, "
-          f"D=4 on one card) {dist_sts_path} | "
+          f"D=4 on one card) {dist_sts_path} | multiproc (the processes' "
+          f"paths) {multiproc} | "
           f"library lower_solve(ranked=False) {library} | striped CLI "
           f"{striped_path} | baseline CLIs {baselines} | flagship "
           f"{flag_path} | " + " | ".join(
@@ -2113,6 +2281,8 @@ def _main_path(bin_blocks, calib, dist):
     missing += [f"{k} (dist)" for k in dist_kernels if dist_path[k] < 1]
     missing += [f"{k} (dist sts)" for k in dist_sts_kernels
                 if dist_sts_path[k] < 1]
+    missing += [f"{k} (multiproc)" for k in multiproc_kernels
+                if multiproc.get(k, 0) < 1]
     missing += [f"{k} (striped CLI)" for k in ("spmv_ranked", "spmv_striped")
                 if striped_path[k] < 1]
     missing += [f"{k} (flagship)" for k in ("spmv_dia", "spmv_packed")
@@ -2165,7 +2335,16 @@ _KERNELS = {
 }
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="the port's smoke run on the "
+                                 "card (see the module docstring)")
+    ap.add_argument("--multiproc-only", action="store_true",
+                    help="build, then run the multiproc phase alone (4 "
+                    "processes, NCCL, on a machine of 4 cards) and print "
+                    "no result line")
+    args = ap.parse_args(argv)
     try:
         import torch
     except ImportError:
@@ -2205,6 +2384,14 @@ def main() -> int:
     print(f"device: {hw.device_spec()}", flush=True)
 
     stats = {}
+    if args.multiproc_only:
+        try:
+            _multiproc_phase(stats)
+        except SmokeFailure as e:
+            print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+            return 1
+        print(f"total wall {time.perf_counter() - t_start:.1f} s")
+        return 0
     try:
         t0 = time.perf_counter()
         times = _phases(stats)
@@ -2242,7 +2429,11 @@ def main() -> int:
         print(f"dist sts phases: wall {time.perf_counter() - t0:.1f} s",
               flush=True)
         t0 = time.perf_counter()
-        counts = _main_path(bin_blocks, calib, dist)
+        multiproc = _multiproc_phase(stats)
+        print(f"multiproc phase: wall {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        t0 = time.perf_counter()
+        counts = _main_path(bin_blocks, calib, dist, multiproc)
         print(f"CLI runs: wall {time.perf_counter() - t0:.1f} s", flush=True)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

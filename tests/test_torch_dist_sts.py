@@ -1,6 +1,6 @@
 """The port's sharded triangular solve (tpu_spmv_torch.dist.sts) and its
-one-process (hosts, rows) mesh (tpu_spmv_torch.dist.multihost) against
-the JAX package's, on the CPU.
+(hosts, rows) mesh in one process (tpu_spmv_torch.dist.multihost)
+against the JAX package's, on the CPU.
 
 The JAX side runs on tests/conftest.py's 8 virtual CPU devices, its
 Pallas kernels in interpret mode; the port runs its shards on
@@ -219,20 +219,23 @@ def test_initialize_is_single_process(monkeypatch):
 
 
 @pytest.mark.parametrize("how", ["args", "env"])
-def test_initialize_refuses_two_processes(how, monkeypatch):
-    """More than one process is the one refusal of this layer, naming
-    ROADMAP item A13d."""
+def test_initialize_needs_the_process_count(how, monkeypatch):
+    """A coordinator without a process count raises, naming the variable:
+    torch cannot detect the count, as jax.distributed can on a TPU pod
+    (the two-process runs are tests/test_torch_multiprocess.py)."""
+    for var in ("TPU_SPMV_NUM_PROCESSES", "TPU_SPMV_COORDINATOR",
+                "TPU_SPMV_PROCESS_ID"):
+        monkeypatch.delenv(var, raising=False)
     if how == "env":
-        monkeypatch.setenv("TPU_SPMV_NUM_PROCESSES", "2")
         monkeypatch.setenv("TPU_SPMV_COORDINATOR", "localhost:12355")
         monkeypatch.setenv("TPU_SPMV_PROCESS_ID", "0")
         call = tmh.initialize
     else:
         def call():
-            return tmh.initialize("localhost:12355", 2, 1)
-    with pytest.raises(SystemExit) as e:
+            return tmh.initialize("localhost:12355", process_id=1)
+    with pytest.raises(ValueError, match="TPU_SPMV_NUM_PROCESSES"):
         call()
-    assert "ROADMAP.md item A13d" in str(e.value)
+    assert tmh.process_count() == 1 and tmh.backend() is None
 
 
 def test_dist_exports_the_solve():

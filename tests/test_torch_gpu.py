@@ -1194,3 +1194,32 @@ def test_sharded_preconditioners_on_one_card(cuda, kind):
     xe = dsh.gather_vector(xe)[: mat.m]
     assert _rel(xg, xe) <= 1e-5
     assert np.linalg.norm(mat.matvec(xg) - 1.0) / np.sqrt(mat.m) < 1e-3
+
+
+def test_two_processes_share_the_card(cuda, tmp_path):
+    """Two processes of a group on the one card (gloo, host-staged), two
+    shards each on the (hosts=2, rows=2) mesh: every path of the suite
+    "small" (SpMV with the halo and gathered, SpMM, the overlap, CG, the
+    sharded solve, both IC(0)-PCGs) gives the one-process D = 4 call's
+    bits, the kernels ran in both processes and found the library built
+    here, and each path matches its plain version."""
+    from tpu_spmv_torch.bench import multiproc
+    from tpu_spmv_torch.dist import sharding as dsh
+
+    res = multiproc.spawn(2, ["--suite", "small", "--device", "cuda",
+                              "--check"], str(tmp_path), 300)
+    for r, (code, log) in enumerate(res):
+        assert code == 0 and f"OK process {r}" in log, (r, code, log)
+    one, _ = multiproc.run_paths(multiproc.build("small"),
+                                 dsh.make_row_mesh([cuda] * 4))
+    for facts, rows in multiproc.load(str(tmp_path), 2):
+        assert facts["backend"] == "gloo" and not facts["library_stale"]
+        assert facts["launches"]["spmv_ranked"] > 0
+        assert facts["launches"]["lower_solve_blocks"] > 0
+        for name, (err, scale) in ((k, v["plain"]) for k, v in
+                                   facts["paths"].items() if "plain" in v):
+            assert err <= 1e-5 * max(1.0, scale), name
+        for name, got in rows.items():
+            for d, y in got.items():
+                assert np.array_equal(y, one[name][d].cpu().numpy()), (
+                    name, d)

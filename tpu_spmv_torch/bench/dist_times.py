@@ -1,7 +1,8 @@
 """Times of the distributed layer (tpu_spmv_torch.dist) on the card(s).
 
     python -m tpu_spmv_torch.bench.dist_times [--iters 1600]
-    python -m tpu_spmv_torch.bench.dist_times --cards
+    python -m tpu_spmv_torch.bench.dist_times --cards [--procs 4]
+        [--profile DIR]
 
 One card (the default): D shards on it, D = 1 and 4.
   * Where the streams go: spmv_sharded over ShardedRanked on lap2d_1024
@@ -31,6 +32,19 @@ cannot hold several cards), then cg_solve on lap3d_101 eagerly; then the
 sharded solve on lap2d_1024 LS (against the float64 substitution) and
 both IC(0)-PCG iterations on lap3d_101, eagerly.
 
+--procs N: N processes of a group (bench/multiproc.py, suite "times"),
+a card each: NCCL when every process has a card of its own, else gloo
+(multihost.initialize's rule). Each times spmv_sharded on lap2d_1024
+after RCM (eager us a call, host clock; and a replay from a CUDA graph
+where capture works) and cg_solve on lap3d_101 (us an iteration, eager
+and captured), beside --cards when both are given.
+
+--profile DIR: a torch.profiler trace of 5 warm spmv_sharded calls of
+--cards (DIR/cards.txt, .json) and of --procs (rank 0: DIR/procs.txt,
+.json), and a line each: host wall a call, kernel and copy time on the
+cards, and the CUDA runtime calls a call (launches, copies, event
+records and waits, synchronisations).
+
 The first line is the card's nvidia-smi name and power limit. Exits 1
 when a check fails.
 """
@@ -38,6 +52,9 @@ when a check fails.
 from __future__ import annotations
 
 import argparse
+import json
+import pathlib
+import tempfile
 import time
 
 import numpy as np
@@ -233,7 +250,7 @@ def _solves(dev) -> bool:
     return ok
 
 
-def _cards() -> bool:
+def _cards(profile: str | None) -> bool:
     from tpu_spmv_torch.bench.harness import validate
     from tpu_spmv_torch.dist import sharding as dsh
     from tpu_spmv_torch.dist import solvers
@@ -257,6 +274,7 @@ def _cards() -> bool:
 
     peer = [[torch.cuda.can_device_access_peer(i, j) for j in range(D)
              if j != i] for i in range(D)]
+    ranked = None
     print(f"mesh: {[str(d) for d in mesh.devices]}, peer access {peer}",
           flush=True)
     a = prepare(load_input("synthetic:lap2d_1024"), "always")[0].matrix
@@ -294,6 +312,18 @@ def _cards() -> bool:
                   f"{err:.3g} | eager us a call "
                   f"{eager_us(lambda: call(lay, xs, mesh)):.2f} | "
                   f"{'ok' if good else 'FAILED'}", flush=True)
+            if name == "ranked" and B is None:
+                ranked = (lay, xs)
+    if profile:
+        from tpu_spmv_torch.bench.multiproc import profile_calls
+
+        lay, xs = ranked
+        table, summary = profile_calls(
+            lambda: dsh.spmv_sharded(lay, xs, mesh), sync,
+            trace=f"{profile}/cards.json")
+        (pathlib.Path(profile) / "cards.txt").write_text(table)
+        print(f"profile --cards spmv_sharded ranked D={D}: "
+              f"{json.dumps(summary)}", flush=True)
     mat = load_input("synthetic:lap3d_101")
     lay = dsh.ShardedRanked.build(mat, D).device_put(mesh)
     b = dsh.shard_vector(np.ones(mat.m, np.float32), mesh, lay.padded_m)
@@ -341,11 +371,53 @@ def _cards() -> bool:
     return ok
 
 
+def _procs(n: int, profile: str | None) -> bool:
+    """N processes, a card each (bench/multiproc.py, suite "times")."""
+    from tpu_spmv_torch.bench import multiproc
+    from tpu_spmv_torch.tools.spmv import load_input
+
+    argv = ["--suite", "times", "--device", "cuda", "--time",
+            "--cg-iters", "200"]
+    if profile:
+        argv += ["--profile", f"{profile}/procs"]
+    with tempfile.TemporaryDirectory() as out:
+        res = multiproc.spawn(n, argv, out, 300)
+        for r, (code, log) in enumerate(res):
+            if code != 0:
+                print(f"--procs {n}: process {r} failed ({code}):\n"
+                      f"{log[-3000:]}", flush=True)
+                return False
+        loaded = multiproc.load(out, n)
+    mat = load_input("synthetic:lap3d_101")
+    got = {d: y for _, rows in loaded for d, y in rows["cg"].items()}
+    x = np.concatenate([got[d] for d in sorted(got)])[: mat.m]
+    res = float(np.linalg.norm(mat.matvec(x) - 1.0) / np.sqrt(mat.m))
+    for facts, _ in loaded:
+        p = facts["paths"]
+        print(f"--procs {n} process {facts['rank']} ({facts['backend']}, "
+              f"{facts['device']}, {facts['card']}): spmv_sharded ranked "
+              f"lap2d_1024 rcm halo={p['spmv']['halo']} eager us a call "
+              f"{p['spmv']['eager_us']:.2f}, graph {p['spmv'].get('graph_us')}"
+              f" | cg_solve lap3d_101 us an iteration eager "
+              f"{p['cg']['eager_us']:.2f}, graph {p['cg'].get('graph_us')}",
+              flush=True)
+        if "profile" in facts:
+            print(f"profile --procs {n} rank {facts['rank']} spmv_sharded: "
+                  f"{json.dumps(facts['profile'])}", flush=True)
+    print(f"--procs {n}: cg_solve lap3d_101, 200 iterations, rms_residual "
+          f"{res:.3e}", flush=True)
+    return res < 1e-3
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--iters", type=int, default=1600)
     ap.add_argument("--cards", action="store_true",
                     help="one shard a card, over every card")
+    ap.add_argument("--procs", type=int, default=0,
+                    help="N processes, one card each")
+    ap.add_argument("--profile", metavar="DIR",
+                    help="profile one SpMV call of --cards and --procs")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: the times are the card's")
@@ -353,8 +425,12 @@ def main(argv=None) -> int:
     from tpu_spmv_torch import hw
 
     print(hw.nvidia_smi(), flush=True)
-    if args.cards:
-        return 0 if _cards() else 1
+    if args.profile:
+        pathlib.Path(args.profile).mkdir(parents=True, exist_ok=True)
+    if args.cards or args.procs:
+        ok = not args.cards or _cards(args.profile)
+        return 0 if (not args.procs or _procs(args.procs, args.profile)) \
+            and ok else 1
     dev = torch.device("cuda")
     _streams(dev)
     ok = _cg(dev, args.iters)

@@ -1,7 +1,8 @@
 """The distributed layer of the port: row-sharded SpMV/SpMM with the
 halo exchange and its overlap (sharding.py), CG / Jacobi-PCG over them
-(solvers.py), the sharded triangular solve (sts.py) and the one-process
-(hosts, rows) mesh (multihost.py); the counterpart of `tpu_spmv.dist`."""
+(solvers.py), the sharded triangular solve (sts.py), the (hosts, rows)
+mesh and the process group (multihost.py) and the exchange between
+processes (group.py); the counterpart of `tpu_spmv.dist`."""
 
 from tpu_spmv_torch.dist.sharding import (  # noqa: F401
     OverlapRanked, ShardedRanked, ShardedSell, make_row_mesh,

@@ -32,6 +32,14 @@ window tables); `device_put(mesh)` moves shard d's container to
 mesh.devices[d]. A sharded vector is a list of D tensors
 (`shard_vector`, `gather_vector`).
 
+Over several processes (a mesh from multihost.make_hybrid_mesh after
+multihost.initialize), each process builds the same host layout and
+places only its own shards; a shard of another process is None in every
+list, and every loop walks this process's shards (`RowMesh.local`) by
+their global index. The halo rows that cross a process boundary, and x
+gathered whole, move over the process group (dist/group.py) before any
+kernel reads them; a neighbour on the same process is still a copy.
+
 Every call takes plain=True to run the kernels' plain versions on the
 same exchange (the check of each kernel against its plain version on
 the card).
@@ -46,7 +54,9 @@ import types
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from tpu_spmv_torch.dist import group
 from tpu_spmv_torch.formats.convert import ranked_container, sell_container
 from tpu_spmv_torch.formats.csr import CSRMatrix
 from tpu_spmv_torch.formats.sell import (
@@ -60,18 +70,29 @@ from tpu_spmv_torch.kernels.sell import resident_x_fits
 class RowMesh:
     """D devices along the row axis, with the streams of the shards that
     lie on a card: `streams[d]` runs shard d's kernels (None: the
-    caller's current stream, shard 0's; and every shard's on the CPU),
-    `halo_streams[d]` its overlap halo copies. `shape` and `axis_names`
-    name the mesh's axes as the reference's Mesh does: ("rows",) over D
-    by default, ("hosts", "rows") over (H, D / H) from
-    multihost.make_hybrid_mesh, whose `devices` are the mesh flattened
-    hosts-major, the order rows are sharded in over the tuple axis."""
+    caller's current stream, this process's first shard's; and every
+    shard's on the CPU), `halo_streams[d]` its overlap halo copies.
+    `shape` and `axis_names` name the mesh's axes as the reference's Mesh
+    does: ("rows",) over D by default, ("hosts", "rows") over (H, D / H)
+    from multihost.make_hybrid_mesh, whose `devices` are the mesh
+    flattened hosts-major, the order rows are sharded in over the tuple
+    axis.
+
+    Over several processes (multihost.make_hybrid_mesh after
+    multihost.initialize), `world` processes of rank 0..world-1 hold D /
+    world shards each, hosts-major: shard d lies on process d // (D /
+    world), and devices[d], streams[d] and halo_streams[d] are None for a
+    shard of another process. `group` is the process group (None: the
+    default one)."""
 
     devices: list
     streams: list
     halo_streams: list
     shape: tuple = None
     axis_names: tuple = ("rows",)
+    rank: int = 0
+    world: int = 1
+    group: object = None
 
     def __post_init__(self):
         if self.shape is None:
@@ -80,6 +101,26 @@ class RowMesh:
     @property
     def size(self) -> int:
         return len(self.devices)
+
+    @property
+    def local(self) -> list:
+        """The global indices of this process's shards."""
+        return [d for d, dev in enumerate(self.devices) if dev is not None]
+
+    @property
+    def home(self) -> torch.device:
+        """The device of this process's first shard."""
+        return self.devices[self.local[0]]
+
+    def owner(self, d: int) -> int:
+        """The rank of the process that holds shard d."""
+        return d // (self.size // self.world)
+
+    @property
+    def backend(self) -> str | None:
+        """The process group's backend ("gloo" or "nccl"); None in one
+        process."""
+        return dist.get_backend(self.group) if self.world > 1 else None
 
 
 def make_row_mesh(devices=None) -> RowMesh:
@@ -128,6 +169,19 @@ def _check_mesh(layout, mesh: RowMesh, axis="rows") -> None:
             f"layout was built for {layout.n_devices} shards but axis "
             f"{axis!r} spans {D_mesh} devices"
         )
+
+
+def placed(items, mesh: RowMesh) -> list:
+    """items[d] moved to mesh.devices[d] (anything with .to), None for a
+    shard of another process."""
+    return [None if dev is None else t.to(dev)
+            for t, dev in zip(items, mesh.devices)]
+
+
+def each(fn, *shards) -> list:
+    """fn applied shard by shard to sharded vectors (lists of D), None
+    where this process holds no shard."""
+    return [None if v[0] is None else fn(*v) for v in zip(*shards)]
 
 
 def _round_up(x: int, m: int) -> int:
@@ -254,10 +308,12 @@ class _Stacked:
     """What ShardedSell and ShardedRanked share: placement and sizes."""
 
     def device_put(self, mesh: RowMesh, axis="rows"):
-        """This layout with shard d's container on mesh.devices[d]."""
+        """This layout with shard d's container on mesh.devices[d]; a
+        shard of another process is left out (None), as the reference's
+        make_array_from_callback places only the local shards."""
         _check_mesh(self, mesh, axis)
         out = copy.copy(self)
-        out.shards = [s.to(dev) for s, dev in zip(self.shards, mesh.devices)]
+        out.shards = placed(self.shards, mesh)
         return out
 
     @property
@@ -266,7 +322,7 @@ class _Stacked:
 
     @property
     def nbytes(self) -> int:
-        return sum(s.nbytes for s in self.shards)
+        return sum(s.nbytes for s in self.shards if s is not None)
 
 
 @dataclasses.dataclass
@@ -597,8 +653,9 @@ class OverlapRanked:
 
 def shard_vector(vec, mesh: RowMesh, padded_m: int | None = None) -> list:
     """A host vector (n,) or matrix (n, B) cut into mesh.size equal
-    row pieces, piece d on mesh.devices[d] (float32). padded_m: zero rows
-    appended up to this length first (a layout's padded_m)."""
+    row pieces, piece d on mesh.devices[d] (float32; None for a shard of
+    another process). padded_m: zero rows appended up to this length
+    first (a layout's padded_m)."""
     h = np.asarray(vec, dtype=np.float32)
     if padded_m is not None and h.shape[0] < padded_m:
         h = np.concatenate(
@@ -606,13 +663,23 @@ def shard_vector(vec, mesh: RowMesh, padded_m: int | None = None) -> list:
     if h.shape[0] % mesh.size:
         raise ValueError(f"{h.shape[0]} rows do not cut into {mesh.size} "
                          "equal shards")
-    return [torch.from_numpy(piece.copy()).to(dev) for piece, dev in
-            zip(np.split(h, mesh.size), mesh.devices)]
+    return [None if dev is None else torch.from_numpy(piece.copy()).to(dev)
+            for piece, dev in zip(np.split(h, mesh.size), mesh.devices)]
 
 
-def gather_vector(shards) -> np.ndarray:
-    """The row pieces of a sharded vector, joined on the host."""
-    return np.concatenate([t.detach().cpu().numpy() for t in shards])
+def gather_vector(shards, mesh: RowMesh | None = None) -> np.ndarray:
+    """The row pieces of a sharded vector, joined on the host. Pieces of
+    other processes (None) are gathered over the mesh's process group: a
+    collective, which every process calls, and every process gets the
+    whole vector."""
+    if all(t is not None for t in shards):
+        return np.concatenate([t.detach().cpu().numpy() for t in shards])
+    if mesh is None:
+        raise ValueError("the vector has shards on other processes: pass "
+                         "the mesh to gather them over its process group")
+    local = torch.cat([t.detach().to(mesh.home) for t in shards
+                       if t is not None])
+    return group.all_gather_rows(mesh, local).cpu().numpy()
 
 
 @contextlib.contextmanager
@@ -628,15 +695,16 @@ def _on(stream):
 def _forked(mesh: RowMesh, streams):
     """Shard streams that start after the caller's queued work on their
     device and that the caller's stream on their device waits for on
-    exit, as does the caller's stream on the first shard's device (so an
-    event there times the whole call); a no-op on the CPU."""
+    exit, as does the caller's stream on this process's first shard's
+    device (so an event there times the whole call); a no-op on the CPU.
+    Shards of other processes have no stream."""
     for dev, s in zip(mesh.devices, streams):
         if s is not None:
             s.wait_stream(torch.cuda.current_stream(dev))
     try:
         yield
     finally:
-        home = mesh.devices[0]
+        home = mesh.home
         home = torch.cuda.current_stream(home) if home.type == "cuda" else None
         for dev, s in zip(mesh.devices, streams):
             if s is not None:
@@ -646,21 +714,69 @@ def _forked(mesh: RowMesh, streams):
                     home.wait_stream(s)
 
 
-def _halo_rows(xs, d: int, H: int, out: torch.Tensor, at: int) -> None:
+def _halo_rows(xs, d: int, H: int, out: torch.Tensor, at: int,
+               remote=None) -> None:
     """Copy shard d's neighbours' H boundary rows into out[at:at + H]
-    (from the left) and out[-H:] (from the right); the first shard's left
-    and the last shard's right stay the zeros out was made with."""
+    (from the left) and out[-H:] (from the right): a neighbour of this
+    process's from its shard, one of another process's from `remote`
+    (_remote_halos; skipped when None). The first shard's left and the
+    last shard's right stay the zeros out was made with."""
     if d > 0:
-        out[at : at + H].copy_(xs[d - 1][-H:], non_blocking=True)
+        left = (xs[d - 1][-H:] if xs[d - 1] is not None
+                else None if remote is None else remote[d, -1])
+        if left is not None:
+            out[at : at + H].copy_(left, non_blocking=True)
     if d < len(xs) - 1:
-        out[-H:].copy_(xs[d + 1][:H], non_blocking=True)
+        right = (xs[d + 1][:H] if xs[d + 1] is not None
+                 else None if remote is None else remote[d, 1])
+        if right is not None:
+            out[-H:].copy_(right, non_blocking=True)
 
 
-def _exchange_x(layout, xs, d: int) -> torch.Tensor:
+def _remote_halos(xs, H: int, mesh: RowMesh) -> dict:
+    """{(d, side): H rows} for each of this process's shards d whose
+    neighbour lies on another process: the neighbour's boundary rows
+    (side -1: the last H of shard d - 1; +1: the first H of shard d + 1),
+    received on shard d's device, while ours go the other way. Every
+    boundary between two processes is crossed both ways in one batch,
+    boundaries in order on every process, before any kernel reads them."""
+    got, sends, recvs = {}, [], []
+    for b in range(len(xs) - 1):  # the boundary of shards b and b + 1
+        lo, hi = mesh.owner(b), mesh.owner(b + 1)
+        if lo == hi:
+            continue
+        if xs[b] is not None:
+            got[b, 1] = torch.empty_like(xs[b][:H])
+            sends.append((xs[b][-H:], hi, 2 * b))
+            recvs.append((got[b, 1], hi, 2 * b + 1))
+        if xs[b + 1] is not None:
+            got[b + 1, -1] = torch.empty_like(xs[b + 1][:H])
+            recvs.append((got[b + 1, -1], lo, 2 * b))
+            sends.append((xs[b + 1][:H], lo, 2 * b + 1))
+    group.exchange(mesh, sends, recvs)
+    return got
+
+
+def _remote(layout, xs, mesh: RowMesh):
+    """What the shards' windows need from other processes, moved before
+    any kernel runs (on the caller's stream, which the shard streams
+    fork from): the halo rows (_remote_halos), or x gathered whole on
+    this process's first shard's device; None in one process. Held until
+    the call returns, after its streams are joined."""
+    if mesh.world == 1:
+        return None
+    if layout.halo:
+        return _remote_halos(xs, layout.halo, mesh)
+    return group.all_gather_rows(mesh, torch.cat(
+        [t.to(mesh.home) for t in xs if t is not None]))
+
+
+def _exchange_x(layout, xs, d: int, remote=None) -> torch.Tensor:
     """Shard d's window of x, on its device: [left H | own rows | right
     H] with a halo (zero-filled: padding slots read their window base
     with value 0, and 0 * NaN of unset memory would be NaN), else x
-    gathered whole and cut to n. Runs on the caller's current stream."""
+    gathered whole and cut to n. remote: _remote's rows of other
+    processes. Runs on the caller's current stream."""
     x = xs[d]
     H = layout.halo
     if H:
@@ -668,42 +784,50 @@ def _exchange_x(layout, xs, d: int) -> torch.Tensor:
         win = torch.zeros((R + 2 * H, *x.shape[1:]), dtype=x.dtype,
                           device=x.device)
         win[H : H + R].copy_(x)
-        _halo_rows(xs, d, H, win, 0)
+        _halo_rows(xs, d, H, win, 0, remote)
         return win
     if len(xs) == 1:  # one shard holds x whole: a view, not a copy
         return x[: layout.n]
+    if remote is not None:  # x gathered over the process group
+        return remote.to(x.device, non_blocking=True)[: layout.n]
     return torch.cat([t.to(x.device, non_blocking=True) for t in xs])[
         : layout.n]
 
 
-def _check_vector(layout, xs) -> None:
+def _check_vector(layout, xs, mesh: RowMesh) -> None:
     if len(xs) != layout.n_devices or any(
-            t.shape[0] != layout.rows_per_shard for t in xs):
+            (t is None) != (dev is None)
+            or (t is not None and t.shape[0] != layout.rows_per_shard)
+            for t, dev in zip(xs, mesh.devices)):
         raise ValueError(
             f"x must be {layout.n_devices} shards of {layout.rows_per_shard} "
-            f"rows (shard_vector), got {[tuple(t.shape) for t in xs]}")
+            f"rows (shard_vector), got "
+            f"{[None if t is None else tuple(t.shape) for t in xs]}")
 
 
 def spmv_sharded(layout, xs, mesh: RowMesh, axis="rows",
                  plain: bool = False) -> list:
     """y = A @ x with rows sharded over the mesh; x arrives as D shards
-    of rows_per_shard rows (zeros past n) and y leaves so (zeros past m).
+    of rows_per_shard rows (zeros past n) and y leaves so (zeros past m),
+    None where a shard lies on another process.
 
     layout: ShardedSell (spmv_sell per shard) or ShardedRanked
     (spmv_ranked per shard), placed on `mesh` (device_put). Each shard's
     window of x is exchanged, then its kernel runs on its stream.
     plain=True runs the kernels' plain versions."""
     _check_mesh(layout, mesh, axis)
-    _check_vector(layout, xs)
+    _check_vector(layout, xs, mesh)
     if isinstance(layout, ShardedRanked):
         kernel = sell.spmv_ranked_reference if plain else sell.spmv_ranked
     else:
         kernel = sell.spmv_sell_reference if plain else sell.spmv_sell
+    remote = _remote(layout, xs, mesh)
     ys = [None] * layout.n_devices
     with _forked(mesh, mesh.streams):
-        for d, (lay, s) in enumerate(zip(layout.shards, mesh.streams)):
-            with _on(s):
-                ys[d] = kernel(lay, _exchange_x(layout, xs, d))
+        for d in mesh.local:
+            with _on(mesh.streams[d]):
+                ys[d] = kernel(layout.shards[d],
+                               _exchange_x(layout, xs, d, remote))
     return ys
 
 
@@ -722,11 +846,12 @@ def spmm_sharded(layout: ShardedRanked, Xs, mesh: RowMesh, axis="rows",
     if not isinstance(layout, ShardedRanked):
         raise TypeError("spmm_sharded expects the ShardedRanked flagship")
     _check_mesh(layout, mesh, axis)
-    _check_vector(layout, Xs)
-    B = int(Xs[0].shape[-1])
+    _check_vector(layout, Xs, mesh)
+    B = int(Xs[mesh.local[0]].shape[-1])
     choice = [kernel] * layout.n_devices
     if kernel == "auto":
-        choice = ["resident" if resident_x_fits(lay, batch=B) else "windowed"
+        choice = [None if lay is None else "resident"
+                  if resident_x_fits(lay, batch=B) else "windowed"
                   for lay in layout.shards]
     if "windowed" in choice and layout.win_w <= 0:
         raise ValueError(
@@ -738,22 +863,28 @@ def spmm_sharded(layout: ShardedRanked, Xs, mesh: RowMesh, axis="rows",
                         else spmm.spmm_ranked),
            "windowed": (spmm.spmm_ranked_windowed_reference if plain
                         else spmm.spmm_ranked_windowed)}
+    remote = _remote(layout, Xs, mesh)
     Ys = [None] * layout.n_devices
     with _forked(mesh, mesh.streams):
-        for d, (lay, s) in enumerate(zip(layout.shards, mesh.streams)):
-            with _on(s):
-                Ys[d] = fns[choice[d]](lay, _exchange_x(layout, Xs, d))
+        for d in mesh.local:
+            with _on(mesh.streams[d]):
+                Ys[d] = fns[choice[d]](layout.shards[d],
+                                       _exchange_x(layout, Xs, d, remote))
     return Ys
 
 
 def _run_overlap(layout: OverlapRanked, xs, mesh: RowMesh, axis, matrix,
                  plain) -> list:
-    """The overlapped call: per shard, the halo rows are copied on the
-    shard's halo stream while its main kernel runs on x's shard on its
-    own stream; the edge kernel then waits for the copies and adds into
-    the main kernel's y (main first, then edge, as the reference adds)."""
+    """The overlapped call: per shard, the halo rows of this process's
+    neighbours are copied on the shard's halo stream while its main
+    kernel runs on x's shard on its own stream; the rows of other
+    processes' shards then cross the process boundary on the first
+    shard's halo stream, after every main kernel is queued (under gloo
+    the host waits for them there, while the main kernels run). The
+    edge kernel waits for the halo stream and adds into the main
+    kernel's y (main first, then edge, as the reference adds)."""
     _check_mesh(layout, mesh, axis)
-    _check_vector(layout, xs)
+    _check_vector(layout, xs, mesh)
     H = layout.halo
     if matrix:
         main_fn = spmm.spmm_ranked_reference if plain else spmm.spmm_ranked
@@ -772,19 +903,33 @@ def _run_overlap(layout: OverlapRanked, xs, mesh: RowMesh, axis, matrix,
     D = layout.n_devices
     edges = [None] * D
     ys = [None] * D
+    local = mesh.local
     with _forked(mesh, mesh.streams), _forked(mesh, mesh.halo_streams):
-        for d, h in enumerate(mesh.halo_streams):
-            with _on(h):
+        for d in local:
+            with _on(mesh.halo_streams[d]):
                 x = xs[d]
                 edges[d] = torch.zeros((2 * H, *x.shape[1:]), dtype=x.dtype,
                                        device=x.device)
                 _halo_rows(xs, d, H, edges[d], 0)
-        for d, (s, h) in enumerate(zip(mesh.streams, mesh.halo_streams)):
-            with _on(s):
-                y = main_fn(layout.main.shards[d], xs[d])
+        for d in local:
+            with _on(mesh.streams[d]):
+                ys[d] = main_fn(layout.main.shards[d], xs[d])
+        if mesh.world > 1:
+            h0 = mesh.halo_streams[local[0]]
+            with _on(h0):
+                remote = _remote_halos(xs, H, mesh)
+            for (d, side), rows in remote.items():
+                with _on(mesh.halo_streams[d]):
+                    if h0 is not None:
+                        torch.cuda.current_stream().wait_stream(h0)
+                    edge = edges[d][:H] if side < 0 else edges[d][-H:]
+                    edge.copy_(rows, non_blocking=True)
+        for d in local:
+            h = mesh.halo_streams[d]
+            with _on(mesh.streams[d]):
                 if h is not None:
                     torch.cuda.current_stream(mesh.devices[d]).wait_stream(h)
-                ys[d] = add_edge(layout.edge.shards[d], edges[d], y)
+                ys[d] = add_edge(layout.edge.shards[d], edges[d], ys[d])
     return ys
 
 

@@ -2,12 +2,16 @@
 `tpu_spmv/dist/solvers.py`.
 
 Vectors are sharded as the SpMV's (lists of D row pieces, one per mesh
-device). A dot product is the sum of the shards' partial dots (the
-reference's psum), left on the device: no `.item()` and no Python branch
-on a device value, so one iteration can be captured in a CUDA graph
-(`capture_step`) and replayed, the counterpart of the reference's jitted
-loop. The state is the reference's tuple (x, r, p, rz), with the same
-`max(., 1e-30)` guards. On the CPU the loop runs eagerly.
+device, None for a shard of another process). A dot product is the sum
+of the shards' partial dots in shard order (the reference's psum; across
+processes the D partials are all-gathered first, so every process adds
+the same terms in the same order as one process does), left on the
+device: no `.item()` and no Python branch on a device value, so one
+iteration can be captured in a CUDA graph (`capture_step`) and
+replayed, the counterpart of the reference's jitted loop. The state is
+the reference's tuple (x, r, p, rz), with the same `max(., 1e-30)`
+guards. On the CPU, and under a gloo process group (whose collectives
+are host calls), the loop runs eagerly.
 """
 
 from __future__ import annotations
@@ -15,8 +19,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tpu_spmv_torch.dist import group
 from tpu_spmv_torch.dist.sharding import (
-    OverlapRanked, RowMesh, spmv_overlap, spmv_sharded,
+    OverlapRanked, RowMesh, each, spmv_overlap, spmv_sharded,
 )
 
 
@@ -28,21 +33,27 @@ def _spmv_any(layout, v, mesh: RowMesh, axis="rows"):
 
 
 def _dot(a, b, mesh: RowMesh) -> torch.Tensor:
-    """Sum of the shards' dots, on the first shard's device (shard by
-    shard in order: one shard's dot is the sum, with no extra launch)."""
-    home = mesh.devices[0]
-    total = None
-    for x, y in zip(a, b):
-        part = torch.dot(x, y).to(home, non_blocking=True)
-        total = part if total is None else total + part
+    """Sum of the shards' dots, on this process's first shard's device,
+    shard by shard in order (one shard's dot is the sum, with no extra
+    launch). Across processes the D partial dots are all-gathered over
+    the group and summed in the same order on every process: the bits of
+    the one-process sum."""
+    home = mesh.home
+    parts = [torch.dot(x, y).to(home, non_blocking=True)
+             for x, y in zip(a, b) if x is not None]
+    if mesh.world > 1:
+        parts = list(group.all_gather_rows(mesh, torch.stack(parts)))
+    total = parts[0]
+    for part in parts[1:]:
+        total = total + part
     return total
 
 
 def _axpy(y, s: torch.Tensor, x, sign: float = 1.0) -> list:
     """[y_d + sign * s * x_d] shard by shard, one launch a shard; s a
     device scalar, moved to each shard's device."""
-    return [torch.addcmul(yi, s.to(yi.device, non_blocking=True), xi,
-                          value=sign) for yi, xi in zip(y, x)]
+    return each(lambda yi, xi: torch.addcmul(
+        yi, s.to(yi.device, non_blocking=True), xi, value=sign), y, x)
 
 
 def cg_step(layout, mesh: RowMesh, state, axis="rows"):
@@ -67,7 +78,7 @@ def pcg_step(layout, mesh: RowMesh, inv_diag, state, axis="rows"):
     alpha = rz / torch.clamp_min(_dot(p, Ap, mesh), 1e-30)
     x = _axpy(x, alpha, p)
     r = _axpy(r, alpha, Ap, -1.0)
-    z = [ri * di for ri, di in zip(r, inv_diag)]
+    z = each(torch.mul, r, inv_diag)
     rz_new = _dot(r, z, mesh)
     beta = rz_new / torch.clamp_min(rz, 1e-30)
     p = _axpy(z, beta, p)
@@ -76,14 +87,14 @@ def pcg_step(layout, mesh: RowMesh, inv_diag, state, axis="rows"):
 
 def cg_init(b, mesh: RowMesh):
     """CG state before the first iteration: x = 0, r = p = b."""
-    return ([torch.zeros_like(t) for t in b], [t.clone() for t in b],
-            [t.clone() for t in b], _dot(b, b, mesh))
+    return (each(torch.zeros_like, b), each(torch.clone, b),
+            each(torch.clone, b), _dot(b, b, mesh))
 
 
 def pcg_init(b, mesh: RowMesh, inv_diag):
     """Jacobi-PCG state before the first iteration: z = b * inv_diag."""
-    z = [t * d for t, d in zip(b, inv_diag)]
-    return ([torch.zeros_like(t) for t in b], [t.clone() for t in b], z,
+    z = each(torch.mul, b, inv_diag)
+    return (each(torch.zeros_like, b), each(torch.clone, b), z,
             _dot(b, z, mesh))
 
 
@@ -93,21 +104,32 @@ def _step_fn(layout, mesh, inv_diag, axis):
     return lambda s: pcg_step(layout, mesh, inv_diag, s, axis)
 
 
+def graph_default(mesh: RowMesh) -> bool:
+    """Whether an iteration is captured by default: this process's shards
+    share one card, and any process group is NCCL (gloo's collectives
+    are host calls, which no graph holds)."""
+    devices = {mesh.devices[d] for d in mesh.local}
+    return (len(devices) == 1 and next(iter(devices)).type == "cuda"
+            and mesh.backend in (None, "nccl"))
+
+
 def capture(step, mesh: RowMesh, state):
     """A CUDA graph of step(state) that advances `state` (a tuple of
     lists of shards and device scalars, on the card) in place at each
-    replay. The shards must share one card: the graph is captured on it
-    (its shard streams fork from the capture and join it again). One
-    step runs eagerly first on copies, so the state is untouched, to
-    load the kernels before capture."""
-    devices = set(mesh.devices)
-    if len(devices) != 1 or next(iter(devices)).type != "cuda":
-        raise ValueError("a captured iteration needs every shard on one "
-                         "CUDA card; the mesh spans "
-                         f"{sorted(map(str, devices))}")
+    replay. This process's shards must share one card: the graph is
+    captured on it (its shard streams fork from the capture and join it
+    again); across processes each captures its own, over NCCL. One step
+    runs eagerly first on copies, so the state is untouched, to load the
+    kernels and start the group's communicators before capture."""
+    if not graph_default(mesh):
+        raise ValueError(
+            "a captured iteration needs this process's shards on one CUDA "
+            "card and no gloo group; the mesh spans "
+            f"{sorted(str(mesh.devices[d]) for d in mesh.local)}, backend "
+            f"{mesh.backend}")
 
     def copies(st):
-        return tuple([t.clone() for t in v] if isinstance(v, list)
+        return tuple(each(torch.clone, v) if isinstance(v, list)
                      else v.clone() for v in st)
 
     side = torch.cuda.Stream()
@@ -120,8 +142,7 @@ def capture(step, mesh: RowMesh, state):
         new = step(state)
         for old, upd in zip(state, new):
             if isinstance(old, list):
-                for o, u in zip(old, upd):
-                    o.copy_(u)
+                each(torch.Tensor.copy_, old, upd)
             else:
                 old.copy_(upd)
     return graph
@@ -138,7 +159,7 @@ def _run(layout, b, mesh, iters, inv_diag, axis, graph):
     state = cg_init(b, mesh) if inv_diag is None else pcg_init(
         b, mesh, inv_diag)
     if graph is None:
-        graph = len(set(mesh.devices)) == 1 and mesh.devices[0].type == "cuda"
+        graph = graph_default(mesh)
     if graph and iters > 0:
         g = capture_step(layout, mesh, state, inv_diag, axis)
         for _ in range(iters):
@@ -155,7 +176,7 @@ def cg_solve(layout, b, mesh: RowMesh, iters: int = 50, axis="rows",
     """Solve A x = b (A SPD) with `iters` fixed CG iterations. b: the
     sharded right-hand side (padded_m rows in D shards). Returns (x
     sharded, final residual norm^2 as a device scalar). graph: replay a
-    captured iteration (default: when every shard lies on one card)."""
+    captured iteration (default: graph_default)."""
     return _run(layout, b, mesh, iters, None, axis, graph)
 
 
@@ -180,5 +201,5 @@ def jacobi_inv_diag(diag, padded_m: int):
 
 __all__ = [
     "capture", "capture_step", "cg_init", "cg_solve", "cg_step",
-    "jacobi_inv_diag", "pcg_init", "pcg_solve", "pcg_step",
+    "graph_default", "jacobi_inv_diag", "pcg_init", "pcg_solve", "pcg_step",
 ]

@@ -30,7 +30,11 @@ to it (dist/sharding._forked), so one solve (and a PCG iteration of
 two) is captured in one CUDA graph when the shards share a card. x is
 one padded_m buffer a device: on one card the all-gather costs nothing,
 as shard d's slice is a view of it; on D cards, step d first copies the
-rows [0, d * R) it lacks to its card.
+rows [0, d * R) it lacks to its card. Across processes every process
+walks the D steps in the same order: the owner of step d runs it and
+broadcasts its rows over the process group as it ends, and every other
+process receives them into its first shard's buffer, so the later steps
+find them there and every process ends with every row.
 """
 
 from __future__ import annotations
@@ -41,8 +45,10 @@ import dataclasses
 import numpy as np
 import torch
 
+from tpu_spmv_torch.dist import group
 from tpu_spmv_torch.dist.sharding import (
-    RowMesh, _check_mesh, _forked, _on, _round_up, local_sell, stack_sell,
+    RowMesh, _check_mesh, _forked, _on, _round_up, local_sell, placed,
+    stack_sell,
 )
 from tpu_spmv_torch.formats.csr import CSRMatrix
 from tpu_spmv_torch.formats.sell import LANES, SUBLANES, SellSlabs, to_tensor
@@ -121,14 +127,14 @@ class ShardedLowerSolve:
         self.inv_local = list(self.inv_diag)
 
     def device_put(self, mesh: RowMesh, axis="rows") -> "ShardedLowerSolve":
-        """This layout with shard d's containers on mesh.devices[d]."""
+        """This layout with shard d's containers on mesh.devices[d] (None
+        for a shard of another process)."""
         _check_mesh(self, mesh, axis)
         out = copy.copy(self)
-        devs = mesh.devices
-        out.diag = [s.to(dev) for s, dev in zip(self.diag, devs)]
-        out.off = [s.to(dev) for s, dev in zip(self.off, devs)]
-        out.b_local = [t.to(dev) for t, dev in zip(self.b_local, devs)]
-        out.inv_local = [t.to(dev) for t, dev in zip(self.inv_local, devs)]
+        out.diag = placed(self.diag, mesh)
+        out.off = placed(self.off, mesh)
+        out.b_local = placed(self.b_local, mesh)
+        out.inv_local = placed(self.inv_local, mesh)
         return out
 
     @classmethod
@@ -229,32 +235,55 @@ class ShardedLowerSolve:
 
 def _check_rhs(layout: ShardedLowerSolve, b, mesh: RowMesh) -> None:
     if len(b) != layout.n_devices or any(
-            t.shape != (layout.rows_per_shard,) or t.device != dev
+            (t is None) != (dev is None) or t is not None and (
+                t.shape != (layout.rows_per_shard,) or t.device != dev)
             for t, dev in zip(b, mesh.devices)):
+        got = [t if t is None else (tuple(t.shape), str(t.device)) for t in b]
         raise ValueError(
             f"b must be {layout.n_devices} shards of {layout.rows_per_shard} "
-            "rows on the mesh's devices (shard_vector), got "
-            f"{[(tuple(t.shape), str(t.device)) for t in b]}")
+            f"rows on the mesh's devices (shard_vector), got {got}")
 
 
 def solve_buffers(layout: ShardedLowerSolve, mesh: RowMesh, b=None,
                   plain: bool = False) -> dict:
     """The solve (see sts_solve_sharded); returns {device: its (padded_m,)
-    x buffer}. Shard d's rows are final in the buffer of its device, and
-    the last shard's device holds every row."""
+    x buffer} for this process's devices. Shard d's rows are final in the
+    buffer of its device. In one process the last shard's device holds
+    every row; across processes, this process's first shard's device."""
     D, R, nc = layout.n_devices, layout.rows_per_shard, layout.num_chunks_local
     if b is not None:
         _check_rhs(layout, b, mesh)
     off_fn = ksell.spmv_sell_reference if plain else ksell.spmv_sell
     solve_fn = (ksts.lower_solve_blocks_reference if plain
                 else ksts.lower_solve_blocks)
+    home = mesh.home
     # Allocated on the callers' streams, which the shard streams fork from.
-    bufs = {dev: torch.zeros(layout.padded_m, dtype=torch.float32,
-                             device=dev) for dev in mesh.devices}
+    bufs = {mesh.devices[d]: torch.zeros(layout.padded_m, dtype=torch.float32,
+                                         device=mesh.devices[d])
+            for d in mesh.local}
     have = {dev: set() for dev in bufs}  # shards whose rows each holds
+
+    def holder(k):  # the buffer that holds shard k's rows
+        dev = mesh.devices[k]
+        return bufs[home if dev is None else dev]
+
+    def chained(dev):  # dev's current stream after steps 0..d-1
+        if dev.type != "cuda":
+            return None
+        cur = torch.cuda.current_stream(dev)
+        if prev is not None:
+            cur.wait_stream(prev)
+        return cur
+
     prev = None
     with _forked(mesh, mesh.streams):
         for d, (dev, s) in enumerate(zip(mesh.devices, mesh.streams)):
+            rows = slice(d * R, (d + 1) * R)
+            if dev is None:  # another process's step: its rows arrive
+                prev = chained(home)
+                group.broadcast_(mesh, bufs[home][rows], mesh.owner(d))
+                have[home].add(d)
+                continue
             with _on(s):
                 rhs = torch.empty((nc + 1, LANES), dtype=torch.float32,
                                   device=dev)
@@ -264,24 +293,26 @@ def solve_buffers(layout: ShardedLowerSolve, mesh: RowMesh, b=None,
                     torch.mul(b[d].view(nc, LANES), layout.inv_local[d][:nc],
                               out=rhs[:nc])
                     rhs[nc].zero_()
-                cur = None
-                if dev.type == "cuda":
-                    cur = torch.cuda.current_stream(dev)
-                    if prev is not None:
-                        cur.wait_stream(prev)  # steps 0..d-1 are done
+                cur = chained(dev)
                 x = bufs[dev]
                 for k in range(d):  # the rows of earlier shards it lacks
                     if k not in have[dev]:
-                        rows = slice(k * R, (k + 1) * R)
-                        x[rows].copy_(bufs[mesh.devices[k]][rows],
-                                      non_blocking=True)
+                        lk = slice(k * R, (k + 1) * R)
+                        x[lk].copy_(holder(k)[lk], non_blocking=True)
                         have[dev].add(k)
                 corr = off_fn(layout.off[d], x)
                 rhs[:nc] -= corr.view(nc, LANES)
                 xd = solve_fn(layout.diag[d], rhs, layout.steps[d])
-                x[d * R:(d + 1) * R].copy_(xd[:nc].view(-1))
+                x[rows].copy_(xd[:nc].view(-1))
                 have[dev].add(d)
+                if mesh.world > 1:
+                    group.broadcast_(mesh, x[rows], mesh.rank)
                 prev = cur
+    if mesh.world > 1:  # this process's rows on its other devices
+        for k in mesh.local:
+            if k not in have[home]:
+                lk = slice(k * R, (k + 1) * R)
+                bufs[home][lk].copy_(holder(k)[lk], non_blocking=True)
     return bufs
 
 
@@ -289,7 +320,8 @@ def sts_solve_sharded(layout: ShardedLowerSolve, mesh: RowMesh, axis="rows",
                       b=None, plain: bool = False) -> list:
     """Solve L x = b over the mesh; returns x as D shards of
     rows_per_shard rows in the padded system coordinates (on one card,
-    views of one buffer). On the host: gather_vector(x)[pad_index].
+    views of one buffer; None for a shard of another process). On the
+    host: gather_vector(x, mesh)[pad_index].
 
     b: an optional fresh right-hand side, D shards of rows_per_shard rows,
     unscaled, in the padded system coordinates (scatter through pad_index
@@ -299,7 +331,17 @@ def sts_solve_sharded(layout: ShardedLowerSolve, mesh: RowMesh, axis="rows",
     _check_mesh(layout, mesh, axis)
     bufs = solve_buffers(layout, mesh, b, plain)
     R = layout.rows_per_shard
-    return [bufs[dev][d * R:(d + 1) * R] for d, dev in enumerate(mesh.devices)]
+    return [None if dev is None else bufs[dev][d * R:(d + 1) * R]
+            for d, dev in enumerate(mesh.devices)]
+
+
+def solve_whole(layout: ShardedLowerSolve, mesh: RowMesh, b=None,
+                plain: bool = False) -> torch.Tensor:
+    """The solve's x, every padded_m row, on this process's first shard's
+    device (one chain of ShardedIC0Preconditioner)."""
+    bufs = solve_buffers(layout, mesh, b, plain)
+    full = mesh.home if mesh.world > 1 else mesh.devices[-1]
+    return bufs[full].to(mesh.home, non_blocking=True)
 
 
 def from_reference(layout, sys: TriangularSystem | None = None
@@ -322,4 +364,4 @@ def from_reference(layout, sys: TriangularSystem | None = None
 
 
 __all__ = ["ShardedLowerSolve", "from_reference", "solve_buffers",
-           "sts_solve_sharded"]
+           "solve_whole", "sts_solve_sharded"]

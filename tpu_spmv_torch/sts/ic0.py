@@ -234,15 +234,23 @@ def capture_pcg_step(layout, precond: IC0Preconditioner, state):
     return graph
 
 
-def _joined(xs, dev) -> torch.Tensor:
-    """A sharded vector as one vector on `dev` (one torch.cat)."""
-    return torch.cat([t.to(dev, non_blocking=True) for t in xs])
+def _joined(xs, mesh) -> torch.Tensor:
+    """A sharded vector as one vector on this process's first shard's
+    device (one torch.cat; across processes an all-gather over the
+    group)."""
+    from tpu_spmv_torch.dist import group
+
+    local = torch.cat([t.to(mesh.home, non_blocking=True) for t in xs
+                       if t is not None])
+    return local if mesh.world == 1 else group.all_gather_rows(mesh, local)
 
 
 def _split(v: torch.Tensor, mesh, rows: int) -> list:
     """One vector cut into mesh.size shards of `rows` rows, shard d on
-    mesh.devices[d] (views where it already lies there)."""
-    return [v[d * rows:(d + 1) * rows].to(dev, non_blocking=True)
+    mesh.devices[d] (views where it already lies there; None for a shard
+    of another process)."""
+    return [None if dev is None else
+            v[d * rows:(d + 1) * rows].to(dev, non_blocking=True)
             for d, dev in enumerate(mesh.devices)]
 
 
@@ -252,7 +260,10 @@ class ShardedIC0Preconditioner:
     substitution chains (dist/sts.py) an application. The five index
     maps (the reference's, int64 here) thread the A-space sharded
     vectors through the two solve systems' pack paddings and
-    permutations, as IC0Preconditioner's do on one device."""
+    permutations, as IC0Preconditioner's do on one device. Across
+    processes each process gathers r whole, runs both chains (every
+    process receives every step's rows, dist/sts.py) and keeps its own
+    rows of z."""
 
     lay_l: object  # dist.sts.ShardedLowerSolve for L
     lay_u: object  # ... for the reversed L^T
@@ -267,8 +278,8 @@ class ShardedIC0Preconditioner:
 
     def device_put(self, mesh, axis="rows") -> "ShardedIC0Preconditioner":
         """Both solve layouts placed shard by shard; the maps, which feed
-        gathers across shards, on the first shard's device."""
-        home = mesh.devices[0]
+        gathers across shards, on this process's first shard's device."""
+        home = mesh.home
         maps = {k: getattr(self, k).to(home) for k in (
             "bl_gather", "bl_scatter", "bu_gather", "bu_scatter", "z_gather")}
         return dataclasses.replace(
@@ -309,13 +320,12 @@ class ShardedIC0Preconditioner:
         )
 
     def _solve(self, lay, b_full, mesh, plain) -> torch.Tensor:
-        """x (padded_m,) of one chain, on the first shard's device: the
-        last shard's device holds every row (on one card, the buffer)."""
-        from tpu_spmv_torch.dist.sts import solve_buffers
+        """x (padded_m,) of one chain, on this process's first shard's
+        device."""
+        from tpu_spmv_torch.dist.sts import solve_whole
 
-        bufs = solve_buffers(lay, mesh, _split(b_full, mesh,
-                                               lay.rows_per_shard), plain)
-        return bufs[mesh.devices[-1]].to(mesh.devices[0], non_blocking=True)
+        return solve_whole(lay, mesh, _split(b_full, mesh,
+                                             lay.rows_per_shard), plain)
 
     def apply(self, r, mesh, axis="rows", plain: bool = False) -> list:
         """z = (L L^T)^-1 r. r: D shards of the A-space padded vector
@@ -324,11 +334,11 @@ class ShardedIC0Preconditioner:
         from tpu_spmv_torch.dist.sharding import _check_mesh
 
         _check_mesh(self.lay_l, mesh, axis)
-        home = mesh.devices[0]
+        home = mesh.home
         b_l = torch.zeros(self.lay_l.padded_m, dtype=torch.float32,
                           device=home)
         b_l.index_put_((self.bl_scatter,),
-                       _joined(r, home).index_select(0, self.bl_gather))
+                       _joined(r, mesh).index_select(0, self.bl_gather))
         x_l = self._solve(self.lay_l, b_l, mesh, plain)
         b_u = torch.zeros(self.lay_u.padded_m, dtype=torch.float32,
                           device=home)
@@ -417,12 +427,13 @@ class BlockJacobiIC0Preconditioner:
 
     def device_put(self, mesh, axis="rows") -> "BlockJacobiIC0Preconditioner":
         """This preconditioner with shard d's slabs and maps on
-        mesh.devices[d]."""
+        mesh.devices[d] (None for a shard of another process)."""
         self._check(mesh, axis)
         out = copy.copy(self)
-        out.local = [{k: v if isinstance(v, np.ndarray) else v.to(dev)
-                      for k, v in loc.items()}
-                     for loc, dev in zip(self.local, mesh.devices)]
+        out.local = [None if dev is None else {
+            k: v if isinstance(v, np.ndarray) else v.to(dev)
+            for k, v in loc.items()}
+            for loc, dev in zip(self.local, mesh.devices)]
         return out
 
     def _check(self, mesh, axis) -> None:
@@ -528,7 +539,8 @@ class BlockJacobiIC0Preconditioner:
     def apply(self, r, mesh, axis="rows", plain: bool = False) -> list:
         """z = blockdiag(L_d L_d^T)^-1 r, with no communication: r as D
         shards of rows_per_shard rows (A coords); z returned the same
-        way. Each shard's two solves run on its stream."""
+        way. Each shard's two solves run on its stream (this process's
+        shards only)."""
         from tpu_spmv_torch.dist.sharding import _forked, _on
         from tpu_spmv_torch.kernels.sts import (
             lower_solve_blocks, lower_solve_blocks_reference,
@@ -538,8 +550,9 @@ class BlockJacobiIC0Preconditioner:
         solve = lower_solve_blocks_reference if plain else lower_solve_blocks
         zs = [None] * self.n_devices
         with _forked(mesh, mesh.streams):
-            for d, (loc, s) in enumerate(zip(self.local, mesh.streams)):
-                with _on(s):
+            for d in mesh.local:
+                loc = self.local[d]
+                with _on(mesh.streams[d]):
                     zero1 = r[d].new_zeros(1)
                     r_ext = torch.cat([r[d], zero1])
                     b_l = (r_ext.index_select(0, loc["g_l"])
@@ -581,10 +594,11 @@ def from_reference(precond):
 
 def pcg_ic0_sharded_init(b, precond, mesh, axis="rows", plain: bool = False):
     """Sharded PCG state (x, r, p, rz) before the first iteration."""
+    from tpu_spmv_torch.dist.sharding import each
     from tpu_spmv_torch.dist.solvers import _dot
 
     z = precond.apply(b, mesh, axis, plain)
-    return ([torch.zeros_like(t) for t in b], [t.clone() for t in b], z,
+    return (each(torch.zeros_like, b), each(torch.clone, b), z,
             _dot(b, z, mesh))
 
 
@@ -610,8 +624,8 @@ def pcg_ic0_sharded_step(layout, precond, mesh, state, axis="rows",
 
 def capture_pcg_sharded_step(layout, precond, mesh, state, axis="rows"):
     """A CUDA graph of one distributed PCG iteration that advances `state`
-    (from pcg_ic0_sharded_init, every shard on one card) in place at each
-    replay (dist/solvers.capture)."""
+    (from pcg_ic0_sharded_init, this process's shards on one card) in
+    place at each replay (dist/solvers.capture)."""
     from tpu_spmv_torch.dist.solvers import capture
 
     return capture(lambda st: pcg_ic0_sharded_step(layout, precond, mesh,
@@ -623,12 +637,13 @@ def pcg_ic0_sharded(layout, b, precond, mesh, axis="rows", iters: int = 50,
     """Distributed PCG with ShardedIC0Preconditioner (exact) or
     BlockJacobiIC0Preconditioner. layout: ShardedRanked or ShardedSell
     placed on mesh; b: the sharded right-hand side. Returns (x sharded,
-    final r.z). graph: replay a captured iteration (default: when every
-    shard lies on one card and plain is False)."""
+    final r.z). graph: replay a captured iteration (default: when plain
+    is False and dist/solvers.graph_default holds)."""
+    from tpu_spmv_torch.dist.solvers import graph_default
+
     state = pcg_ic0_sharded_init(b, precond, mesh, axis, plain)
     if graph is None:
-        graph = (not plain and len(set(mesh.devices)) == 1
-                 and mesh.devices[0].type == "cuda")
+        graph = not plain and graph_default(mesh)
     if graph and iters > 0:
         g = capture_pcg_sharded_step(layout, precond, mesh, state, axis)
         for _ in range(iters):

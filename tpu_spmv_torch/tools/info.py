@@ -1,7 +1,9 @@
 """Card and toolchain report of the port.
 
 Counterpart of `python -m tpu_spmv.tools.info`: prints the toolchain
-(torch, CUDA, nvcc, triton) and, when a card is present, its
+(torch, CUDA, nvcc, triton), the process count and index (of the
+torch.distributed group when one is started, else 1 and 0, as the
+reference's collect() prints jax's) and, when a card is present, its
 nvidia-smi name and power limit and the DeviceSpec the roofline uses,
 so recorded numbers can be tied to hardware.
 
@@ -20,11 +22,14 @@ def main(argv=None):
     import torch
 
     from tpu_spmv_torch import hw
+    from tpu_spmv_torch.dist import multihost
 
     print(f"python: {platform.python_version()}")
     print(f"host: {platform.platform()}")
     for k, v in hw.toolchain().items():
         print(f"{k}: {v}")
+    print(f"process_count: {multihost.process_count()}")
+    print(f"process_index: {multihost.process_index()}")
     if not torch.cuda.is_available():
         print("device: none (no CUDA card)")
         return 1
