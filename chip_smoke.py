@@ -19,8 +19,8 @@ residency gate):
      magnitude-aware 0.01 tolerance, RelL2 <= 1e-6, every column of an
      SpMM; bf16 layouts against the bf16-rounded operator), and times
      kernel and plain version in the warm regime (one operator, which
-     may stay in L2) and the cold one (operator copies rotated, >= 4x L2
-     in all), beside its bound (layout, x and y moved once at the HBM
+     may stay in L2) and the kernel in the cold one (operator copies
+     rotated, >= 4x L2 in all), beside its bound (layout, x and y moved once at the HBM
      rate) and the one PyTorch call computing the same product (a CSR
      tensor times x: cuSPARSE). The single-vector kernels spmv_dia,
      spmv_ranked, spmv_sell and spmv_packed (delta, grouped, bf16,
@@ -57,24 +57,34 @@ residency gate):
      rows count as spmv_ranked's;
   2. runs the planner's calibration (tools.tune's protocol, through
      bench/calibration.py) on the card at CALIB_SCALE, printing its
-     points and fit (the scale-1 fit comes from step 6's tools.tune run,
-     which prints both beside the shipped entry for this card, or a line
-     saying there is none and the planner runs on its module defaults);
-     then prints tune/model.tpu_plan's plan (kernel, W, sigma,
-     cost, reason) for lap2d_1024 in natural order (which must plan dia)
-     and after RCM, banded_1m, general_500k, powerlaw_1m and
-     scattered_16m, and on lap2d_1024 after RCM and banded_1m the planned
-     layout's warm time beside the fastest of sell, ranked and packed
-     timed in step 1, and their ratio;
+     points and fit, then tools.tune --calibrate --dry-run itself at its
+     default scale (its launches join step 6's), and prints both fits,
+     each constant's ratio between them, the shipped entry for this card
+     (or a line saying there is none and the planner runs on its module
+     defaults) and the decisions each gives, and the entry of the old
+     unit (OLD_UNIT_ENTRY) too: the kernel on
+     lap2d_1024 after RCM (D1) and banded_1m (D2), the bin width on
+     scattered_16m (D3), banded_1m's sigma = 4096 sort kept or rejected
+     (D4) and the solve kernel on banded_1m LS and lap2d_1024 LS (D5);
+     then prints tune/model.tpu_plan's plan (kernel, W, sigma, cost,
+     reason) for lap2d_1024 in natural order (which must plan dia) and
+     after RCM, banded_1m, general_500k and scattered_16m, and D1-D5
+     under the shipped and the old-unit entry, each as the planned choice, the
+     fastest choice timed in this run, both warm times and planned /
+     fastest (the kernel and striped phases' times, spmv_striped at W =
+     32 too, the sorted banded_1m layout of its re-plan, step 3's solve
+     times); this step runs after step 3;
   3. checks both triangular-solve kernels (lower_solve_ranked and
      lower_solve_blocks) against their plain versions (RelL2 <= 1e-5)
      and a float64 forward substitution (RelL2 <= 1e-5, Number Wrong 0
      at 0.01 for x = ones), and times them warm and cold (the plain
-     versions, a host loop over the packs, eagerly), first on the
+     versions, a host loop over the packs, by their checking call),
+     first on the
      bidiagonal chain of 4096 rows (4096 chunks, each reading only the
      one before: the least a dependency level costs, printed as us per
      link), then on lap2d_1024 in level (LS) and COLOR order, lap3d_101
-     LS and banded_1m LS (the column-binned rank windows); it prints the
+     LS and banded_1m LS (the column-binned rank windows, and its blocks
+     solve); it prints which kernel lower_solve runs on each, the
      host set-up seconds and each system's dependency depth, by rows and
      by chunks (the kernel waits on whole chunks), also for lap2d_1024
      k=3, the solve's bound by bytes beside the floor of this design
@@ -133,20 +143,19 @@ residency gate):
      lap2d_1024 at B = 8 and --kernel windowed), the solve CLIs
      (tools.sts on lap2d_1024 LS, COLOR and k=3 and lap3d_101 --part
      upper; tools.solve --precond ic0 on lap3d_101), the library's
-     lower_solve with ranked=False, the striped route (tools.spmv
-     synthetic:scattered_16m --kernel ranked --bin-blocks W, which must
-     print "column-striped passes"), the baselines (tools.spmv
+     lower_solve with ranked=False, the baselines (tools.spmv
      --kernel segsum and bcoo on lap2d_1024, dense on an 8,192 x 8,192
      matrix at its cap and refused on lap2d_1024) and the flagship bench
      (bench.flagship, whose JSON line must parse with value > 0); then
      the paths of the planner and the host tools: tools.spmv --kernel
      auto on scattered_16m without --bin-blocks (the plan's W must take
-     the striped route), --sigma -1 on powerlaw_1m and --sigma 4096 on
+     the striped route, which must print "column-striped passes"),
+     --sigma -1 on powerlaw_1m and --sigma 4096 on
      banded_1m, --layout-cache on lap2d_4096 after RCM twice (the
      windowed ranked run above writes the cache; the second run must
      load it and give the first run's bits), tools.sweep over
      lap2d_256 and banded_100k x auto, ranked and sell (its CSV
-     printed), and tools.tune --calibrate --dry-run; and the
+     printed), and step 2's tools.tune --calibrate --dry-run; and the
      distributed paths: tools.solve plain CG and --pcg on lap3d_101 with
      --devices 1 (--tol DIST_TOL), cg_solve's captured iteration over 4
      shards (the residual at a quarter, half and all of DIST_ITERS),
@@ -168,6 +177,8 @@ the port's package.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import sys
 import time
@@ -192,11 +203,16 @@ DIST_TOL = 1e-3
 # The multiproc phase's wall limit: a process that hangs in a collective
 # (or fails while the others wait in one) ends the phase here.
 MULTIPROC_WALL_S = 300
-# The calibration phase's sample scale (tools.tune --scale), at which
-# every sample takes 50 us or more on an H100; the reference's sizes
-# (scale 1), which the card runs in 10-30 us, are measured by the
-# tools.tune --calibrate --dry-run run of the CLI phase.
-CALIB_SCALE = 8.0
+# The calibration phase's sample scale (tools.tune --scale): the second
+# scale, beside tools.tune's default (tools/tune.CALIB_SCALE), at which
+# every sample takes 50 us or more on an H100 too.
+CALIB_SCALE = 12.0
+# The H100 entry the planner ran on before the card's unit (the first
+# calibration protocol, in the reference's unit): the decisions it gives
+# are the previous release's, printed beside the shipped entry's.
+OLD_UNIT_ENTRY = {"ranked_fixed": 25.305, "pair_cost": 2.146,
+                "ranked_iter_cost": 2.146, "packed_over": 5.754,
+                "epi_cost": 0.0}
 # The bound of a kernel (the least time the card could take for its
 # work): NVIDIA's data sheet for the H100 SXM at 700 W, HBM 3.35 TB/s and
 # 67 TFLOP/s in float32 outside the tensor cores.
@@ -332,14 +348,13 @@ def _check_kernel(label, kernel, plain, layout, mat, perm, oracle, stats,
     bound_ms, bound_by = _bound(lbytes + 4 * (mat.n + mat.m) * cols,
                                 2 * nnz * cols)
     t = {}
-    # Kernel and plain version in turns: warm, then cold, then the
-    # kernel's eager (host-launched) warm time.
+    # Kernel and plain version in turns warm, then the kernel cold (the
+    # plain version's cold time is left out to keep the run inside its
+    # time), then the kernel's eager (host-launched) warm time.
     for name, fn in (("kernel", kernel), ("plain", plain)):
         t[name, "warm"] = bench_spmv(fn, lay, xt, nnz=nnz)
-    for name, fn in (("plain", plain), ("kernel", kernel)):
-        t[name, "cold"] = bench_spmv_cold(
-            fn, lay.clone, xt, nnz=nnz, layout_bytes=lbytes
-        )
+    t["kernel", "cold"] = bench_spmv_cold(
+        kernel, lay.clone, xt, nnz=nnz, layout_bytes=lbytes)
     eager = bench_spmv(kernel, lay, xt, nnz=nnz, graph=False)
     twin_s = None if twin is None else bench_spmv(twin, lay, xt,
                                                  nnz=nnz).time_min
@@ -366,18 +381,21 @@ def _check_kernel(label, kernel, plain, layout, mat, perm, oracle, stats,
           + ("" if twin_s is None else
              f" | {twin.__name__} on the same layout: warm TimeMin us "
              f"{twin_s * 1e6:.2f}"), flush=True)
-    for name in ("kernel", "plain"):
-        w, c = t[name, "warm"], t[name, "cold"]
-        print(
-            f"    {name:6s} TimeMin/TimeAvg us (CUDA graph): warm "
-            f"{us(w.time_min)}/{us(w.time_avg)}, cold "
-            f"{us(c.time_min)}/{us(c.time_avg)} | GF/s warm "
-            f"{w.gflops:.1f}, cold {c.gflops:.1f} | layout bytes at "
-            f"{100 * lbytes / w.time_min / bw:.0f}% (warm, L2 may hold "
-            f"them) / {100 * lbytes / c.time_avg / bw:.0f}% (cold) of "
-            f"{bw / 1e12:.2f} TB/s",
-            flush=True,
-        )
+    w, c = kw, kc
+    print(
+        f"    kernel TimeMin/TimeAvg us (CUDA graph): warm "
+        f"{us(w.time_min)}/{us(w.time_avg)}, cold "
+        f"{us(c.time_min)}/{us(c.time_avg)} | GF/s warm "
+        f"{w.gflops:.1f}, cold {c.gflops:.1f} | layout bytes at "
+        f"{100 * lbytes / w.time_min / bw:.0f}% (warm, L2 may hold "
+        f"them) / {100 * lbytes / c.time_avg / bw:.0f}% (cold) of "
+        f"{bw / 1e12:.2f} TB/s",
+        flush=True,
+    )
+    w = t["plain", "warm"]
+    print(f"    plain  TimeMin/TimeAvg us (CUDA graph): warm "
+          f"{us(w.time_min)}/{us(w.time_avg)}, cold not measured | GF/s "
+          f"warm {w.gflops:.1f}", flush=True)
     print(f"    kernel eager launches (Python + ctypes): warm TimeMin/TimeAvg"
           f" {us(eager.time_min)}/{us(eager.time_avg)} us | phase wall "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -767,7 +785,7 @@ def _windowed_phases(stats):
                       stats, batch=cols, twin=spmm_ranked, csr=ck.matrix)
 
 
-def _striped_phases(stats):
+def _striped_phases(stats, times):
     """scattered_16m (131,072 x 16,777,216, 160 a row, 21.0M nnz; x 64 MB,
     past half the L2) through spmv_striped, the column-striped passes of
     spmv_ranked's walk, at default_stripe_cols and at half of it: kernel
@@ -776,7 +794,8 @@ def _striped_phases(stats):
     bench/scattered_16m.py picks it. Prints each layout's stripes, bins,
     padding, split chunks and launches per call, the bound of this design
     (layout and x once, y 2P - 1 times) and the host set-up seconds.
-    The rows count as spmv_ranked's. Returns W."""
+    The rows count as spmv_ranked's; the warm time at default_stripe_cols
+    goes to times under ("scattered_16m", "ranked", W). Returns W."""
     import torch
 
     from tpu_spmv_torch.kernels.sell import partial_rows
@@ -818,8 +837,10 @@ def _striped_phases(stats):
               f"{part_bytes / 2**20:.1f} MB in all); device launches per "
               f"call {P + sum(k > 0 for k in splits)} (spmv_ranked calls "
               f"{P})", flush=True)
-        _check_kernel(label, spmv_striped, spmv_striped_reference, lay, mat,
-                      slice(None), mat, stats, csr=mat)
+        t = _check_kernel(label, spmv_striped, spmv_striped_reference, lay,
+                          mat, slice(None), mat, stats, csr=mat)
+        if cols == sc:
+            times["scattered_16m", "ranked", w] = t
         row = stats["spmv_striped"][-1]
         design_ms, _ = _bound(lay.nbytes + 4 * mat.n + 4 * mat.m * (2 * P - 1),
                               2 * mat.nnz)
@@ -963,8 +984,13 @@ def _check_solve(label, sys_, b, ranked, stats, setup, library_s,
     bs = lay.b_scale
     before = kernel.launches
     xk = kernel(slabs, bs)
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter()
     xp = plain(slabs, bs, steps)
     torch.cuda.synchronize()
+    # The plain version's time: this one call, the check's (a host loop
+    # over the packs, seconds a solve on the largest systems).
+    p_warm = time.perf_counter() - t_plain
     delta = kernel.launches - before
     err = float((xk - xp).abs().max())
     rel_plain = float((xk - xp).norm() / xp.norm().clamp_min(1e-30))
@@ -995,9 +1021,6 @@ def _check_solve(label, sys_, b, ranked, stats, setup, library_s,
     def kfn(sl, bf):
         return kernel(sl, bf.view(-1, 128))
 
-    def pfn(sl, bf):
-        return plain(sl, bf.view(-1, 128), steps)
-
     if replay:
         _replay_check(label, kernel.__name__, lambda: kernel(slabs, bs))
     t0 = time.perf_counter()
@@ -1006,10 +1029,6 @@ def _check_solve(label, sys_, b, ranked, stats, setup, library_s,
                            layout_bytes=slabs.nbytes)
     eager = bench_spmv(kfn, slabs, bflat, nnz=nnz, graph=False, samples=3)
     k = cold.iters[2]
-    # The plain version is timed warm only: its cold time (K copies, one
-    # host loop over the packs each, seconds a solve on the largest
-    # systems) is left out to keep the run inside its time.
-    p_warm = _time_eager(pfn, [slabs], bflat, 3)
     us = lambda s: f"{s * 1e6:.2f}"  # noqa: E731
     print(
         f"[{label}] {kernel.__name__}: launches +{delta}, RelL2 vs plain "
@@ -1030,8 +1049,8 @@ def _check_solve(label, sys_, b, ranked, stats, setup, library_s,
           f"{1e6 * warm.time_min / depth:.3f} us per row level, "
           f"{1e6 * warm.time_min / chunk_depth:.3f} us per chunk level",
           flush=True)
-    print(f"    plain  us per solve (eager host loop over the packs): warm "
-          f"{us(p_warm)}, cold not measured | bound by bytes "
+    print(f"    plain  us per solve (eager host loop over the packs, the "
+          f"checking call): {us(p_warm)}, cold not measured | bound by bytes "
           f"{bound_ms * 1e3:.2f} us ({bound_by}), {depth_txt} | timing wall "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     stats.setdefault(kernel.__name__, []).append(
@@ -1042,10 +1061,46 @@ def _check_solve(label, sys_, b, ranked, stats, setup, library_s,
     return lay, warm.time_min
 
 
-def _solve_phases(stats):
+def _chain_arrays(slabs):
+    """What sts/solve.solve_cost reads of a solve layout, on the host."""
+    import types
+
+    return types.SimpleNamespace(
+        chunk_ptr=slabs.chunk_ptr.cpu(), wait_ptr=slabs.wait_ptr.cpu(),
+        wait_chunk=slabs.wait_chunk.cpu())
+
+
+def _solve_shape(label, lay):
+    """One line: the kernel lower_solve runs on the layout (sts/solve.
+    solve_choice) and, for each solve layout, what its cost reads:
+    sub-tiles a chunk, the chunk depth, the most rounds of SOLVE_GROUP
+    sub-tiles on one chain of chunks and the cost under the card's
+    entry in us (solve_cost through unit_ns)."""
+    import numpy as np
+
+    from tpu_spmv_torch.sts.solve import solve_constants, solve_cost
+    from tpu_spmv_torch.tune.model import _cal
+
+    consts, unit = solve_constants(), _cal("unit_ns", 0.0) * 1e-3
+    parts = []
+    for kernel, sl in (("ranked", lay.ranked), ("blocks", lay.slabs)):
+        sub = np.diff(sl.chunk_ptr.cpu().numpy().astype(np.int64))
+        cost = ("" if consts is None or not unit else
+                f", cost {unit * solve_cost(sl, *consts[kernel]):.2f} us")
+        parts.append(f"{kernel}: sub-tiles a chunk median "
+                     f"{int(np.median(sub))} max {int(sub.max())}, chunk "
+                     f"depth {solve_cost(sl, 1.0, 0.0):.0f}, most rounds on "
+                     f"a chain {solve_cost(sl, 0.0, 1.0):.0f}{cost}")
+    print(f"    [{label}] lower_solve runs {lay.kernel} (sts/solve."
+          f"solve_choice) | " + " | ".join(parts), flush=True)
+
+
+def _solve_phases(stats, solves):
     """Both solve kernels at full size, on the schedules users run, after
-    the bidiagonal chain that measures a link. Returns each kernel's us
-    per link on the chain."""
+    the bidiagonal chain that measures a link. Fills solves["NAME ORDER"]
+    with each kernel's warm seconds, the kernel lower_solve chooses and
+    the chains it chose on. Returns each kernel's us per link on the
+    chain."""
     from tpu_spmv_torch.bench.solve_times import CHAIN_ROWS, system
     from tpu_spmv_torch.sts.host import build_sts, compute_b, find_levels
     from tpu_spmv_torch.sts.solve import RANKED_SOLVE_MAX_NB, LowerSolveLayout
@@ -1070,7 +1125,7 @@ def _solve_phases(stats):
         ("lap2d_1024", "LS", (True, False)),
         ("lap2d_1024", "COLOR", (True,)),
         ("lap3d_101", "LS", (True, False)),
-        ("banded_1m", "LS", (True,)),
+        ("banded_1m", "LS", (True, False)),
     ):
         t0 = time.perf_counter()
         mat = load_input(f"synthetic:{name}")
@@ -1081,12 +1136,21 @@ def _solve_phases(stats):
         library_s = _time_solve_library(f"{name} {order}", sys_, b)
         for ranked in variants:
             label = f"{name} {order} {'ranked' if ranked else 'blocks'}"
-            lay, _ = _check_solve(label, sys_, b, ranked, stats, setup,
+            lay, t = _check_solve(label, sys_, b, ranked, stats, setup,
                                   library_s, link_us,
                                   replay=(name, order) == ("lap2d_1024", "LS"))
             if ranked and lay.ranked is None:
                 raise SmokeFailure(f"{label}: no rank-windowed layout built")
-            if name == "banded_1m":
+            rec = solves.setdefault(f"{name} {order}", {})
+            rec["ranked" if ranked else "blocks"] = t
+            if ranked:
+                # The choice under the card's calibration, and what
+                # sts/solve.solve_choice reads to make it under another.
+                rec["choice"] = lay.kernel
+                rec["chains"] = tuple(_chain_arrays(sl) for sl in (
+                    lay.slabs, lay.ranked))
+                _solve_shape(f"{name} {order}", lay)
+            if name == "banded_1m" and ranked:
                 # Scattered dependencies: the exact windows span far more
                 # than RANKED_SOLVE_MAX_NB blocks, so the binned ones
                 # engaged (tests/test_sts.py's scattered-solve check).
@@ -1840,26 +1904,140 @@ def _dist_sts_steps():
     return steps
 
 
-def _calibration():
-    """tools.tune's protocol on the card at CALIB_SCALE
-    (bench/calibration.calibrate: the points and the fit). Returns the
-    fit; the scale-1 fit comes from the CLI phase's tools.tune run, and
-    both are printed there beside the shipped entry. A step that fails
-    raises: nothing is caught."""
-    from tpu_spmv_torch.bench.calibration import calibrate
+def _calibration(times, solves):
+    """The planner's calibration at two scales: tools.tune's protocol at
+    CALIB_SCALE (bench/calibration.calibrate: its points and fit), then
+    tools.tune --calibrate --dry-run itself, at its default scale, driven
+    with every launch counter zeroed (its counts join the main path's).
+    Prints both fits, each constant's ratio between them, the shipped
+    entry, and the decisions D1-D5 that each gives, the shipped entry
+    and OLD_UNIT_ENTRY too (_decisions). Returns (tools.tune's launches,
+    {entry: decisions})."""
+    from tpu_spmv_torch import hw
+    from tpu_spmv_torch.bench.calibration import calibrate, shipped_entry
+    from tpu_spmv_torch.formats.sell import sigma_sort
+    from tpu_spmv_torch.tools import tune as tune_cli
+    from tpu_spmv_torch.tools.spmv import load_input
 
-    return calibrate((CALIB_SCALE,), "cuda")[CALIB_SCALE][1]
+    fit_a = calibrate((CALIB_SCALE,), "cuda")[CALIB_SCALE][1]
+    out = {}
+
+    def run():
+        argv = ["--calibrate", "--dry-run"]
+        rc, text = _captured(f"tools.tune.main({argv})",
+                             lambda: tune_cli.main(argv))
+        line = json.loads(text.strip().splitlines()[-1])
+        if rc != 0 or list(line) != [hw.device_kind()]:
+            raise SmokeFailure(f"tools.tune: rc {rc}, last line {line}")
+        out["fit"] = line[hw.device_kind()]
+
+    counts = _drive((run,))
+    fit_b, shipped = out["fit"], shipped_entry()
+    a, b = f"scale {CALIB_SCALE:g}", f"scale {tune_cli.CALIB_SCALE:g}"
+    print(f"calibration fits on {hw.device_kind()}: {a} (the protocol "
+          f"above) {json.dumps(fit_a)} | {b} (tools.tune) "
+          f"{json.dumps(fit_b)} | shipped " + (
+              json.dumps(shipped) if shipped else "none: the planner runs "
+              "on the module defaults (the reference's TPU v5e constants)"),
+          flush=True)
+    print(f"    ratio {b} / {a}: " + ", ".join(
+        f"{k} {fit_b[k] / fit_a[k]:.3f}" if fit_a[k] else f"{k} {fit_b[k]}/0"
+        for k in fit_a), flush=True)
+    times["banded_1m sorted"] = sigma_sort(times["banded_1m"], 4096)[0]
+    times["scattered_16m"] = load_input("synthetic:scattered_16m")
+    decided = {}
+    with _memo_slots():
+        for label, entry in (("shipped", shipped), (a, fit_a), (b, fit_b),
+                             ("old unit", OLD_UNIT_ENTRY)):
+            decided[label] = _decisions(entry, times, solves)
+            print(f"    decisions under {label}: " + " | ".join(
+                f"{k} {v}" for k, v in decided[label].items()
+                if k != "plans"), flush=True)
+    same = all(decided[a][k] == decided[b][k] for k in decided[a]
+               if k != "plans")
+    print(f"    the two fits give {'the same' if same else 'different'} "
+          "decisions", flush=True)
+    return counts, decided
 
 
-def _plans(times):
-    """tpu_plan (kernel, W, sigma, est_cost, reason) on lap2d_1024 in
-    natural order and after RCM, banded_1m, general_500k, powerlaw_1m and
-    scattered_16m, under the card's calibration (the shipped entry); on
-    lap2d_1024 after RCM and banded_1m, where the kernel phases timed
-    sell, ranked and packed, the planned layout's warm time beside the
-    fastest of those and their ratio (a planned layout the phases did not
-    time is built and timed here; the plan is of the unsorted matrix).
-    Fails unless lap2d_1024 in natural order plans dia."""
+@contextlib.contextmanager
+def _memo_slots():
+    """Within the block, formats/sell's slot assignments and
+    SellSlabs.shape_stats keep what they compute for a matrix: the
+    decisions plan the same matrices under several entries, and this
+    host work, most of the planner's time, does not depend on the
+    entry."""
+    from tpu_spmv_torch.formats import sell
+
+    memo = {}
+
+    def key(name, mat, *rest):
+        return (name, mat.shape, mat.nnz, hash(mat.indptr[::97].tobytes()),
+                hash(mat.indices[::9973].tobytes()), rest)
+
+    def cached(name, fn):
+        def call(mat, *args, **kw):
+            k = key(name, mat, args, tuple(sorted(
+                (a, b) for a, b in kw.items() if a != "slots")))
+            if k not in memo:
+                memo[k] = fn(mat, *args, **kw)
+            return memo[k]
+        return call
+
+    saved = (sell._aligned_slots, sell._binned_slots,
+             sell.SellSlabs.__dict__["shape_stats"])
+    sell._aligned_slots = cached("aligned", saved[0])
+    sell._binned_slots = cached("binned", saved[1])
+    sell.SellSlabs.shape_stats = staticmethod(
+        cached("stats", sell.SellSlabs.shape_stats))
+    try:
+        yield
+    finally:
+        sell._aligned_slots, sell._binned_slots = saved[:2]
+        sell.SellSlabs.shape_stats = saved[2]
+
+
+def _decisions(entry, times, solves):
+    """D1-D5 with `entry` as the card's calibration: the planned (kernel,
+    W) on lap2d_1024 after RCM (D1), banded_1m (D2) and scattered_16m
+    (D3); whether banded_1m keeps its sigma = 4096 sort, the re-plan of
+    the sorted matrix costing less (D4, with the sorted plan); the solve
+    lower_solve runs on banded_1m LS and lap2d_1024 LS (D5). "plans"
+    holds the TpuPlans."""
+    from tpu_spmv_torch.bench.calibration import pinned
+    from tpu_spmv_torch.sts.solve import solve_choice
+    from tpu_spmv_torch.tune.model import tpu_plan
+
+    with pinned(entry):
+        plans = {name: tpu_plan(times[name], assume_rcm=name.endswith("rcm"))
+                 for name in ("lap2d_1024 rcm", "banded_1m", "banded_1m sorted",
+                              "scattered_16m")}
+        d5 = {f"D5 {n}": solve_choice(*solves[n]["chains"])
+              for n in ("banded_1m LS", "lap2d_1024 LS")}
+    kw = lambda p: f"{p.kernel} W={p.bin_blocks}"  # noqa: E731
+    kept = plans["banded_1m sorted"].est_cost < plans["banded_1m"].est_cost
+    return {"D1": kw(plans["lap2d_1024 rcm"]), "D2": kw(plans["banded_1m"]),
+            "D3": kw(plans["scattered_16m"]),
+            "D4": f"sigma={plans['banded_1m'].sigma} "
+                  + ("kept" if kept else "rejected"),
+            **d5, "plans": plans}
+
+
+def _plans(times, solves, decided):
+    """tpu_plan (kernel, W, sigma, est_cost, reason) under the card's
+    calibration (the shipped entry) on lap2d_1024 in natural order and
+    after RCM, banded_1m, general_500k and scattered_16m (powerlaw_1m's
+    plan is printed by its --sigma -1 CLI run);
+    fails unless lap2d_1024 in natural order plans dia. Then D1-D5, each
+    as the planned choice, the fastest choice timed in this run, both
+    warm times and planned / fastest: the kernel on lap2d_1024 after RCM
+    (D1) and banded_1m (D2) among sell, ranked and packed (the kernel
+    phases'), the bin width on scattered_16m (D3: spmv_striped at
+    default_stripe_cols, W of the striped phase and 32), the sigma = 4096
+    sort on banded_1m kept or rejected (D4: each side's plan), the solve
+    kernel on banded_1m LS and lap2d_1024 LS (D5: the solve phases'),
+    under the shipped entry and under OLD_UNIT_ENTRY. A planned layout not
+    timed yet is built and timed here."""
     import numpy as np
     import torch
 
@@ -1868,46 +2046,100 @@ def _plans(times):
     from tpu_spmv_torch.formats.sell import RankedSlabs, SellSlabs
     from tpu_spmv_torch.kernels.packed import spmv_packed
     from tpu_spmv_torch.kernels.sell import spmv_ranked, spmv_sell
+    from tpu_spmv_torch.kernels.striped import (
+        StripedRanked, default_stripe_cols, spmv_striped,
+    )
     from tpu_spmv_torch.tools.spmv import load_input, prepare
     from tpu_spmv_torch.tune.model import tpu_plan
 
-    builds = {"sell": (spmv_sell, SellSlabs.from_csr),
-              "ranked": (spmv_ranked, RankedSlabs.from_csr),
-              "packed": (spmv_packed, PackedRanked.from_csr)}
-    timed = {"lap2d_1024 always": "lap2d_1024 rcm", "banded_1m auto":
-             "banded_1m"}
-    for name, rcm in (("lap2d_1024", "auto"), ("lap2d_1024", "always"),
-                      ("banded_1m", "auto"), ("general_500k", "auto"),
-                      ("powerlaw_1m", "auto"), ("scattered_16m", "auto")):
-        tag = timed.get(f"{name} {rcm}")
-        mat = (times[tag] if tag else
-               prepare(load_input(f"synthetic:{name}"), rcm)[0].matrix)
+    plans = decided["shipped"]["plans"]
+    for name, rcm, key in (("lap2d_1024", "auto", None),
+                           ("lap2d_1024", "always", "lap2d_1024 rcm"),
+                           ("banded_1m", "auto", "banded_1m"),
+                           ("general_500k", "auto", None),
+                           ("scattered_16m", "auto", "scattered_16m")):
         t0 = time.perf_counter()
-        p = tpu_plan(mat, assume_rcm=rcm == "always")
+        p = plans[key] if key else tpu_plan(
+            prepare(load_input(f"synthetic:{name}"), rcm)[0].matrix)
         print(f"plan on {name} (rcm {rcm}): {p.kernel} W={p.bin_blocks} "
               f"sigma={p.sigma} est_cost {p.est_cost:.0f} ({p.reason}); "
               f"planner {time.perf_counter() - t0:.2f} s", flush=True)
         if (name, rcm) == ("lap2d_1024", "auto") and p.kernel != "dia":
             raise SmokeFailure(f"lap2d_1024 natural order planned {p.kernel}, "
                                "not dia")
-        if tag is None:
-            continue
+
+    dev = torch.device("cuda")
+    builds = {"sell": (spmv_sell, SellSlabs.from_csr),
+              "ranked": (spmv_ranked, RankedSlabs.from_csr),
+              "packed": (spmv_packed, PackedRanked.from_csr)}
+
+    def timed(tag, p):
+        """Warm seconds of the plan p's layout of times[tag]."""
         key = (tag, p.kernel, p.bin_blocks)
         if key not in times:
-            fn, build = builds[p.kernel]
-            lay = build(mat, bin_blocks=p.bin_blocks).to("cuda")
+            mat = times[tag]
             x = torch.from_numpy(np.random.default_rng(X_SEED).standard_normal(
-                mat.n).astype(np.float32)).to("cuda")
+                mat.n).astype(np.float32)).to(dev)
+            if tag == "scattered_16m":
+                fn, lay = spmv_striped, StripedRanked.from_csr(
+                    mat, stripe_cols=default_stripe_cols(dev),
+                    bin_blocks=p.bin_blocks, device=dev)
+            else:
+                fn, build = builds[p.kernel]
+                lay = build(mat, bin_blocks=p.bin_blocks).to(dev)
             times[key] = bench_spmv(fn, lay, x).time_min
             del lay
-        timed_keys = [k for k in times if isinstance(k, tuple) and k[0] == tag]
-        best = min(timed_keys, key=times.get)
-        print(f"    planned {p.kernel} W={p.bin_blocks}: warm "
-              f"{times[key] * 1e6:.2f} us; fastest timed {best[1]} "
-              f"W={best[2]}: {times[best] * 1e6:.2f} us; planned / fastest "
-              f"{times[key] / times[best]:.3f} (timed: " + ", ".join(
-                  f"{k[1]} W={k[2]} {times[k] * 1e6:.2f}"
-                  for k in sorted(timed_keys)) + ")", flush=True)
+        return times[key]
+
+    def line(label, planned, t_planned, options):
+        best = min(options, key=options.get)
+        print(f"{label}: planned {planned} {t_planned * 1e6:.2f} us | "
+              f"fastest timed {best} {options[best] * 1e6:.2f} us | planned "
+              f"/ fastest {t_planned / options[best]:.3f} (timed: " + ", ".join(
+                  f"{k} {v * 1e6:.2f}" for k, v in sorted(options.items()))
+              + ")", flush=True)
+
+    # Every choice of both entries is timed first, so both tables weigh
+    # the same options.
+    for who in ("shipped", "old unit"):
+        _decision_table(decided[who], times, solves, timed,
+                        lambda *args: None)
+    for who in ("shipped", "old unit"):
+        print(f"decisions under the {who} entry, planned against fastest "
+              "timed in this run:", flush=True)
+        _decision_table(decided[who], times, solves, timed, line)
+
+
+def _decision_table(decided, times, solves, timed, line):
+    """The D1-D5 lines of _plans for one entry's decisions."""
+    plans = decided["plans"]
+    for d, tag in (("D1", "lap2d_1024 rcm"), ("D2", "banded_1m"),
+                   ("D3", "scattered_16m")):
+        p = plans[tag]
+        if tag == "scattered_16m":
+            # spmv_striped at W = 32 too: the plan before the card's unit.
+            timed(tag, dataclasses.replace(p, kernel="ranked", bin_blocks=32))
+            if p.kernel != "ranked":
+                print(f"{d} {tag}: planned {p.kernel} W={p.bin_blocks}, not "
+                      "the striped route: not timed", flush=True)
+                continue
+        t = timed(tag, p)
+        options = {f"{k[1]} W={k[2]}": v for k, v in times.items()
+                   if isinstance(k, tuple) and k[0] == tag}
+        line(f"{d} {tag} {'bin width' if d == 'D3' else 'kernel'}",
+             f"{p.kernel} W={p.bin_blocks}", t, options)
+    p, ps = plans["banded_1m"], plans["banded_1m sorted"]
+    sides = {f"unsorted ({p.kernel} W={p.bin_blocks})": timed("banded_1m", p),
+             f"sorted ({ps.kernel} W={ps.bin_blocks})":
+                 timed("banded_1m sorted", ps)}
+    kept = ps.est_cost < p.est_cost
+    line(f"D4 banded_1m sigma={p.sigma} (re-plan est_cost {ps.est_cost:.0f} "
+         f"{'<' if kept else '>='} {p.est_cost:.0f})",
+         "kept" if kept else "rejected", list(sides.values())[kept], sides)
+    for name in ("banded_1m LS", "lap2d_1024 LS"):
+        rec, choice = solves[name], decided[f"D5 {name}"]
+        line(f"D5 {name} solve kernel", choice, rec[choice],
+             {k: rec[k] for k in ("ranked", "blocks")})
 
 
 def _drive(steps):
@@ -2059,11 +2291,10 @@ def _library_blocks():
     return _drive(steps)
 
 
-def _striped_and_baselines(bin_blocks):
-    """Launch counts of the striped CLI route (scattered_16m with
-    --kernel ranked --bin-blocks W, past the gate), then of the baselines
-    (segsum and bcoo on lap2d_1024, dense on an 8,192 x 8,192 matrix
-    at its cap and refused on lap2d_1024) and the flagship bench."""
+def _baselines():
+    """Launch counts of the baselines (segsum and bcoo on lap2d_1024,
+    dense on an 8,192 x 8,192 matrix at its cap and refused on
+    lap2d_1024) and the flagship bench."""
     import os
     import tempfile
 
@@ -2071,10 +2302,6 @@ def _striped_and_baselines(bin_blocks):
     from tpu_spmv_torch.io import write_mtx
     from tpu_spmv_torch.tools import spmv as spmv_cli
 
-    striped_path = _drive((_cli_run(
-        spmv_cli, ["synthetic:scattered_16m", "20", "--kernel", "ranked",
-                   "--bin-blocks", str(bin_blocks)],
-        "column-striped passes"),))
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "general_8192.mtx")
         write_mtx(path, random_general(8192, 10, seed=2))
@@ -2089,29 +2316,27 @@ def _striped_and_baselines(bin_blocks):
                                     "dense"], "dense baseline capped"),
         ))
     flag_path = _drive((_flagship,))
-    return striped_path, baselines, flag_path
+    return baselines, flag_path
 
 
-def _planner_paths(cache, outputs, bin_blocks, calib):
+def _planner_paths(cache, outputs, bin_blocks):
     """Launch counts of the paths this slice added, each driven with the
     counters zeroed: tools.spmv --kernel auto on scattered_16m without
-    --bin-blocks (the plan's W, which must take the striped route),
+    --bin-blocks (the plan's W, which must take the striped route: the
+    run that drives spmv_striped on the main path),
     --sigma -1 on powerlaw_1m and a forced --sigma 4096 on banded_1m,
     the second --layout-cache run on lap2d_4096 after RCM (the first is
     the windowed ranked run of _main_path: this one must load the cache
-    and give its bits), tools.sweep over two matrices x three kernels
-    (its CSV printed), and tools.tune --calibrate --dry-run
-    (then both calibration fits beside the shipped entry)."""
+    and give its bits) and tools.sweep over two matrices x three kernels
+    (its CSV printed). tools.tune --calibrate --dry-run is driven in the
+    calibration phase."""
     import os
 
     import torch
 
-    from tpu_spmv_torch import hw
-    from tpu_spmv_torch.bench.calibration import shipped_entry
     from tpu_spmv_torch.kernels import sell
     from tpu_spmv_torch.tools import spmv as spmv_cli
     from tpu_spmv_torch.tools import sweep as sweep_cli
-    from tpu_spmv_torch.tools import tune as tune_cli
 
     def scattered_auto():
         import re
@@ -2127,7 +2352,7 @@ def _planner_paths(cache, outputs, bin_blocks, calib):
                                "plan's W and the striped route")
         print(f"scattered_16m --kernel auto: the plan's W={w.group(1)}, "
               f"route striped, warm TimeMin {float(t.group(1)) * 1e6:.2f} "
-              f"us (the striped CLI run above: W={bin_blocks} picked by "
+              f"us (the striped phase's W={bin_blocks} was picked by "
               "padding on a row sample)", flush=True)
 
     auto = _drive((scattered_auto,))
@@ -2160,24 +2385,7 @@ def _planner_paths(cache, outputs, bin_blocks, calib):
     if len(rows) != 7 or any(r.split(",")[11] != "0" for r in rows[1:]):
         raise SmokeFailure(f"tools.sweep: expected 6 rows with Number Wrong "
                            f"0, got {rows}")
-    def calibrate():
-        rc, out = _captured("tools.tune.main(['--calibrate', '--dry-run'])",
-                            lambda: tune_cli.main(["--calibrate",
-                                                   "--dry-run"]))
-        fit = json.loads(out.strip().splitlines()[-1])
-        if rc != 0 or list(fit) != [hw.device_kind()]:
-            raise SmokeFailure(f"tools.tune: rc {rc}, last line {fit}")
-        shipped = shipped_entry()
-        print(f"calibration fits on {hw.device_kind()}: scale 1 (the run "
-              f"above) {json.dumps(fit[hw.device_kind()])} | scale "
-              f"{CALIB_SCALE} (the calibration phase) {json.dumps(calib)} | "
-              + (f"shipped {json.dumps(shipped)}" if shipped else
-                 "no shipped entry: the planner runs on the module defaults "
-                 "(the reference's TPU v5e constants)"), flush=True)
-
-    tune = _drive((calibrate,))
-    return dict(auto=auto, sigma=sigma, loaded=loaded, sweep=sweep,
-                tune=tune)
+    return dict(auto=auto, sigma=sigma, loaded=loaded, sweep=sweep)
 
 
 def _cache_argv(cache):
@@ -2186,10 +2394,10 @@ def _cache_argv(cache):
             "always", "--bin-blocks", "0", "--layout-cache", cache]
 
 
-def _main_path(bin_blocks, calib, dist, multiproc):
-    """Launch counts of each kernel over its own path's run. W: the bin
-    width of the striped route's run; calib: the calibration phase's
-    fit; dist: the dist phase's D = 4 layouts (_dist_phases); multiproc:
+def _main_path(bin_blocks, tune, dist, multiproc):
+    """Launch counts of each kernel over its own path's run. bin_blocks:
+    the striped phase's W; tune: the launches of the calibration phase's
+    tools.tune run; dist: the dist phase's D = 4 layouts (_dist_phases); multiproc:
     the multiproc phase's launches (its processes count their own paths
     from 0)."""
     import tempfile
@@ -2248,14 +2456,16 @@ def _main_path(bin_blocks, calib, dist, multiproc):
     ))
     dist_sts_path = _drive(_dist_sts_steps())
     library = _library_blocks()
-    striped_path, baselines, flag_path = _striped_and_baselines(bin_blocks)
+    baselines, flag_path = _baselines()
     with tmp:
-        planner = _planner_paths(cache, outputs, bin_blocks, calib)
+        planner = _planner_paths(cache, outputs, bin_blocks)
+    planner["tune"] = tune
     counts = dict(spmv_path,
                   lower_solve_ranked=sts_path["lower_solve_ranked"],
                   lower_solve_blocks=library["lower_solve_blocks"])
-    counts["spmv_ranked"] += striped_path["spmv_ranked"]
-    counts["spmv_striped"] = striped_path["spmv_striped"]
+    # The striped route: tools.spmv --kernel auto on scattered_16m.
+    counts["spmv_ranked"] += planner["auto"]["spmv_ranked"]
+    counts["spmv_striped"] = planner["auto"]["spmv_striped"]
     dist_kernels = ("spmv_ranked", "spmv_sell", "spmm_ranked",
                     "spmm_ranked_windowed")
     for k in dist_kernels:
@@ -2273,8 +2483,8 @@ def _main_path(bin_blocks, calib, dist, multiproc):
           f"(tools.sts.sharded, tools.solve.ic0_sharded ic0 and ic0-bj, "
           f"D=4 on one card) {dist_sts_path} | multiproc (the processes' "
           f"paths) {multiproc} | "
-          f"library lower_solve(ranked=False) {library} | striped CLI "
-          f"{striped_path} | baseline CLIs {baselines} | flagship "
+          f"library lower_solve(ranked=False) {library} | baseline CLIs "
+          f"{baselines} | flagship "
           f"{flag_path} | " + " | ".join(
               f"{k} {v}" for k, v in planner.items()), flush=True)
     missing = [k for k, v in counts.items() if v < 1]
@@ -2283,8 +2493,6 @@ def _main_path(bin_blocks, calib, dist, multiproc):
                 if dist_sts_path[k] < 1]
     missing += [f"{k} (multiproc)" for k in multiproc_kernels
                 if multiproc.get(k, 0) < 1]
-    missing += [f"{k} (striped CLI)" for k in ("spmv_ranked", "spmv_striped")
-                if striped_path[k] < 1]
     missing += [f"{k} (flagship)" for k in ("spmv_dia", "spmv_packed")
                 if flag_path[k] < 1]
     missing += [f"{k} (auto on scattered_16m)" for k in (
@@ -2402,20 +2610,22 @@ def main(argv=None) -> int:
         print(f"windowed phases: wall {time.perf_counter() - t0:.1f} s",
               flush=True)
         t0 = time.perf_counter()
-        bin_blocks = _striped_phases(stats)
+        bin_blocks = _striped_phases(stats, times)
         print(f"striped phases: wall {time.perf_counter() - t0:.1f} s",
               flush=True)
         t0 = time.perf_counter()
-        calib = _calibration()
+        solves = {}
+        link_us = _solve_phases(stats, solves)
+        print(f"solve phases: wall {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        t0 = time.perf_counter()
+        tune, decided = _calibration(times, solves)
         print(f"calibration: wall {time.perf_counter() - t0:.1f} s",
               flush=True)
         t0 = time.perf_counter()
-        _plans(times)
+        _plans(times, solves, decided)
         print(f"plans: wall {time.perf_counter() - t0:.1f} s", flush=True)
-        t0 = time.perf_counter()
-        link_us = _solve_phases(stats)
-        print(f"solve phases: wall {time.perf_counter() - t0:.1f} s",
-              flush=True)
+        del times, decided
         t0 = time.perf_counter()
         ic0_trace = _ic0_phases()
         print(f"ic0 phases: wall {time.perf_counter() - t0:.1f} s",
@@ -2433,7 +2643,7 @@ def main(argv=None) -> int:
         print(f"multiproc phase: wall {time.perf_counter() - t0:.1f} s",
               flush=True)
         t0 = time.perf_counter()
-        counts = _main_path(bin_blocks, calib, dist, multiproc)
+        counts = _main_path(bin_blocks, tune, dist, multiproc)
         print(f"CLI runs: wall {time.perf_counter() - t0:.1f} s", flush=True)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

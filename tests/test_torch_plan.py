@@ -263,8 +263,7 @@ def test_calibration_for_another_card_does_not_hide_the_shipped(
 
 def test_shipped_table_is_keyed_by_card_name():
     table = json.loads(pathlib.Path(hw.SHIPPED_CALIB).read_text())
-    keys = {"ranked_fixed", "pair_cost", "ranked_iter_cost", "packed_over",
-            "epi_cost"}
+    keys = set(ttune.KEYS)
     for kind, entry in table.items():
         assert kind != "cpu" and "H100" in kind, kind
         assert set(entry) == keys and all(
@@ -273,12 +272,12 @@ def test_shipped_table_is_keyed_by_card_name():
 
 def test_measure_runs_on_the_cpu(monkeypatch, tmp_path, capsys):
     consts = ttune.measure(scale=0.02, device="cpu")
-    assert set(consts) == {"ranked_fixed", "pair_cost", "ranked_iter_cost",
-                           "packed_over", "epi_cost"}
-    assert consts["ranked_fixed"] >= 0.1 and consts["pair_cost"] >= 0.05
-    assert consts["packed_over"] >= 0.1 and consts["epi_cost"] >= 0.0
+    assert tuple(consts) == ttune.KEYS
+    assert all(v >= 0.0 for v in consts.values()), consts
+    assert consts["unit_ns"] > 0 and consts["span_limit"] >= min(ttune.SPANS)
     err = capsys.readouterr().err
-    for key in ("# unit:", "# W=2:", "# packed:", "# epi:"):
+    for key in ("# span ", "# W=8:", "# packed:", "# epi:", "# dia:",
+                "# read rate:", "# chain of "):
         assert key in err
     # The CLI writes the CPU's numbers only to a file it is given.
     monkeypatch.delenv(hw.CALIB_ENV, raising=False)
@@ -301,3 +300,180 @@ def test_calibration_needs_a_card(monkeypatch):
         ttune.main(["--calibrate"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ttune.measure(scale=0.02)
+
+
+# What the planner's constants were before the card's unit: an entry of
+# the first calibration protocol, as a user's cache may still hold it.
+OLD_UNIT = {"ranked_fixed": 25.305, "pair_cost": 2.146,
+            "ranked_iter_cost": 2.146, "packed_over": 5.754, "epi_cost": 0.0}
+H100 = json.loads(pathlib.Path(hw.SHIPPED_CALIB).read_text())[
+    "NVIDIA H100 80GB HBM3"]
+
+
+def test_old_unit_entry_gives_way_to_the_cards_unit(monkeypatch, tmp_path,
+                                                    capsys):
+    """A cache in the old unit (no unit_ns) gives way to a later entry in
+    the card's unit, with a warning naming tools.tune --calibrate; with
+    none it is read in its own unit, every key it lacks at the
+    reference's value, so it plans as the reference does on it."""
+    user, shipped = tmp_path / "user.json", tmp_path / "shipped.json"
+    user.write_text(json.dumps({"cpu": OLD_UNIT}))
+    shipped.write_text(json.dumps({"cpu": H100}))
+    monkeypatch.delenv(hw.CALIB_ENV, raising=False)
+    monkeypatch.setattr(hw, "USER_CALIB", str(user))
+    monkeypatch.setattr(hw, "SHIPPED_CALIB", str(shipped))
+    assert hw.kernel_calibration() == H100
+    assert "tpu_spmv_torch.tools.tune --calibrate" in capsys.readouterr().err
+    shipped.write_text(json.dumps({"another card": H100}))
+    assert hw.kernel_calibration() == OLD_UNIT
+    assert tmodel._cal("span_cost", 1.0) == 1.0
+    monkeypatch.setenv("TPU_SPMV_CALIB", str(tmp_path / "ref.json"))
+    (tmp_path / "ref.json").write_text(json.dumps({"v5e": OLD_UNIT}))
+    ref, port = _pair("wide_random_300k")
+    assert_same_plan(jmodel.tpu_plan(ref, assume_rcm=True),
+                     tmodel.tpu_plan(port, assume_rcm=True))
+    # An entry in the card's unit in the user cache wins.
+    user.write_text(json.dumps({"cpu": dict(H100, unit_ns=1.0)}))
+    assert hw.kernel_calibration()["unit_ns"] == 1.0
+
+
+def test_shipped_entry_holds_every_key_read(monkeypatch):
+    """On the H100 no plan and no solve choice reads a module default:
+    every key the planner and LowerSolveLayout.build read is in the
+    shipped entry, and every key of the entry is read."""
+    from tpu_spmv_torch.sts import host as thost
+    from tpu_spmv_torch.sts.solve import LowerSolveLayout
+
+    read = set()
+    real = tmodel._cal
+
+    def spy(name, default):
+        read.add(name)
+        return real(name, default)
+
+    monkeypatch.setattr(hw, "kernel_calibration", lambda: dict(H100))
+    monkeypatch.setattr(tmodel, "_cal", spy)
+    for name in ("tools_general_50k", "stencil_8x2048", "lap2d_64",
+                 "skewed_20k", "scattered_300k"):
+        port = _pair(name)[1]
+        tmodel.tpu_plan(port, assume_rcm=True)
+        tmodel.tpu_plan(port, exact=False)
+    sys_ = thost.build_sts(_pair("lap2d_64")[1], order_type="LS")
+    lay = LowerSolveLayout.build(sys_, thost.compute_b(sys_.lower),
+                                 device="cpu")
+    assert lay.ranked is not None
+    assert read == set(ttune.KEYS) - {"unit_ns"}, read ^ set(ttune.KEYS)
+    assert read <= set(H100)
+
+
+# One value for each cost key a card's entry adds, and the kinds of
+# candidate whose est_cost it moves.
+_MOVES = {
+    "sell_fixed": (5.0, {"sell"}),
+    "span_cost": (2.5, {"sell"}),
+    "traffic_floor": (1e3, {"sell", "ranked", "packed", "dia"}),
+    "dia_step_cost": (7.0, {"dia"}),
+}
+
+
+@pytest.mark.parametrize("key", sorted(_MOVES))
+def test_new_key_moves_exactly_its_candidates(key, monkeypatch, tmp_path):
+    """A pinned table that sets one key the card's entry adds moves the
+    est_cost of exactly the candidates that key prices, and no other."""
+    value, kinds = _MOVES[key]
+    port = _pair("stencil_8x2048")[1]
+
+    def costs(entry):
+        pin_calibration(monkeypatch, tmp_path, entry)
+        cands = []
+        tmodel.tpu_plan(port, assume_rcm=True, candidates=cands)
+        return [(k, w, c) for c, k, w, _, _ in cands]
+
+    before, after = costs({}), costs({key: value})
+    assert [c[:2] for c in before] == [c[:2] for c in after]
+    assert {c[0] for c in before} >= kinds
+    for (kind, w, c0), (_, _, c1) in zip(before, after):
+        assert (c0 != c1) == (kind in kinds), (key, kind, w, c0, c1)
+
+
+def test_span_limit_offers_and_withholds_sell(monkeypatch, tmp_path):
+    """span_limit decides which sell candidates are offered (the chunk
+    span, and each stripe's span, against it); the others' costs stay."""
+    port = _pair("jittered_8x2048")[1]
+
+    def cands(entry):
+        pin_calibration(monkeypatch, tmp_path, entry)
+        out = []
+        tmodel.tpu_plan(port, assume_rcm=True, candidates=out)
+        return out
+
+    full, none = cands({"span_limit": 1e9}), cands({"span_limit": 0.5})
+    assert any(k == "sell" for _, k, _, _, _ in full)
+    assert not any(k == "sell" for _, k, _, _, _ in none)
+    assert [c for c in full if c[1] != "sell"] == none
+
+
+def test_ranked_iter_cost_steers_the_estimate_only_path(monkeypatch,
+                                                        tmp_path):
+    """ranked_iter_cost weighs the ranked span against the chunk span on
+    the estimate-only path (exact=False), where est_cost is 0; the exact
+    plan does not read it."""
+    port = _pair("wide_random_300k")[1]
+
+    def plan(entry, exact):
+        pin_calibration(monkeypatch, tmp_path, entry)
+        return tmodel.tpu_plan(port, assume_rcm=True, exact=exact)
+
+    assert plan({"ranked_iter_cost": 1e-3}, False).kernel == "ranked"
+    assert plan({"ranked_iter_cost": 1e3}, False).kernel == "sell"
+    assert plan({"ranked_iter_cost": 1e3, "span_limit": 1.0},
+                False).kernel == "segsum"
+    exact = [plan({"ranked_iter_cost": v}, True) for v in (1e-3, 1e3)]
+    assert exact[0] == exact[1]
+
+
+def _synthetic_points(spans, unit_s: float, c: dict) -> dict:
+    """measure_points' points for known constants `c` (in the unit) and
+    a unit of unit_s seconds, the sell sweep at `spans`."""
+    u = unit_s
+    sell = [(s, u * (1.0 + c["span_cost"] * (s - ttune.UNIT_SPAN)), 100 + s)
+            for s in spans]
+    ranked = [(w, w, max((w + 1) // 2, 1),
+               u * (c["ranked_fixed"] + c["pair_cost"] * max((w + 1) // 2, 1)),
+               1000 // w) for w in ttune.RANKED_WIDTHS]
+    ru = 0.4
+    return dict(
+        sell=sell,
+        ranked_span=[(s, c["ranked_iter_cost"]) for s in spans],
+        ranked=ranked,
+        packed=(u * (ru + c["packed_over"]), u * ru),
+        epi=((u * (ru + c["pair_cost"] + c["epi_cost"]), 1, 30),
+             (u * (ru + c["pair_cost"]), 1, 32)),
+        dia=u * c["dia_step_cost"],
+        floor=u * c["traffic_floor"],
+        solve={k: [(r, u * (c[f"solve_{k}_link"] + c[f"solve_{k}_round"] * r))
+                   for r in (1.0, 2.0, 8.0)] for k in ("ranked", "blocks")},
+    )
+
+
+def test_fit_recovers_constants_at_any_span():
+    """tools.tune.fit gives back the constants the points were made with,
+    the same from a sell sweep at other spans and sample sizes: the unit
+    (sell's time per sub-tile at UNIT_SPAN) does not depend on the
+    sample, where the reference's (a sub-tile over its span) did."""
+    c = dict(ranked_fixed=0.45, pair_cost=0.002, ranked_iter_cost=0.8,
+             packed_over=0.03, epi_cost=0.01, span_cost=0.001,
+             traffic_floor=0.3, dia_step_cost=0.25, solve_ranked_link=230.0,
+             solve_ranked_round=95.0, solve_blocks_link=228.0,
+             solve_blocks_round=110.0)
+    fits = [ttune.fit(_synthetic_points(spans, 4.4e-9, c))
+            for spans in ((8, 32, 128, 256), (16, 48, 200, 400))]
+    for f, spans in zip(fits, ((8, 32, 128, 256), (16, 48, 200, 400))):
+        assert tuple(f) == ttune.KEYS
+        assert f["unit_ns"] == pytest.approx(4.4, rel=1e-3)
+        for k, v in c.items():
+            assert f[k] == pytest.approx(v, rel=2e-3, abs=1e-6), k
+        assert f["sell_fixed"] == pytest.approx(1.0 - 0.3, rel=2e-3)
+        assert f["span_limit"] == max(spans)
+    assert {k: v for k, v in fits[0].items() if k != "span_limit"} == \
+        {k: v for k, v in fits[1].items() if k != "span_limit"}

@@ -334,3 +334,92 @@ def test_sts_cli_refusals(monkeypatch):
         sts.main(["synthetic:banded_1k", "--validate-only"])
     with pytest.raises(SystemExit, match="no CUDA device"):
         sts.main(["synthetic:banded_1k", "--devices", "2"])
+
+
+def _solve_table(ranked_round: float, blocks_round: float) -> dict:
+    """A card's solve constants: a link of 1 and the given cost a round."""
+    return {"unit_ns": 1.0, "solve_ranked_link": 1.0,
+            "solve_ranked_round": ranked_round, "solve_blocks_link": 1.0,
+            "solve_blocks_round": blocks_round}
+
+
+@pytest.mark.parametrize("case", sorted(_SOLVES))
+def test_calibrated_blocks_choice_matches_pallas(case, monkeypatch, tmp_path):
+    """Under a table where the blocks solve costs less, the layout keeps
+    the reference's arrays (the ranked layout too), reports blocks, and
+    lower_solve runs the blocks solve, within RelL2 1e-5 of the
+    reference's Pallas solve (interpret mode) on its own layout."""
+    from test_torch_plan import pin_calibration
+
+    pin_calibration(monkeypatch, tmp_path, _solve_table(10.0, 0.1))
+    name, kw = _SOLVES[case]
+    sys_ = thost.build_sts(MATS[name](), **kw)
+    b = thost.compute_b(sys_.lower)
+    port = tsolve.LowerSolveLayout.build(sys_, b, device="cpu")
+    ref = jsolve.LowerSolveLayout.build(sys_, b)
+    _assert_same_solve_layout(ref, port)
+    assert port.ranked is not None and port.kernel == "blocks"
+
+    def refused(*args, **kw):
+        raise AssertionError("the ranked solve ran")
+
+    monkeypatch.setattr(tsolve, "lower_solve_ranked", refused)
+    x = tsolve.lower_solve(port).numpy()
+    x_jax = np.asarray(jsolve.lower_solve(ref, interpret=True))
+    assert _rel(x, x_jax) <= 1e-5
+    assert _rel(x, tsolve.lower_solve_reference(sys_, b)) <= 1e-5
+
+
+def test_calibrated_choice_follows_the_costs(monkeypatch, tmp_path):
+    """The cheaper chain wins: ranked under a table that favours it,
+    blocks under one that favours blocks, the reference's ranked with no
+    solve constants (or an entry that lacks one of them)."""
+    from test_torch_plan import pin_calibration
+
+    sys_ = thost.build_sts(_binned(), order_type="LS")
+    b = thost.compute_b(sys_.lower)
+    for entry, kernel in ((_solve_table(0.1, 10.0), "ranked"),
+                          (_solve_table(10.0, 0.1), "blocks"),
+                          ({}, "ranked"),
+                          ({"solve_blocks_link": 0.0}, "ranked")):
+        pin_calibration(monkeypatch, tmp_path, entry)
+        lay = tsolve.LowerSolveLayout.build(sys_, b, device="cpu")
+        assert lay.kernel == kernel, entry
+        assert tsolve.lower_solve_layout_from_jax(
+            jsolve.LowerSolveLayout.build(sys_, b), device="cpu"
+        ).kernel == "ranked"
+
+
+def test_solve_cost_walks_the_longest_chain():
+    """solve_cost on a chain of chunks (tools/tune.chain_system): each
+    chunk waits on the one before, so the cost is every chunk's link
+    plus its rounds of SOLVE_GROUP sub-tiles; on two independent packs
+    it is the longer one's."""
+    from tpu_spmv_torch.tools.tune import chain_system
+
+    sys_ = chain_system(6, 4)
+    lay = tsolve.LowerSolveLayout.build(sys_, np.ones(sys_.lower.m),
+                                        device="cpu")
+    sub = np.diff(lay.slabs.chunk_ptr.numpy())
+    assert sub.tolist() == [1] + [4] * 5  # the first chunk: padding only
+    assert tsolve.solve_cost(lay.slabs, 1.0, 0.0) == 6.0
+    assert tsolve.solve_cost(lay.slabs, 0.0, 1.0) == 1 + 5 * 2
+    assert tsolve.solve_cost(lay.slabs, 2.0, 0.5) == 12.0 + 5.5
+    x = tsolve.lower_solve(lay).numpy()
+    assert _rel(x, tsolve.lower_solve_reference(sys_, np.ones(sys_.lower.m))
+                ) <= 1e-5
+    flat = thost.build_sts(MATS["lap2d"](), order_type="COLOR")
+    lay = tsolve.LowerSolveLayout.build(flat, thost.compute_b(flat.lower),
+                                        device="cpu")
+    assert tsolve.solve_cost(lay.slabs, 1.0, 0.0) == 2.0
+
+
+def test_solve_group_is_the_kernels():
+    """SOLVE_GROUP, the rounds solve_cost counts, is csrc/sts.cu's kGroup."""
+    import pathlib
+    import re
+
+    src = (pathlib.Path(tsolve.__file__).parent.parent / "kernels" / "csrc"
+           / "sts.cu").read_text()
+    assert int(re.search(r"constexpr int kGroup = (\d+);", src).group(1)) \
+        == tsolve.SOLVE_GROUP

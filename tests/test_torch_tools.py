@@ -322,3 +322,21 @@ def test_sts_cli_distributed(capsys):
                 if not ln.startswith("Total Error")]
 
     assert lines(out) == lines(ref)
+
+
+def test_tune_cli_prints_every_key(capsys):
+    """tools.tune --calibrate --device cpu --scale 0.02 --dry-run prints
+    one JSON line, keyed "cpu", with every key of a card's entry."""
+    import json
+
+    from tpu_spmv_torch.tools import tune
+
+    assert tune.main(["--calibrate", "--device", "cpu", "--scale", "0.02",
+                      "--dry-run"]) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert list(line) == ["cpu"] and tuple(line["cpu"]) == tune.KEYS
+    for key in ("sell_fixed", "span_cost", "traffic_floor", "span_limit",
+                "dia_step_cost", "ranked_iter_cost", "solve_ranked_link",
+                "solve_ranked_round", "solve_blocks_link",
+                "solve_blocks_round", "unit_ns"):
+        assert isinstance(line["cpu"][key], float), key

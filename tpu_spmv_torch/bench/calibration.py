@@ -1,12 +1,13 @@
 """The planner's calibration on the card at several sample scales, and
 how each fit ranks the kernels it chooses between.
 
-    python -m tpu_spmv_torch.bench.calibration [--scales 1 16]
+    python -m tpu_spmv_torch.bench.calibration [--scales 8 16]
         [--matrices lap2d_1024:always banded_1m:auto] [--device cuda|cpu]
 
 For each scale it runs the protocol of tools.tune (measure_points: the
-unit, the binned ranked points, packed against ranked, ragged against
-uniform) and prints the points and the fit, beside the shipped entry
+sell sweep over spans, the binned ranked points, packed against ranked,
+ragged against uniform, DIA, the read rate and the solve chains) and
+prints the points and the fit, beside the shipped entry
 for this card (data/calib.json) and the module defaults. Then, on each
 matrix (NAME:RCM, RCM as tools.spmv's --rcm), it times spmv_sell,
 spmv_ranked and spmv_packed on the layouts the planner weighs (aligned
@@ -15,7 +16,7 @@ the planner's cost of those three candidates, whether their order by
 cost is their order by time, and the plan (tune/model.tpu_plan). Last, a
 JSON line: the fits by scale. A scale at which the samples take only a
 few microseconds measures launch overhead more than the kernels: the
-first line of each scale gives the sample times.
+lines of each scale give the sample times.
 
 `--device cpu` runs the plain versions timed on the host clock (a check
 of the script, not a card's numbers); pass small matrices and scales.
@@ -24,6 +25,7 @@ of the script, not a card's numbers); pass small matrices and scales.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -47,27 +49,35 @@ def calibrate(scales, device) -> dict:
     return out
 
 
-def _plan_under(entry: dict, mat, assume_rcm: bool):
-    """(plan, {kernel: cost} of the aligned sell/ranked/packed
-    candidates) with `entry` as the current card's constants."""
+@contextlib.contextmanager
+def pinned(entry: dict):
+    """Within the block, `entry` is the current card's calibration (a
+    table of its own named by $TPU_SPMV_TORCH_CALIB)."""
     from tpu_spmv_torch import hw
-    from tpu_spmv_torch.tune.model import tpu_plan
 
-    kind = hw.device_kind()
     old = os.environ.get(hw.CALIB_ENV)
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "calib.json")
         with open(path, "w") as f:
-            json.dump({kind: entry}, f)
+            json.dump({hw.device_kind(): entry}, f)
         os.environ[hw.CALIB_ENV] = path
         try:
-            cands = []
-            plan = tpu_plan(mat, assume_rcm=assume_rcm, candidates=cands)
+            yield
         finally:
             if old is None:
                 del os.environ[hw.CALIB_ENV]
             else:
                 os.environ[hw.CALIB_ENV] = old
+
+
+def _plan_under(entry: dict, mat, assume_rcm: bool):
+    """(plan, {kernel: cost} of the aligned sell/ranked/packed
+    candidates) with `entry` as the current card's constants."""
+    from tpu_spmv_torch.tune.model import tpu_plan
+
+    cands = []
+    with pinned(entry):
+        plan = tpu_plan(mat, assume_rcm=assume_rcm, candidates=cands)
     costs = {k: c for c, k, w, _, _ in cands
              if w == 0 and k in ("sell", "ranked", "packed")}
     return plan, costs
@@ -131,7 +141,7 @@ def shipped_entry() -> dict:
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--scales", type=float, nargs="+", default=[1.0, 16.0])
+    ap.add_argument("--scales", type=float, nargs="+", default=[8.0, 16.0])
     ap.add_argument("--matrices", nargs="+",
                     default=["lap2d_1024:always", "banded_1m:auto"])
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))

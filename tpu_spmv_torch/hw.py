@@ -18,6 +18,7 @@ import importlib.util
 import json
 import os
 import subprocess
+import sys
 
 import torch
 
@@ -150,14 +151,27 @@ def calib_paths() -> list:
     return [os.path.expanduser(USER_CALIB), SHIPPED_CALIB]
 
 
+# The key that marks an entry in the card's unit (one spmv_sell sub-tile
+# at a chunk span of 8 blocks, tools/tune.py), its length in ns. An entry
+# without it was written in the reference's unit, one plain gather
+# iteration (the protocol before the card's unit).
+CALIB_UNIT_KEY = "unit_ns"
+_warned_old_unit = set()
+
+
 def kernel_calibration() -> dict:
     """The planner's measured cost constants (tune/model.py) for the
     current device kind: the first non-empty entry under device_kind()
     in calib_paths() (tpu_spmv.hw.kernel_calibration). A file without an
     entry for this kind does not hide a later one, so a user cache
-    written on another card leaves the shipped entry in force. {} means
+    written on another card leaves the shipped entry in force. An entry
+    in the old unit (no CALIB_UNIT_KEY) gives way to a later entry in
+    the card's unit, and is read in its own unit (the reference's model,
+    every key it lacks at the reference's value) only when there is
+    none; either way a warning names tools.tune --calibrate. {} means
     the module defaults apply."""
     kind = device_kind()
+    old = None
     for path in calib_paths():
         try:
             with open(path) as f:
@@ -165,9 +179,19 @@ def kernel_calibration() -> dict:
         except (OSError, ValueError):
             continue
         entry = table.get(kind, {}) if isinstance(table, dict) else {}
-        if isinstance(entry, dict) and entry:
+        if not (isinstance(entry, dict) and entry):
+            continue
+        if CALIB_UNIT_KEY in entry:
             return entry
-    return {}
+        if (path, kind) not in _warned_old_unit:
+            _warned_old_unit.add((path, kind))
+            print(f"# {path}: the calibration of {kind!r} is in the old "
+                  "unit (one plain gather iteration); rerun `python -m "
+                  "tpu_spmv_torch.tools.tune --calibrate` to measure it "
+                  "in the card's unit", file=sys.stderr)
+        if old is None:
+            old = entry
+    return old or {}
 
 
 def nvidia_smi() -> str:

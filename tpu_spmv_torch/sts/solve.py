@@ -13,6 +13,15 @@ The host layout is the reference's, array for array:
     (tune/model._ranked_subtile_cost, on the card's calibration) and the
     cheapest is kept; when none builds, the plain SellSlabs solve runs.
 
+Which of the two kernels `lower_solve` runs is the port's own choice
+(`LowerSolveLayout.kernel`, solve_choice): without the card's solve
+constants (the solve_* keys of hw.kernel_calibration) the reference's,
+ranked whenever it is built; with them, blocks where its chain costs
+SOLVE_MARGIN less than the ranked one's (solve_cost). A kernel solves a
+chunk in rounds of SOLVE_GROUP sub-tiles, each one gather round trip
+after the chunk's waits, so a chunk costs a link plus its rounds, and
+the solve costs its longest chain of chunks through the wait table.
+
 The device solve differs: the TPU kernels rely on a grid that runs in
 order on one core, while the port's kernels (kernels/sts.py,
 csrc/sts.cu) order the chunks themselves with a ticket and per-chunk
@@ -50,6 +59,15 @@ from tpu_spmv_torch.tune.model import _ranked_subtile_cost
 # Rank-windowed solve: the reference's static gather-iteration cap.
 RANKED_SOLVE_MAX_NB = 8
 
+# Sub-tiles a solve kernel reads in one gather round (kGroup, csrc/sts.cu).
+SOLVE_GROUP = 2
+# The blocks solve replaces a built ranked one only when its chain costs
+# this much less. On chunks of one sub-tile solve_cost misses by more
+# than 5%: on lap2d_1024 LS it prices the ranked chain 4-6% above the
+# blocks one, where an H100 times the ranked solve 1% faster (1,089.60
+# against 1,099.52 us).
+SOLVE_MARGIN = 0.10
+
 # The column-bin widths weighed when the rank windows are too wide
 # (tpu_spmv/sts/solve.py:158-169), each by tune.model's sub-tile cost,
 # which reads the current card's calibration (hw.kernel_calibration): the
@@ -60,6 +78,50 @@ _BIN_WIDTHS = (2, 4, 8)
 
 def _round_up_arr(a: np.ndarray, mult: int) -> np.ndarray:
     return -(-a // mult) * mult
+
+
+def solve_constants() -> dict | None:
+    """{kernel: (link, round)} of both solve kernels from the card's
+    calibration (solve_<kernel>_link and solve_<kernel>_round, in its
+    unit), or None when the entry lacks any of them."""
+    from tpu_spmv_torch.tune.model import _cal
+
+    out = {}
+    for kernel in ("ranked", "blocks"):
+        pair = tuple(_cal(f"solve_{kernel}_{part}", -1.0)
+                     for part in ("link", "round"))
+        if min(pair) < 0:
+            return None
+        out[kernel] = pair
+    return out
+
+
+def solve_cost(slabs, link: float, per_round: float) -> float:
+    """The longest chain of chunks through the slabs' wait table, each
+    chunk costing link + per_round * its rounds (ceil(sub-tiles /
+    SOLVE_GROUP)): what one solve kernel takes on this layout."""
+    cp = np.asarray(slabs.chunk_ptr.cpu().numpy(), np.int64)
+    weight = (link + per_round * -(-np.diff(cp) // SOLVE_GROUP)).tolist()
+    ptr = slabs.wait_ptr.cpu().numpy().tolist()
+    waits = slabs.wait_chunk.cpu().numpy().tolist()
+    done = [0.0] * len(weight)
+    for c, w in enumerate(weight):
+        a, b = ptr[c], ptr[c + 1]
+        done[c] = w + (max([done[j] for j in waits[a:b]]) if b > a else 0.0)
+    return max(done, default=0.0)
+
+
+def solve_choice(slabs, ranked) -> str:
+    """The kernel lower_solve runs on these slabs and ranked layout (both
+    with their wait tables; ranked None: not built) under the current
+    calibration (module doc)."""
+    if ranked is None:
+        return "blocks"
+    consts = solve_constants()
+    if consts is not None and solve_cost(slabs, *consts["blocks"]) < (
+            1.0 - SOLVE_MARGIN) * solve_cost(ranked, *consts["ranked"]):
+        return "blocks"
+    return "ranked"
 
 
 def _with_waits(slabs):
@@ -89,6 +151,9 @@ class LowerSolveLayout(TensorLayout):
     slab_steps: np.ndarray
     ranked: RankedSlabs | None = None  # when the rank windows are narrow
     ranked_steps: np.ndarray | None = None
+    # "blocks" when the calibration finds the blocks solve cheaper than a
+    # ranked layout that was built.
+    solve: str = "ranked"
 
     @property
     def num_packs(self) -> int:
@@ -97,7 +162,7 @@ class LowerSolveLayout(TensorLayout):
     @property
     def kernel(self) -> str:
         """The solve `lower_solve` runs: "ranked" or "blocks"."""
-        return "blocks" if self.ranked is None else "ranked"
+        return "blocks" if self.ranked is None else self.solve
 
     @classmethod
     def build(
@@ -172,6 +237,8 @@ class LowerSolveLayout(TensorLayout):
             if best is not None:
                 ranked = best[1]
 
+        slabs, ranked = _with_waits(slabs), _with_waits(ranked)
+
         num_chunks = slabs.num_chunks
         bpad = np.zeros((num_chunks + 1) * LANES, dtype=np.float32)
         dpad = np.zeros((num_chunks + 1) * LANES, dtype=np.float32)
@@ -179,15 +246,16 @@ class LowerSolveLayout(TensorLayout):
         dpad[pad_index] = inv_diag
         pack_chunk_ptr = pad_start // LANES
         return cls(
-            slabs=_with_waits(slabs),
+            slabs=slabs,
             b_scale=to_tensor(bpad.reshape(num_chunks + 1, LANES)),
             inv_diag=to_tensor(dpad.reshape(num_chunks + 1, LANES)),
             pad_index=to_tensor(pad_index.astype(np.int32)),
             m=m,
             slab_steps=solve_steps(slabs.chunk_ptr, pack_chunk_ptr),
-            ranked=_with_waits(ranked),
+            ranked=ranked,
             ranked_steps=(None if ranked is None
                           else solve_steps(ranked.chunk_ptr, pack_chunk_ptr)),
+            solve=solve_choice(slabs, ranked),
         ).to(device)
 
 
@@ -201,7 +269,7 @@ def lower_solve(layout: LowerSolveLayout,
     the kernel on the card)."""
     if b_scale is None:
         b_scale = layout.b_scale
-    if layout.ranked is not None:
+    if layout.kernel == "ranked":
         fn = lower_solve_ranked_reference if plain else lower_solve_ranked
         x_pad = fn(layout.ranked, b_scale, layout.ranked_steps)
     else:
@@ -257,7 +325,7 @@ def lower_solve_layout_from_jax(jax_layout, sys: TriangularSystem | None = None,
 
 
 __all__ = [
-    "LowerSolveLayout", "RANKED_SOLVE_MAX_NB", "lower_solve",
+    "LowerSolveLayout", "RANKED_SOLVE_MAX_NB", "SOLVE_GROUP", "lower_solve",
     "lower_solve_blocks", "lower_solve_layout_from_jax",
-    "lower_solve_reference",
+    "lower_solve_reference", "solve_choice", "solve_constants", "solve_cost",
 ]

@@ -13,14 +13,36 @@ Two families, as in the reference:
     SELL-C-sigma recommendation and the estimate-only path that may send
     a matrix to the segsum baseline.
 
-The cost of a sub-tile is ranked_fixed + pair_cost * pairs (pairs =
-ceil(rank_nb / 2)), with a packed surcharge packed_over and a charge
-epi_cost for a ragged quantized layout. Those four come from
-hw.kernel_calibration(), the table that tools.tune --calibrate measures
-on the card; the module defaults below are the reference's, measured on
-a TPU v5e, and apply where the table has no entry (no card, or a card
-never calibrated). _DIA_STEP_COST, _SPAN_LIMIT, _TRAFFIC_FLOOR and the
-width tuples are the reference's and are not calibrated.
+Every cost constant is read through _cal from hw.kernel_calibration(),
+the entry that tools.tune --calibrate measures on the card; each
+lookup's default is the reference's module value, measured on a TPU
+v5e, and applies only where the entry lacks the key (no card, or a card
+never calibrated). A card's entry is in its own unit, one spmv_sell
+sub-tile at a chunk span of 8 blocks (unit_ns gives its length), and
+holds every constant below:
+
+  ranked_fixed, pair_cost  a ranked sub-tile: ranked_fixed + pair_cost
+                           * pairs (pairs = ceil(rank_nb / 2));
+  sell_fixed, span_cost    a sell sub-tile: sell_fixed + span_cost *
+                           chunk span (the reference: ranked_fixed + 1
+                           a block);
+  traffic_floor            the least a ranked sub-tile, a sell
+                           sub-tile's span part or a DIA unit costs:
+                           streaming a sub-tile's slabs;
+  packed_over, epi_cost    the packed surcharge and the charge of a
+                           ragged quantized layout;
+  dia_step_cost            one diagonal over 1024 rows;
+  span_limit               the widest chunk span sell is offered at;
+  ranked_iter_cost         a ranked sub-tile's time over a sell one's,
+                           which weighs the rank span against the chunk
+                           span on the estimate-only path;
+  solve_*                  the two triangular solves (sts/solve.py).
+
+An entry without unit_ns predates that unit: its constants are in the
+reference's unit, one plain gather iteration, and it is read so, every
+key it lacks at the reference's value (hw.kernel_calibration warns).
+The width tuples and sigma's window and threshold are candidate sets,
+not costs, and stay the reference's.
 
 The one deliberate difference is the residency gate of the packed
 candidates (_packed_x_fits): the port's packed kernels keep x in the
@@ -259,8 +281,16 @@ def _ranked_subtile_cost(rank_nb: int) -> float:
     return max(
         _cal("ranked_fixed", _RANKED_FIXED)
         + _cal("pair_cost", _PAIR_COST) * pairs,
-        _TRAFFIC_FLOOR,
+        _cal("traffic_floor", _TRAFFIC_FLOOR),
     )
+
+
+def _sell_subtile_cost(span: float) -> float:
+    """A plain (sell) sub-tile over a chunk span of `span` blocks: the
+    reference's ranked_fixed + max(span, floor) at the defaults."""
+    return (_cal("sell_fixed", _cal("ranked_fixed", _RANKED_FIXED))
+            + max(_cal("span_cost", 1.0) * span,
+                  _cal("traffic_floor", _TRAFFIC_FLOOR)))
 
 
 def _epi_cost(kc) -> float:
@@ -305,6 +335,7 @@ def tpu_plan(mat, assume_rcm: bool = False, exact: bool = True,
     est_rank = est_nb
     if candidates is None:
         candidates = []  # (cost, kernel, bin_blocks, reason, pad_ratio)
+    span_limit = _cal("span_limit", _SPAN_LIMIT)
 
     sampled = None
     if exact and mat.nnz and int(mat.row_lengths.max()) <= 2048:
@@ -322,11 +353,9 @@ def tpu_plan(mat, assume_rcm: bool = False, exact: bool = True,
         lpad[: sampled.m] = lens
         kc_ord = lpad.reshape(nch, LANES).max(axis=1)
         s_ord = _subtiles_from_kc(kc_ord) * scale
-        if est_nb <= _SPAN_LIMIT:
+        if est_nb <= span_limit:
             candidates.append((
-                s_ord * (_cal("ranked_fixed", _RANKED_FIXED)
-                         + max(est_nb, _TRAFFIC_FLOOR)
-                         + _epi_cost(kc_ord)),
+                s_ord * (_sell_subtile_cost(est_nb) + _epi_cost(kc_ord)),
                 "sell", 0,
                 f"plain gather loop over chunk span {est_nb:.0f} blocks",
                 s_ord * SUBLANES * LANES / max(mat.nnz, 1),
@@ -398,12 +427,11 @@ def tpu_plan(mat, assume_rcm: bool = False, exact: bool = True,
                     sampled, bin_blocks=w, slots=binned.get(w))
             except ValueError:
                 continue
-            if span > _SPAN_LIMIT:
+            if span > span_limit:
                 continue
             s_str = n_sub * scale
             candidates.append((
-                s_str * (_cal("ranked_fixed", _RANKED_FIXED)
-                         + max(float(span), _TRAFFIC_FLOOR)),
+                s_str * _sell_subtile_cost(float(span)),
                 "sell", w,
                 f"column-striped plain kernel, W={w} blocks "
                 f"(span {span}, padding "
@@ -423,7 +451,8 @@ def tpu_plan(mat, assume_rcm: bool = False, exact: bool = True,
             if d_x <= DIA_MAX_DIAGS and fill_x <= DIA_MAX_FILL:
                 units = max(-(-m // (SUBLANES * LANES)), 1)
                 candidates.append((
-                    units * max(d_x * _DIA_STEP_COST, _TRAFFIC_FLOOR),
+                    units * max(d_x * _cal("dia_step_cost", _DIA_STEP_COST),
+                                _cal("traffic_floor", _TRAFFIC_FLOOR)),
                     "dia", 0,
                     f"{d_x} constant diagonals, fill {fill_x:.2f}x — "
                     "index-free DIA kernel",
@@ -454,9 +483,9 @@ def tpu_plan(mat, assume_rcm: bool = False, exact: bool = True,
         # Estimate-only path (exact=False, or no candidate): span
         # thresholds.
         ric = _cal("ranked_iter_cost", _RANKED_ITER_COST)
-        if est_nb > _SPAN_LIMIT and est_rank * ric > _SPAN_LIMIT:
+        if est_nb > span_limit and est_rank * ric > span_limit:
             kernel, bin_blocks, reason = "segsum", 0, (
-                f"chunk span ~{est_nb:.0f} blocks exceeds {_SPAN_LIMIT}; "
+                f"chunk span ~{est_nb:.0f} blocks exceeds {span_limit:g}; "
                 "the segment-sum baseline"
             )
         elif est_nb > ric * est_rank and est_rank <= 250:
