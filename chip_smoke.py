@@ -50,11 +50,12 @@ residency gate):
      at B = 8 on both); scattered_16m goes through spmv_striped, the
      column-striped passes of spmv_ranked's walk (the bin width W picked
      on a row sample as bench/scattered_16m.py picks it), at
-     default_stripe_cols and at half of it, each phase held to its plain
-     version, the oracle and two graph replays, with a line on the
-     stripes (padding, split chunks, launches per call), the bound of
-     this design (y moved 2P - 1 times) and the host set-up seconds; its
-     rows count as spmv_ranked's;
+     default_stripe_cols with f32 and with bf16 stripes, each phase held
+     to its plain version, the oracle (the bf16-rounded one for bf16)
+     and two graph replays, with a line on the stripes (padding, split
+     chunks, launches per call), the bound of this design (y moved 2P - 1
+     times) and the host set-up seconds, then both timed in turns (f32,
+     bf16, bf16, f32); its rows count as spmv_ranked's;
   2. runs the planner's calibration (tools.tune's protocol, through
      bench/calibration.py) on the card at CALIB_SCALE, printing its
      points and fit, then tools.tune --calibrate --dry-run itself at its
@@ -65,15 +66,18 @@ residency gate):
      unit (OLD_UNIT_ENTRY) too: the kernel on
      lap2d_1024 after RCM (D1) and banded_1m (D2), the bin width on
      scattered_16m (D3), banded_1m's sigma = 4096 sort kept or rejected
-     (D4) and the solve kernel on banded_1m LS and lap2d_1024 LS (D5);
-     then prints tune/model.tpu_plan's plan (kernel, W, sigma, cost,
+     (D4), the solve kernel on banded_1m LS and lap2d_1024 LS (D5) and
+     the value dtype tools.spmv --val-dtype bf16 stores on
+     scattered_16m's stripes (D6, kernels/striped.bf16_pays); then
+     prints tune/model.tpu_plan's plan (kernel, W, sigma, cost,
      reason) for lap2d_1024 in natural order (which must plan dia) and
-     after RCM, banded_1m, general_500k and scattered_16m, and D1-D5
+     after RCM, banded_1m, general_500k and scattered_16m, and D1-D6
      under the shipped and the old-unit entry, each as the planned choice, the
      fastest choice timed in this run, both warm times and planned /
      fastest (the kernel and striped phases' times, spmv_striped at W =
      32 too, the sorted banded_1m layout of its re-plan, step 3's solve
-     times); this step runs after step 3;
+     times, the striped phase's f32 and bf16 times in turns); this step
+     runs after step 3;
   3. checks both triangular-solve kernels (lower_solve_ranked and
      lower_solve_blocks) against their plain versions (RelL2 <= 1e-5)
      and a float64 forward substitution (RelL2 <= 1e-5, Number Wrong 0
@@ -149,7 +153,9 @@ residency gate):
      (bench.flagship, whose JSON line must parse with value > 0); then
      the paths of the planner and the host tools: tools.spmv --kernel
      auto on scattered_16m without --bin-blocks (the plan's W must take
-     the striped route, which must print "column-striped passes"),
+     the striped route, which must print "column-striped passes"), and
+     again with --val-dtype bf16 (under the shipped entry it must store
+     bf16 stripes and validate them against the bf16-rounded operator),
      --sigma -1 on powerlaw_1m and --sigma 4096 on
      banded_1m, --layout-cache on lap2d_4096 after RCM twice (the
      windowed ranked run above writes the cache; the second run must
@@ -788,16 +794,21 @@ def _windowed_phases(stats):
 def _striped_phases(stats, times):
     """scattered_16m (131,072 x 16,777,216, 160 a row, 21.0M nnz; x 64 MB,
     past half the L2) through spmv_striped, the column-striped passes of
-    spmv_ranked's walk, at default_stripe_cols and at half of it: kernel
-    against plain, the oracle, warm and cold times, the library call
-    and two graph replays. W is picked on a row sample as
-    bench/scattered_16m.py picks it. Prints each layout's stripes, bins,
-    padding, split chunks and launches per call, the bound of this design
-    (layout and x once, y 2P - 1 times) and the host set-up seconds.
-    The rows count as spmv_ranked's; the warm time at default_stripe_cols
-    goes to times under ("scattered_16m", "ranked", W). Returns W."""
+    spmv_ranked's walk, at default_stripe_cols with f32 and with bf16
+    stripes: kernel against plain, the oracle (bf16: the bf16-rounded
+    operator), warm and cold times, the library call (cuSPARSE on the
+    operator the stripes store) and two graph replays. W is picked on a
+    row sample as bench/scattered_16m.py picks it. Prints each layout's
+    stripes, bins, padding, split chunks and launches per call, the bound
+    of this design (layout and x once, y 2P - 1 times) and the host
+    set-up seconds; then times both layouts in turns (f32, bf16, bf16,
+    f32). The rows count as spmv_ranked's; the f32 layout's warm time
+    goes to times under ("scattered_16m", "ranked", W), the least of each
+    dtype's turns under "scattered_16m dtype" (D6). Returns W."""
+    import numpy as np
     import torch
 
+    from tpu_spmv_torch.bench.harness import bench_spmv
     from tpu_spmv_torch.kernels.sell import partial_rows
 
     from tpu_spmv_torch.bench.scattered_16m import pick_bin_blocks
@@ -819,27 +830,30 @@ def _striped_phases(stats, times):
     w, sample_pad = pick_bin_blocks(mat)
     setup["W choice"] = time.perf_counter() - t0
     sc = default_stripe_cols(dev)
-    for cols in (sc, sc // 2):
+    layouts = {}
+    for name, vdt in (("f32", None), ("bf16", torch.bfloat16)):
         t0 = time.perf_counter()
-        lay = StripedRanked.from_csr(mat, stripe_cols=cols, bin_blocks=w,
-                                     device=dev)
+        oracle = mat if vdt is None else mat.rounded()
+        lay = StripedRanked.from_csr(mat, stripe_cols=sc, bin_blocks=w,
+                                     val_dtype=vdt, device=dev)
         torch.cuda.synchronize()
-        setup[f"build at {cols} columns"] = time.perf_counter() - t0
+        setup[f"{name} build"] = time.perf_counter() - t0
         P = lay.num_stripes
         splits = [s.split_seg.shape[1] for s in lay.stripes]
         part_bytes = sum(partial_rows(s) for s in lay.stripes) * 128 * 4
-        label = f"scattered_16m striped W={w} P={P}"
-        print(f"    [{label}] stripes of {cols} columns (default "
-              f"{sc}), x {4 * mat.n / 2**20:.1f} MB; W={w} (sample padding "
+        label = f"scattered_16m striped W={w} P={P} {name}"
+        print(f"    [{label}] stripes of {sc} columns, x "
+              f"{4 * mat.n / 2**20:.1f} MB; W={w} (sample padding "
               f"{sample_pad:.2f}x), padding {lay.padding_ratio:.2f}x, rank_nb "
-              f"{lay.rank_nb}, lcols {[str(s.lcols.dtype)[6:] for s in lay.stripes]}, "
+              f"{lay.rank_nb}, values {str(lay.val_dtype)[6:]}, lcols "
+              f"{[str(s.lcols.dtype)[6:] for s in lay.stripes]}, "
               f"split chunks by stripe {splits} (partial rows "
               f"{part_bytes / 2**20:.1f} MB in all); device launches per "
               f"call {P + sum(k > 0 for k in splits)} (spmv_ranked calls "
               f"{P})", flush=True)
         t = _check_kernel(label, spmv_striped, spmv_striped_reference, lay,
-                          mat, slice(None), mat, stats, csr=mat)
-        if cols == sc:
+                          mat, slice(None), oracle, stats, csr=oracle)
+        if vdt is None:
             times["scattered_16m", "ranked", w] = t
         row = stats["spmv_striped"][-1]
         design_ms, _ = _bound(lay.nbytes + 4 * mat.n + 4 * mat.m * (2 * P - 1),
@@ -854,7 +868,22 @@ def _striped_phases(stats, times):
               f"{row['ms'] / row['library_ms']:.2f}x the library call",
               flush=True)
         _spmv_replay_check(label, spmv_striped, lay, mat, slice(None))
-        del lay
+        layouts[name] = lay
+        del oracle
+    x = torch.from_numpy(np.random.default_rng(X_SEED).standard_normal(
+        mat.n).astype(np.float32)).to(dev)
+    turns = {"f32": [], "bf16": []}
+    for name in ("f32", "bf16", "bf16", "f32"):
+        turns[name].append(bench_spmv(spmv_striped, layouts[name], x,
+                                      nnz=mat.nnz).time_min)
+    best = {k: min(v) for k, v in turns.items()}
+    times["scattered_16m dtype"] = best
+    print(f"    [scattered_16m striped W={w}] in turns (f32, bf16, bf16, "
+          f"f32), warm TimeMin us: f32 " + "/".join(
+              f"{t * 1e6:.2f}" for t in turns["f32"]) + ", bf16 " + "/".join(
+              f"{t * 1e6:.2f}" for t in turns["bf16"])
+          + f"; bf16 / f32 {best['bf16'] / best['f32']:.4f}", flush=True)
+    del layouts, x
     print("scattered_16m host set-up s: " + ", ".join(
         f"{k} {v:.2f}" for k, v in setup.items()), flush=True)
     stats.setdefault("spmv_ranked", []).extend(stats.pop("spmv_striped"))
@@ -1910,7 +1939,7 @@ def _calibration(times, solves):
     tools.tune --calibrate --dry-run itself, at its default scale, driven
     with every launch counter zeroed (its counts join the main path's).
     Prints both fits, each constant's ratio between them, the shipped
-    entry, and the decisions D1-D5 that each gives, the shipped entry
+    entry, and the decisions D1-D6 that each gives, the shipped entry
     and OLD_UNIT_ENTRY too (_decisions). Returns (tools.tune's launches,
     {entry: decisions})."""
     from tpu_spmv_torch import hw
@@ -1998,13 +2027,15 @@ def _memo_slots():
 
 
 def _decisions(entry, times, solves):
-    """D1-D5 with `entry` as the card's calibration: the planned (kernel,
+    """D1-D6 with `entry` as the card's calibration: the planned (kernel,
     W) on lap2d_1024 after RCM (D1), banded_1m (D2) and scattered_16m
     (D3); whether banded_1m keeps its sigma = 4096 sort, the re-plan of
     the sorted matrix costing less (D4, with the sorted plan); the solve
-    lower_solve runs on banded_1m LS and lap2d_1024 LS (D5). "plans"
+    lower_solve runs on banded_1m LS and lap2d_1024 LS (D5); the value
+    dtype tools.spmv --val-dtype bf16 stores on the stripes (D6). "plans"
     holds the TpuPlans."""
     from tpu_spmv_torch.bench.calibration import pinned
+    from tpu_spmv_torch.kernels.striped import bf16_pays
     from tpu_spmv_torch.sts.solve import solve_choice
     from tpu_spmv_torch.tune.model import tpu_plan
 
@@ -2014,13 +2045,14 @@ def _decisions(entry, times, solves):
                               "scattered_16m")}
         d5 = {f"D5 {n}": solve_choice(*solves[n]["chains"])
               for n in ("banded_1m LS", "lap2d_1024 LS")}
+        d6 = "bf16" if bf16_pays() else "f32"
     kw = lambda p: f"{p.kernel} W={p.bin_blocks}"  # noqa: E731
     kept = plans["banded_1m sorted"].est_cost < plans["banded_1m"].est_cost
     return {"D1": kw(plans["lap2d_1024 rcm"]), "D2": kw(plans["banded_1m"]),
             "D3": kw(plans["scattered_16m"]),
             "D4": f"sigma={plans['banded_1m'].sigma} "
                   + ("kept" if kept else "rejected"),
-            **d5, "plans": plans}
+            **d5, "D6": d6, "plans": plans}
 
 
 def _plans(times, solves, decided):
@@ -2028,16 +2060,18 @@ def _plans(times, solves, decided):
     calibration (the shipped entry) on lap2d_1024 in natural order and
     after RCM, banded_1m, general_500k and scattered_16m (powerlaw_1m's
     plan is printed by its --sigma -1 CLI run);
-    fails unless lap2d_1024 in natural order plans dia. Then D1-D5, each
+    fails unless lap2d_1024 in natural order plans dia. Then D1-D6, each
     as the planned choice, the fastest choice timed in this run, both
     warm times and planned / fastest: the kernel on lap2d_1024 after RCM
     (D1) and banded_1m (D2) among sell, ranked and packed (the kernel
     phases'), the bin width on scattered_16m (D3: spmv_striped at
     default_stripe_cols, W of the striped phase and 32), the sigma = 4096
     sort on banded_1m kept or rejected (D4: each side's plan), the solve
-    kernel on banded_1m LS and lap2d_1024 LS (D5: the solve phases'),
-    under the shipped entry and under OLD_UNIT_ENTRY. A planned layout not
-    timed yet is built and timed here."""
+    kernel on banded_1m LS and lap2d_1024 LS (D5: the solve phases'), the
+    stripes' value dtype on scattered_16m (D6: the striped phase's f32 and
+    bf16 times in turns), under the shipped entry and under
+    OLD_UNIT_ENTRY. A planned layout not timed yet is built and timed
+    here."""
     import numpy as np
     import torch
 
@@ -2111,7 +2145,7 @@ def _plans(times, solves, decided):
 
 
 def _decision_table(decided, times, solves, timed, line):
-    """The D1-D5 lines of _plans for one entry's decisions."""
+    """The D1-D6 lines of _plans for one entry's decisions."""
     plans = decided["plans"]
     for d, tag in (("D1", "lap2d_1024 rcm"), ("D2", "banded_1m"),
                    ("D3", "scattered_16m")):
@@ -2140,6 +2174,9 @@ def _decision_table(decided, times, solves, timed, line):
         rec, choice = solves[name], decided[f"D5 {name}"]
         line(f"D5 {name} solve kernel", choice, rec[choice],
              {k: rec[k] for k in ("ranked", "blocks")})
+    dtypes = times["scattered_16m dtype"]
+    line("D6 scattered_16m --val-dtype bf16 stores", decided["D6"],
+         dtypes[decided["D6"]], dtypes)
 
 
 def _drive(steps):
@@ -2323,7 +2360,9 @@ def _planner_paths(cache, outputs, bin_blocks):
     """Launch counts of the paths this slice added, each driven with the
     counters zeroed: tools.spmv --kernel auto on scattered_16m without
     --bin-blocks (the plan's W, which must take the striped route: the
-    run that drives spmv_striped on the main path),
+    run that drives spmv_striped on the main path), and with --val-dtype
+    bf16 (under the shipped entry it must store bf16 stripes, validated
+    against the bf16-rounded operator),
     --sigma -1 on powerlaw_1m and a forced --sigma 4096 on banded_1m,
     the second --layout-cache run on lap2d_4096 after RCM (the first is
     the windowed ranked run of _main_path: this one must load the cache
@@ -2355,7 +2394,25 @@ def _planner_paths(cache, outputs, bin_blocks):
               f"us (the striped phase's W={bin_blocks} was picked by "
               "padding on a row sample)", flush=True)
 
-    auto = _drive((scattered_auto,))
+    def scattered_bf16():
+        import re
+
+        argv = ["synthetic:scattered_16m", "20", "--val-dtype", "bf16"]
+        rc, out = _captured(f"tools.spmv.main({argv})",
+                            lambda: spmv_cli.main(argv))
+        t = re.search(r"TimeMin: (\S+)", out)
+        if rc != 0 or "Number Wrong: 0 " not in out or t is None or not all(
+                s in out for s in (
+                    "column-striped passes", "storing bf16 values",
+                    "bf16 values: validated vs the bf16-rounded operator")):
+            raise SmokeFailure(f"tools.spmv {argv}: rc {rc}, expected the "
+                               "striped route storing bf16 stripes, "
+                               "validated against the bf16-rounded operator")
+        print(f"scattered_16m --val-dtype bf16: route striped, bf16 "
+              f"stripes, warm TimeMin {float(t.group(1)) * 1e6:.2f} us",
+              flush=True)
+
+    auto = _drive((scattered_auto, scattered_bf16))
     sigma = _drive((
         _cli_run(spmv_cli, ["synthetic:powerlaw_1m", "20", "--sigma", "-1"]),
         _cli_run(spmv_cli, ["synthetic:banded_1m", "20", "--sigma", "4096"],

@@ -277,6 +277,28 @@ def test_striped_kernel_matches_plain_and_replays(cuda):
     assert torch.equal(y1, out) and torch.equal(y1, expect)
 
 
+def test_striped_bf16_kernel_matches_plain_and_replays(cuda):
+    """bf16 stripes (the route tools.spmv --val-dtype bf16 takes where the
+    card's calibration times them faster): spmv_striped on stripes of
+    1024 columns against its plain version and the bf16-rounded oracle,
+    and two replays of a captured call give the same bits."""
+    mat = _wide()
+    lay = StripedRanked.from_csr(mat, stripe_cols=1024, bin_blocks=2,
+                                 val_dtype=torch.bfloat16, device=cuda)
+    assert lay.num_stripes == 8 and lay.val_dtype == torch.bfloat16
+    _run(spmv_striped, spmv_striped_reference, lay, mat, mat.rounded(), cuda)
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        mat.n).astype(np.float32)).to(cuda)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = spmv_striped(lay, x)
+    graph.replay()
+    y1 = out.clone()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(y1, out)
+
+
 _SELL = {
     "general": (lambda: _rcm(random_general(2500, 6, seed=2)), 0),
     "general_binned_w4": (lambda: _rcm(random_general(2500, 6, seed=2)), 4),

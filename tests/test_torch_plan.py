@@ -30,6 +30,7 @@ from tpu_spmv.tune import model as jmodel
 from tpu_spmv_torch import hw
 from tpu_spmv_torch.formats import sell as tsell
 from tpu_spmv_torch.formats.csr import CSRMatrix
+from tpu_spmv_torch.kernels import striped as tstriped
 from tpu_spmv_torch.tools import tune as ttune
 from tpu_spmv_torch.tune import model as tmodel
 
@@ -277,7 +278,7 @@ def test_measure_runs_on_the_cpu(monkeypatch, tmp_path, capsys):
     assert consts["unit_ns"] > 0 and consts["span_limit"] >= min(ttune.SPANS)
     err = capsys.readouterr().err
     for key in ("# span ", "# W=8:", "# packed:", "# epi:", "# dia:",
-                "# read rate:", "# chain of "):
+                "# read rate:", "# chain of ", "# striped: P=3 stripes"):
         assert key in err
     # The CLI writes the CPU's numbers only to a file it is given.
     monkeypatch.delenv(hw.CALIB_ENV, raising=False)
@@ -290,6 +291,7 @@ def test_measure_runs_on_the_cpu(monkeypatch, tmp_path, capsys):
     assert ttune.main(["--calibrate", "--device", "cpu", "--scale",
                        "0.02"]) == 0
     assert set(json.loads(out.read_text())) == {"cpu"}
+    assert json.loads(out.read_text())["cpu"]["striped_bf16"] > 0
 
 
 def test_calibration_needs_a_card(monkeypatch):
@@ -338,8 +340,9 @@ def test_old_unit_entry_gives_way_to_the_cards_unit(monkeypatch, tmp_path,
 
 
 def test_shipped_entry_holds_every_key_read(monkeypatch):
-    """On the H100 no plan and no solve choice reads a module default:
-    every key the planner and LowerSolveLayout.build read is in the
+    """On the H100 no plan, no solve choice and no bf16 gate of the
+    stripes reads a module default: every key the planner,
+    LowerSolveLayout.build and kernels/striped.bf16_pays read is in the
     shipped entry, and every key of the entry is read."""
     from tpu_spmv_torch.sts import host as thost
     from tpu_spmv_torch.sts.solve import LowerSolveLayout
@@ -362,6 +365,8 @@ def test_shipped_entry_holds_every_key_read(monkeypatch):
     lay = LowerSolveLayout.build(sys_, thost.compute_b(sys_.lower),
                                  device="cpu")
     assert lay.ranked is not None
+    # The striped route's bf16 gate: on the H100 bf16 stripes pay.
+    assert tstriped.bf16_pays()
     assert read == set(ttune.KEYS) - {"unit_ns"}, read ^ set(ttune.KEYS)
     assert read <= set(H100)
 
@@ -442,6 +447,7 @@ def _synthetic_points(spans, unit_s: float, c: dict) -> dict:
                u * (c["ranked_fixed"] + c["pair_cost"] * max((w + 1) // 2, 1)),
                1000 // w) for w in ttune.RANKED_WIDTHS]
     ru = 0.4
+    t32 = u * 1e4
     return dict(
         sell=sell,
         ranked_span=[(s, c["ranked_iter_cost"]) for s in spans],
@@ -453,6 +459,7 @@ def _synthetic_points(spans, unit_s: float, c: dict) -> dict:
         floor=u * c["traffic_floor"],
         solve={k: [(r, u * (c[f"solve_{k}_link"] + c[f"solve_{k}_round"] * r))
                    for r in (1.0, 2.0, 8.0)] for k in ("ranked", "blocks")},
+        striped=(t32, t32 * c["striped_bf16"]),
     )
 
 
@@ -465,7 +472,7 @@ def test_fit_recovers_constants_at_any_span():
              packed_over=0.03, epi_cost=0.01, span_cost=0.001,
              traffic_floor=0.3, dia_step_cost=0.25, solve_ranked_link=230.0,
              solve_ranked_round=95.0, solve_blocks_link=228.0,
-             solve_blocks_round=110.0)
+             solve_blocks_round=110.0, striped_bf16=0.83)
     fits = [ttune.fit(_synthetic_points(spans, 4.4e-9, c))
             for spans in ((8, 32, 128, 256), (16, 48, 200, 400))]
     for f, spans in zip(fits, ((8, 32, 128, 256), (16, 48, 200, 400))):
@@ -477,3 +484,43 @@ def test_fit_recovers_constants_at_any_span():
         assert f["span_limit"] == max(spans)
     assert {k: v for k, v in fits[0].items() if k != "span_limit"} == \
         {k: v for k, v in fits[1].items() if k != "span_limit"}
+
+
+@pytest.mark.parametrize("ratio,fitted", [
+    (0.83, 0.83), (1.0 - 2 * ttune.NOISE, 1.0 - 2 * ttune.NOISE),
+    (1.0 - ttune.NOISE / 2, 1.0), (1.0 + ttune.NOISE / 2, 1.0), (1.3, 1.3),
+])
+def test_fit_gives_striped_bf16_as_a_ratio(ratio, fitted):
+    """striped_bf16 is the bf16 stripes' time over the f32 stripes' (no
+    unit: the same at any unit and sample time), 1 within NOISE of 1."""
+    c = dict(ranked_fixed=0.45, pair_cost=0.0, ranked_iter_cost=0.8,
+             packed_over=0.0, epi_cost=0.0, span_cost=0.001,
+             traffic_floor=0.3, dia_step_cost=0.25, solve_ranked_link=230.0,
+             solve_ranked_round=95.0, solve_blocks_link=228.0,
+             solve_blocks_round=110.0, striped_bf16=ratio)
+    for unit_s in (3e-9, 7e-9):
+        f = ttune.fit(_synthetic_points((8, 64, 256), unit_s, c))
+        assert f["striped_bf16"] == pytest.approx(fitted, rel=1e-3)
+
+
+_GATE = {
+    "no_entry": ({}, False),
+    "old_unit": (OLD_UNIT, False),
+    "without_the_key": ({k: v for k, v in H100.items()
+                         if k != "striped_bf16"}, False),
+    "ratio_at_one_less_noise": (dict(H100, striped_bf16=1.0 - ttune.NOISE),
+                                False),
+    "ratio_above_one": (dict(H100, striped_bf16=1.2), False),
+    "ratio_below": (dict(H100, striped_bf16=0.83), True),
+}
+
+
+@pytest.mark.parametrize("table", sorted(_GATE))
+def test_striped_bf16_gate_follows_the_table(table, monkeypatch, tmp_path):
+    """kernels/striped.bf16_pays under each pinned table: yes only where
+    the entry's striped_bf16 is below 1 - NOISE; no entry, an old-unit
+    entry or an entry without the key keep the reference's gate (no)."""
+    entry, pays = _GATE[table]
+    pin_calibration(monkeypatch, tmp_path, entry)
+    assert tstriped.bf16_pays() is pays
+    assert tstriped.bf16_ratio() == entry.get("striped_bf16", 1.0)

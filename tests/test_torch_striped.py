@@ -6,7 +6,9 @@ arrays equal the reference's stacked stripe with its padding cut (values
 compared, not dtypes: the reference widens every stripe's lcols to the
 widest, the port keeps each stripe's own), and y agrees with the JAX
 spmv_striped in interpret mode and with the serial oracle: RelL2 <= 1e-6
-against both, Number Wrong 0 at the magnitude-aware 0.01.
+against both, Number Wrong 0 at the magnitude-aware 0.01. bf16 stripes
+carry the reference's bf16 bits and are held to the bf16-rounded
+oracle the same way.
 """
 
 import jax.numpy as jnp
@@ -192,3 +194,60 @@ def test_striped_layout_moves_and_clones():
     assert lay.hbm_bytes == slabs + 4 * (mat.n + 2 * mat.m)
     with pytest.raises(ValueError, match="x must be"):
         spmv_striped(lay, torch.zeros(mat.n + 1))
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_bf16_stripes_equal_the_reference(case):
+    """bf16 stripes (val_dtype): each stripe's values carry the bits of
+    the reference's bf16 stripe (with its padding cut), and the rest of
+    its arrays are the f32 stripes'."""
+    make, sc, w, P, _ = CASES[case]
+    jm = make()
+    ref = JaxStriped.from_csr(jm, stripe_cols=sc, bin_blocks=w,
+                              val_dtype=jnp.bfloat16)
+    lay = StripedRanked.from_csr(_port(jm), stripe_cols=sc, bin_blocks=w,
+                                 val_dtype=torch.bfloat16, device="cpu")
+    f32 = StripedRanked.from_csr(_port(jm), stripe_cols=sc, bin_blocks=w,
+                                 device="cpu")
+    assert lay.val_dtype == torch.bfloat16 and f32.val_dtype == torch.float32
+    assert lay.num_stripes == ref.num_stripes == P
+    assert 2 * sum(s.vals.nbytes for s in lay.stripes) == sum(
+        t.vals.nbytes for t in f32.stripes)
+    for p, (s, t) in enumerate(zip(lay.stripes, f32.stripes)):
+        k = s.vals.shape[0]
+        want = np.asarray(ref.vals[p])
+        assert want.dtype == jnp.bfloat16
+        assert np.array_equal(s.vals.view(torch.int16).numpy(),
+                              want[:k].view(np.int16)), p
+        assert not want[k:].astype(np.float32).any()
+        assert torch.equal(s.vals.float(), t.vals.to(torch.bfloat16).float())
+        for name in ("lcols", "sub_b0", "sub_dlo", "sub_dhi", "sub_chunk",
+                     "tile_b0", "seg_ptr", "run_ptr"):
+            assert torch.equal(getattr(s, name), getattr(t, name)), (p, name)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_bf16_striped_matches_jax_and_the_rounded_oracle(case):
+    """spmv_striped on bf16 stripes against the JAX spmv_striped on the
+    reference's bf16 stripes (interpret mode) and the serial oracle of
+    the bf16-rounded operator: both multiply the same rounded values in
+    f32, so RelL2 <= 1e-6 against each and Number Wrong 0 at 0.01;
+    against the f32 oracle the difference is the values' bf16 rounding
+    (RelL2 <= 1e-2, bf16 keeping 8 bits of mantissa)."""
+    make, sc, w, _, seed = CASES[case]
+    jm = make()
+    mat = _port(jm)
+    x = np.random.default_rng(seed).standard_normal(mat.n).astype(np.float32)
+    y_jax = np.asarray(jax_spmv_striped(
+        JaxStriped.from_csr(jm, stripe_cols=sc, bin_blocks=w,
+                            val_dtype=jnp.bfloat16),
+        jnp.asarray(x), interpret=True))
+    lay = StripedRanked.from_csr(mat, stripe_cols=sc, bin_blocks=w,
+                                 val_dtype=torch.bfloat16, device="cpu")
+    before = spmv_striped.launches
+    y = spmv_striped(lay, torch.from_numpy(x)).numpy()
+    assert spmv_striped.launches == before  # the plain version ran
+    assert np.array_equal(y, spmv_striped_reference(
+        lay, torch.from_numpy(x)).numpy())
+    _check_y(y, y_jax, mat.rounded(), x)
+    assert 1e-6 < _rel(y, mat.matvec(x)) <= 1e-2

@@ -433,6 +433,51 @@ def test_spmv_cli_binned_layout_past_the_gate_takes_the_striped_route(
     assert "Number Wrong: 0 " in out and "bf16 values" not in out
 
 
+# The striped route's bf16 gate under pinned tables: (entry, stores bf16).
+_GATE = {
+    "no_entry": ({}, False),
+    "without_the_key": ({"unit_ns": 3.0, "ranked_fixed": 0.75}, False),
+    "ratio_at_one_less_noise": ({"unit_ns": 3.0, "striped_bf16": 0.98},
+                                False),
+    "h100_ratio_below": ({"unit_ns": 3.0, "striped_bf16": 0.83}, True),
+}
+_REFUSALS = {
+    "striped": "--val-dtype bf16 is gated OFF for the striped kernel "
+               "(measured slower than f32); storing f32 values",
+    "ranked_binned": "(bf16 gated off on the striped fallback — measured "
+                     "slower than f32; storing f32)",
+}
+
+
+@pytest.mark.parametrize("route", sorted(_REFUSALS))
+@pytest.mark.parametrize("table", sorted(_GATE))
+def test_spmv_cli_striped_bf16_follows_the_card_entry(
+        tiny_l2, table, route, monkeypatch, tmp_path, capsys):
+    """--val-dtype bf16 on the column stripes (--kernel striped, and a
+    binned ranked layout past the gate): bf16 stripes, validated against
+    the bf16-rounded operator, only under an entry whose striped_bf16 is
+    below 1 - tools.tune.NOISE; otherwise the reference's message, word
+    for word, and f32 stripes held to the f32 oracle."""
+    from test_torch_plan import pin_calibration
+
+    entry, bf16 = _GATE[table]
+    pin_calibration(monkeypatch, tmp_path, entry)
+    argv = (["--kernel", "striped"] if route == "striped"
+            else ["--kernel", "ranked", "--bin-blocks", "4"])
+    assert spmv_cli.main(["synthetic:general_1k", *argv, "--val-dtype",
+                          "bf16", *CPU]) == 0
+    out = capsys.readouterr().out
+    assert ("column stripes: P=8" if route == "striped"
+            else "column-striped passes (P=8)") in out
+    assert "Number Wrong: 0 " in out
+    assert ("storing bf16 values" in out) == bf16
+    assert (_REFUSALS[route] in out) == (not bf16)
+    assert ("(bf16 values: validated vs the bf16-rounded operator"
+            in out) == bf16
+    if bf16:
+        assert "times them at 0.83x the f32 stripes" in out
+
+
 def test_spmv_cli_rebuilds_a_window_too_large(tiny_l2, monkeypatch, capsys):
     """A ring of 21 blocks and stages of 8 sub-tiles (93,472 bytes) at 8
     sub-tiles a step, past a 64 KB budget: the table is cut at 4

@@ -10,8 +10,9 @@ H100's 50 MB L2, with no band locality for the windowed ring). The bin
 width W is the one of {16, 32, 64} whose striped layout pads least on a
 sample of the first 64 chunks (pick_bin_blocks, as the reference script
 picks it). It runs the f32 striped call (kernels/striped.py) and the
-bf16-values datum on the same stripes (the CLI gates bf16 off on this
-route; this script measures it), validates each against the oracle
+bf16-values datum on the same stripes (the CLI stores bf16 there only
+where the card's calibration, tools.tune's striped_bf16, times it
+faster), validates each against the oracle
 (bf16 against the bf16-rounded operator) and times each warm and cold
 (bench/harness.py), printing the reference's keys (wrong, rel, gflops,
 gnnzs, time_min) and the card's nvidia-smi name and power limit.

@@ -21,6 +21,11 @@ segment, run and window tables, not padded to one shape as the
 reference's are (its padding sub-tiles carry chunk id num_chunks, which
 the walk has no row for). Each pass reads a view of x with the stripe's
 true width as its n, so the ragged last stripe needs no padded copy of x.
+
+The stripes store f32 or bf16 values (from_csr's val_dtype; the walk
+widens bf16 to f32 on load). The reference refuses bf16 on its stripes,
+measured slower there; bf16_pays takes that decision from the current
+card's calibration instead (tools/tune.py step 8).
 """
 
 from __future__ import annotations
@@ -45,6 +50,28 @@ from tpu_spmv_torch.kernels.sell import partial_rows, spmv_ranked
 # at half (P = 3), 1301.0 and 1123.4 at an eighth (P = 11) and 1371.0 and
 # 1236.7 at a sixteenth (P = 21).
 L2_FRACTION = 4
+
+
+def bf16_ratio() -> float:
+    """The current card's striped_bf16 (hw.kernel_calibration, read as
+    the planner reads its constants: tune/model._cal): spmv_striped's
+    time with bf16 stripes over its time with f32 stripes; 1.0 (no gain)
+    when the entry has no such key."""
+    from tpu_spmv_torch.tune import model
+
+    return model._cal("striped_bf16", 1.0)
+
+
+def bf16_pays() -> bool:
+    """Whether the striped route stores bf16 values when asked to: only
+    when the card's calibration times bf16 stripes faster than f32 ones
+    by more than the spread of two timings (striped_bf16 < 1 -
+    tools.tune.NOISE). Without the key (no entry for the card, an entry
+    measured before the key existed, the CPU) the answer is no: the
+    reference's gate."""
+    from tpu_spmv_torch.tools.tune import NOISE
+
+    return bf16_ratio() < 1.0 - NOISE
 
 
 def default_stripe_cols(device=None) -> int:
@@ -76,6 +103,11 @@ class StripedRanked:
     @property
     def rank_nb(self) -> int:
         return max(s.rank_nb for s in self.stripes)
+
+    @property
+    def val_dtype(self) -> torch.dtype:
+        """The dtype the stripes store their values in."""
+        return self.stripes[0].vals.dtype
 
     @property
     def padded_nnz(self) -> int:

@@ -29,8 +29,11 @@ An x past the L2 residency gate (half the L2, hw.l2_bytes) takes the
 windowed DIA or ranked kernel, e.g. `synthetic:lap2d_4096` (x 67 MB), or,
 for a column-binned ranked layout (`--bin-blocks W`), the column-striped
 passes, e.g. `synthetic:scattered_16m --kernel ranked --bin-blocks 64`
-(x 64 MB). segsum, bcoo and dense are the baselines: library calls
-(index_add_, a sparse CSR tensor's matvec, torch.mv), not kernels.
+(x 64 MB). There `--val-dtype bf16` stores bf16 stripes only where the
+card's calibration times them faster than f32 ones (kernels/striped.
+bf16_pays); elsewhere the reference's gate stores f32 and says so.
+segsum, bcoo and dense are the baselines: library calls (index_add_, a
+sparse CSR tensor's matvec, torch.mv), not kernels.
 """
 
 from __future__ import annotations
@@ -176,14 +179,37 @@ def fit_window(layout, batch: int, device):
     return layout, cols
 
 
-def _striped(matrix, bin_blocks: int, device):
-    """The column-striped layout (f32 values), or SystemExit with the
-    reference's message when the matrix fits one stripe."""
+def striped_val_dtype(val_dtype, refusal: str):
+    """The value dtype the column stripes store for a requested
+    `val_dtype` (None: f32). bf16 stays only where the card's calibration
+    times bf16 stripes faster than f32 ones (kernels/striped.bf16_pays),
+    which a line says with the entry's ratio; otherwise `refusal`, the
+    reference's message, is printed and the stripes store f32. On an
+    NVIDIA H100 80GB HBM3 at 700.00 W, bf16 stripes of scattered_16m took
+    1,071-1,072 us against f32's 1,286.6 (bench/scattered_16m.py; W =
+    64, P = 6)."""
+    from tpu_spmv_torch.kernels.striped import bf16_pays, bf16_ratio
+
+    if val_dtype is None:
+        return None
+    if bf16_pays():
+        print(f"bf16 stripes: this card's calibration times them at "
+              f"{bf16_ratio():.4g}x the f32 stripes (striped_bf16); "
+              "storing bf16 values")
+        return val_dtype
+    print(refusal)
+    return None
+
+
+def _striped(matrix, bin_blocks: int, val_dtype, device):
+    """The column-striped layout (`val_dtype` values, None: f32), or
+    SystemExit with the reference's message when the matrix fits one
+    stripe."""
     from tpu_spmv_torch.kernels.striped import StripedRanked
 
     try:
         return StripedRanked.from_csr(matrix, bin_blocks=bin_blocks,
-                                      device=device)
+                                      val_dtype=val_dtype, device=device)
     except ValueError as e:
         raise SystemExit(str(e))
 
@@ -192,13 +218,13 @@ def _striped_route(matrix, bin_blocks: int, val_dtype, device):
     """The ranked route for a column-binned layout whose x is past the
     gate (tpu_spmv/tools/spmv.py:256-276): column-binned windows have no
     band locality for the ring's steps, so x goes through column-stripe
-    passes, in f32."""
+    passes, in bf16 only where striped_val_dtype keeps it."""
     from tpu_spmv_torch.kernels.striped import spmv_striped
 
-    if val_dtype is not None:
-        print("(bf16 gated off on the striped fallback: the reference "
-              "measured it slower than f32 on its TPU; storing f32)")
-    layout = _striped(matrix, bin_blocks, device)
+    val_dtype = striped_val_dtype(
+        val_dtype, "(bf16 gated off on the striped fallback — measured "
+        "slower than f32; storing f32)")
+    layout = _striped(matrix, bin_blocks, val_dtype, device)
     print(f"x exceeds the L2 residency budget ({x_budget(matrix.n, device)})"
           f"; column-striped passes (P={layout.num_stripes})")
     return layout, spmv_striped, "striped"
@@ -236,7 +262,9 @@ def build_layout(matrix, kernel: str, val_dtype=None, bin_blocks: int = 0,
     each saying so; past the x residency gate (kernels/dia.dia_x_fits,
     kernels/sell.resident_x_fits) dia and ranked take their windowed
     kernels, a column-binned ranked layout takes the column-striped
-    passes (f32 values: bf16 is gated off there), and sell warns.
+    passes (bf16 values only where the card's calibration times them
+    faster: striped_val_dtype), and sell warns. kernel "striped" stores
+    `val_dtype` as given (main applies the gate to it).
     cache: a LayoutCache through which the sell, ranked and packed
     layouts are loaded or built (the striped route builds its own
     stripes); a cache that does not match ends the run (SystemExit)."""
@@ -266,9 +294,11 @@ def build_layout(matrix, kernel: str, val_dtype=None, bin_blocks: int = 0,
     if kernel in ("segsum", "bcoo", "dense"):
         return _baseline(matrix, kernel, device)
     if kernel == "striped":
-        layout = _striped(matrix, bin_blocks if bin_blocks > 0 else 16, device)
+        layout = _striped(matrix, bin_blocks if bin_blocks > 0 else 16,
+                          val_dtype, device)
         print(f"column stripes: P={layout.num_stripes}, "
-              f"padding {layout.padding_ratio:.2f}x")
+              f"padding {layout.padding_ratio:.2f}x, "
+              f"{str(layout.val_dtype)[6:]} values")
         return layout, spmv_striped, "striped"
     if kernel == "packed" and cache is not None and (
             cache.holds() == "RankedSlabs"):
@@ -373,9 +403,12 @@ def main(argv=None):
                     "length within windows of this many rows before the "
                     "layout build; -1 = follow the planner, 0 = off")
     ap.add_argument("--val-dtype", default="f32", choices=("f32", "bf16"),
-                    help="value storage (packed/ranked/dia). bf16 runs are "
-                    "validated against the bf16-rounded operator, with "
-                    "drift against the f32 oracle printed for information")
+                    help="value storage (packed/ranked/dia; the column "
+                    "stripes only where the card's calibration times bf16 "
+                    "stripes faster than f32, else f32 with the reference's "
+                    "message). bf16 runs are validated against the "
+                    "bf16-rounded operator, with drift against the f32 "
+                    "oracle printed for information")
     ap.add_argument("--cold", action="store_true",
                     help="time the cold regime: rotate distinct operator "
                     "copies (>= 4x L2 in all) so each launch streams its "
@@ -453,16 +486,14 @@ def main(argv=None):
         if bin_blocks:
             print(f"planner bin width: W={bin_blocks} blocks")
     vdt = torch.bfloat16 if args.val_dtype == "bf16" else None
-    if vdt is not None and kernel == "striped":
-        # The reference measured bf16 2.3x slower than f32 on its TPU's
-        # striped kernel (tpu_spmv/tools/spmv.py:188-196) and gates it
-        # off. The port keeps the gate, though on an H100 the bf16 datum
-        # of bench/scattered_16m.py runs faster than f32 (PERF.md).
-        print("--val-dtype bf16 is gated OFF for the striped kernel "
-              "(measured slower than f32 by the reference); storing f32 "
-              "values")
-        vdt = None
-    if vdt is not None and kernel not in ("packed", "ranked", "dia"):
+    if kernel == "striped":
+        # The reference gates bf16 off here on its own chip's timing
+        # (tpu_spmv/tools/spmv.py:187-198); the port asks the card's.
+        vdt = striped_val_dtype(
+            vdt, "--val-dtype bf16 is gated OFF for the striped kernel "
+            "(measured slower than f32); storing f32 values")
+    if vdt is not None and kernel not in ("packed", "ranked", "dia",
+                                          "striped"):
         raise SystemExit(
             "--val-dtype bf16 supports the packed/ranked/dia kernels, not "
             f"{kernel!r}"
@@ -479,10 +510,11 @@ def main(argv=None):
     xt = torch.from_numpy(x[perm] if mat.m == mat.n else x).to(device)
     y = fn(layout, xt).cpu().numpy()
 
-    # bf16 applies to the layout actually built (a sell fallback stores
-    # f32 and is judged against the f32 oracle).
-    if getattr(layout, "vals", None) is not None and (
-            layout.vals.dtype == torch.bfloat16):
+    # bf16 applies to the layout actually built (a sell fallback or gated
+    # stripes store f32 and are judged against the f32 oracle).
+    stored = getattr(layout, "val_dtype", None) or getattr(
+        getattr(layout, "vals", None), "dtype", None)
+    if stored == torch.bfloat16:
         wrong, rel = validate(y, mat.rounded().matvec(x)[out_perm],
                               tol=args.tol)
         y_f32 = mat.matvec(x)[out_perm]

@@ -37,13 +37,21 @@ depend on the sample. The protocol, all times warm in a CUDA graph
   7. the solves: lower_solve_ranked and lower_solve_blocks on chains of
      chunks, each chunk reading the one before through CHAIN_SUBTILES
      sub-tiles a chunk; the time per chunk fitted to solve_<kernel>_link
-     + solve_<kernel>_round * rounds (sts/solve.solve_cost).
+     + solve_<kernel>_round * rounds (sts/solve.solve_cost);
+  8. striped_bf16: spmv_striped on step 2's scattered sample cut into
+     STRIPED_PASSES column stripes at W = STRIPED_WIDTH (a layout far
+     past the L2, so the values stream from HBM as on the striped
+     route), with f32 and with bf16 stripes, each the least of three
+     timings taken in turns; the key is the bf16 time over the f32 time
+     (1 within NOISE of 1), read by kernels/striped.bf16_pays.
 
-Every constant is in the unit; the reference's constants, measured on a
-TPU v5e in its own unit, are the lookup's defaults where an entry lacks
-a key. With `--device cpu` the plain PyTorch versions run, timed on the
-host clock, at a small `--scale` (0.02): a check of the protocol, whose
-numbers are not a card's. It then writes nothing unless
+Every constant but striped_bf16, a ratio of two times and no value in
+the unit, is in the unit. The reference's constants, measured on a TPU
+v5e in its own unit, are the lookup's defaults where an entry lacks a
+key; striped_bf16's default, 1, keeps the reference's gate (no bf16
+stripes). With `--device cpu` the plain PyTorch versions run, timed on
+the host clock, at a small `--scale` (0.02): a check of the protocol,
+whose numbers are not a card's. It then writes nothing unless
 $TPU_SPMV_TORCH_CALIB names the file to write (keyed "cpu"). The
 default --scale, CALIB_SCALE, is the one at which every sample takes 50
 us or more on an H100.
@@ -187,12 +195,16 @@ CHAIN_CHUNKS = 128
 # The bytes of a ranked sub-tile's slabs: 8 x 128 slots of a float32
 # value and an 8-bit window column.
 SUBTILE_BYTES = 8 * 128 * 5
+# Column stripes and bin width of the striped sample (step 8): W = 64 is
+# the width the planner gives scattered_16m on an H100.
+STRIPED_PASSES = 3
+STRIPED_WIDTH = 64
 # Every key of a card's entry (hw.kernel_calibration).
 KEYS = ("unit_ns", "ranked_fixed", "pair_cost", "ranked_iter_cost",
         "packed_over", "epi_cost", "sell_fixed", "span_cost",
         "traffic_floor", "span_limit", "dia_step_cost",
         "solve_ranked_link", "solve_ranked_round", "solve_blocks_link",
-        "solve_blocks_round")
+        "solve_blocks_round", "striped_bf16")
 
 
 def _diagonals(m: int, offsets):
@@ -281,18 +293,22 @@ def measure_points(scale: float = CALIB_SCALE, device=None, log=None) -> dict:
       epi       (ragged, uniform) (s per sub-tile, pairs, sub-tiles);
       dia       s per 1024 rows and diagonal;
       floor     s to read a ranked sub-tile's slabs;
-      solve     {kernel: [(rounds a chunk, s per chunk)]}.
+      solve     {kernel: [(rounds a chunk, s per chunk)]};
+      striped   (f32, bf16) s per spmv_striped call on the same stripes.
 
     The points are also printed, one line a step, to `log` (default
     stderr). Nothing is caught: a step that fails raises with its
     cause."""
     from tpu_spmv_torch.bench.matrices import random_banded, scattered_wide
     from tpu_spmv_torch.formats.packed import PackedRanked
-    from tpu_spmv_torch.formats.sell import SUBLANES, RankedSlabs, SellSlabs
+    from tpu_spmv_torch.formats.sell import (
+        LANES, SUBLANES, RankedSlabs, SellSlabs,
+    )
     from tpu_spmv_torch.hw import target_device
     from tpu_spmv_torch.kernels.dia import spmv_dia
     from tpu_spmv_torch.kernels.packed import spmv_packed
     from tpu_spmv_torch.kernels.sell import spmv_ranked, spmv_sell
+    from tpu_spmv_torch.kernels.striped import StripedRanked, spmv_striped
     from tpu_spmv_torch.kernels.sts import lower_solve_blocks, lower_solve_ranked
     from tpu_spmv_torch.sts.solve import SOLVE_GROUP
 
@@ -422,9 +438,23 @@ def measure_points(scale: float = CALIB_SCALE, device=None, log=None) -> dict:
             f"{k} {solve[k][-1][1] * 1e9:.1f} ns a chunk ({solve[k][-1][0]:g} "
             "rounds)" for k in solve))
         del lay
+
+    # 8. Striped passes over step 2's sample, f32 against bf16 stripes.
+    sc = -(-mg.n // (STRIPED_PASSES * LANES)) * LANES
+    f32, b16 = (StripedRanked.from_csr(mg, stripe_cols=sc,
+                                       bin_blocks=STRIPED_WIDTH,
+                                       val_dtype=vdt, device=dev)
+                for vdt in (None, torch.bfloat16))
+    striped = _paired((spmv_striped, f32, xg), (spmv_striped, b16, xg))
+    say(f"# striped: P={f32.num_stripes} stripes of {sc} columns, "
+        f"W={STRIPED_WIDTH}: f32 {striped[0] * 1e6:.2f} us "
+        f"({f32.nbytes / 2**20:.1f} MB), bf16 {striped[1] * 1e6:.2f} us "
+        f"({b16.nbytes / 2**20:.1f} MB), bf16 / f32 "
+        f"{striped[1] / striped[0]:.4f}")
+    del f32, b16
     return dict(sell=sell, ranked_span=ranked_span, ranked=ranked,
                 packed=packed, epi=tuple(epi), dia=dia, floor=floor,
-                solve=solve)
+                solve=solve, striped=striped)
 
 
 def _slope_error(points) -> float:
@@ -448,7 +478,9 @@ def fit(points: dict) -> dict:
     constant in the unit, spmv_sell's time per sub-tile at UNIT_SPAN
     (module doc). Fitted slopes and costs are floored at 0, pair_cost is
     0 unless its slope exceeds twice its standard error, and a
-    surcharge within NOISE of its sub-tile's time is 0."""
+    surcharge within NOISE of its sub-tile's time is 0. striped_bf16 is
+    the bf16 stripes' time over the f32 stripes' (no unit), 1 within
+    NOISE of 1."""
     a, b = fit_affine([(s, t) for s, t, _ in points["sell"]])
     unit = a + b * UNIT_SPAN
     span_cost = max(b / unit, 0.0)
@@ -484,6 +516,8 @@ def fit(points: dict) -> dict:
         link, per_round = fit_affine(pts)
         out[f"solve_{kernel}_link"] = max(link, 0.0) / unit
         out[f"solve_{kernel}_round"] = max(per_round, 0.0) / unit
+    t32, t16 = points["striped"]
+    out["striped_bf16"] = 1.0 if abs(t16 - t32) < NOISE * t32 else t16 / t32
     return {k: _sig(out[k]) for k in KEYS}
 
 
