@@ -56,6 +56,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from tpu_spmv_torch import obs
 from tpu_spmv_torch.dist import group
 from tpu_spmv_torch.formats.convert import ranked_container, sell_container
 from tpu_spmv_torch.formats.csr import CSRMatrix
@@ -307,6 +308,7 @@ def _uniform_q(shards, S: int, num_chunks_local: int) -> int:
 class _Stacked:
     """What ShardedSell and ShardedRanked share: placement and sizes."""
 
+    @obs.span("build.to_device")
     def device_put(self, mesh: RowMesh, axis="rows"):
         """This layout with shard d's container on mesh.devices[d]; a
         shard of another process is left out (None), as the reference's
@@ -445,6 +447,7 @@ class ShardedRanked(_Stacked):
         ))
 
     @classmethod
+    @obs.span("build.layout")
     def build(cls, mat: CSRMatrix, n_devices: int, halo: str = "auto",
               bin_blocks: int = 0, val_dtype=None) -> "ShardedRanked":
         """As ShardedSell.build, on rank-windowed layouts (column-binned

@@ -19,10 +19,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tpu_spmv_torch import obs
 from tpu_spmv_torch.dist import group
 from tpu_spmv_torch.dist.sharding import (
     OverlapRanked, RowMesh, each, spmv_overlap, spmv_sharded,
 )
+from tpu_spmv_torch.kernels import _build
 
 
 def _spmv_any(layout, v, mesh: RowMesh, axis="rows"):
@@ -119,15 +121,22 @@ def capture(step, mesh: RowMesh, state):
     replay. This process's shards must share one card: the graph is
     captured on it (its shard streams fork from the capture and join it
     again); across processes each captures its own, over NCCL. One step
-    runs eagerly first on copies, so the state is untouched, to load the
-    kernels and start the group's communicators before capture."""
+    runs eagerly first on copies, so the state is untouched, to warm the
+    kernels and start the group's communicators before capture. The
+    kernel library is loaded first, as its own phase (build.kernels);
+    the rest is the phase build.capture."""
     if not graph_default(mesh):
         raise ValueError(
             "a captured iteration needs this process's shards on one CUDA "
             "card and no gloo group; the mesh spans "
             f"{sorted(str(mesh.devices[d]) for d in mesh.local)}, backend "
             f"{mesh.backend}")
+    _build.library()
+    with obs.span("build.capture"):
+        return _capture(step, state)
 
+
+def _capture(step, state):
     def copies(st):
         return tuple(each(torch.clone, v) if isinstance(v, list)
                      else v.clone() for v in st)

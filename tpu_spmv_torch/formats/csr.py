@@ -15,6 +15,8 @@ import dataclasses
 
 import numpy as np
 
+from tpu_spmv_torch import obs
+
 
 @dataclasses.dataclass
 class CSRMatrix:
@@ -165,6 +167,7 @@ class CSRMatrix:
         out[rows[hit]] = self.data[hit]
         return out
 
+    @obs.span("build.reorder")
     def permuted(self, perm: np.ndarray) -> "CSRMatrix":
         """Symmetric permutation A[perm,:][:,perm] with per-row column sort.
 

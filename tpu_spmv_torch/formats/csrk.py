@@ -20,6 +20,7 @@ import dataclasses
 
 import numpy as np
 
+from tpu_spmv_torch import obs
 from tpu_spmv_torch.formats.csr import CSRMatrix
 from tpu_spmv_torch import reorder
 from tpu_spmv_torch.reorder.coarsen import WeightedGraph, matching_coarsen
@@ -79,6 +80,7 @@ class CSRkMatrix:
         return int(np.sum(np.abs(y_perm - y_serial) > tol * scale))
 
     @classmethod
+    @obs.span("build.reorder")
     def build(
         cls,
         mat: CSRMatrix,

@@ -16,6 +16,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from tpu_spmv_torch import obs
 from tpu_spmv_torch.formats.csr import CSRMatrix
 from tpu_spmv_torch.formats.sell import LANES, SUBLANES, TensorLayout
 
@@ -85,6 +86,7 @@ class DiaSlabs(TensorLayout):
         )
 
     @classmethod
+    @obs.span("build.layout")
     def from_csr(
         cls,
         mat: CSRMatrix,

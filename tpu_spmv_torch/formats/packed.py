@@ -47,6 +47,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from tpu_spmv_torch import obs
 from tpu_spmv_torch.formats.csr import CSRMatrix
 from tpu_spmv_torch.formats.sell import (
     LANES,
@@ -148,6 +149,7 @@ class PackedRanked(TensorLayout):
         )
 
     @classmethod
+    @obs.span("build.layout")
     def from_csr(
         cls, mat: CSRMatrix, tile_k: int = 2048, allow_groups: bool = True,
         val_dtype=None, bin_blocks: int = 0,

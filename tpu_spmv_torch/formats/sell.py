@@ -54,6 +54,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from tpu_spmv_torch import obs
 from tpu_spmv_torch.formats.csr import CSRMatrix
 
 LANES = 128
@@ -203,9 +204,11 @@ def save_layout(layout, path, matrix: CSRMatrix | None = None,
     )
 
 
+@obs.span("build.layout")
 def load_layout(path, matrix: CSRMatrix | None = None, config: tuple = ()):
     """The port's container for a layout cache written by either
-    package's save (tpu_spmv.formats.sell.load_layout), on the CPU.
+    package's save (tpu_spmv.formats.sell.load_layout), on the CPU, in
+    the place of a build (phase build.layout).
     When `matrix` is given, the cache's fingerprint must equal
     matrix_key(matrix, config), or LayoutCacheMismatch is raised. The
     derived tables are rebuilt as formats.convert.from_reference builds
@@ -889,6 +892,7 @@ class TensorLayout:
             setattr(out, k, v._map(fn))
         return out
 
+    @obs.span("build.to_device")
     def to(self, device):
         return self._map(lambda t: t.to(device))
 
@@ -966,6 +970,7 @@ class SellSlabs(TensorLayout):
         return len(sub_nb), int(sub_nb.max()) if len(sub_nb) else 1
 
     @classmethod
+    @obs.span("build.layout")
     def from_csr(
         cls, mat: CSRMatrix, tile_k: int = 2048, align: bool = False,
         bin_blocks: int = 0,
@@ -1173,6 +1178,7 @@ class RankedSlabs(TensorLayout):
                      for gi in range(max(g) + 1))
 
     @classmethod
+    @obs.span("build.layout")
     def from_csr(
         cls, mat: CSRMatrix, tile_k: int = 2048, align: bool = True,
         bin_blocks: int = 0, allow_groups: bool = True,

@@ -30,6 +30,8 @@ import time
 
 import torch
 
+from tpu_spmv_torch import obs
+
 CSRC_DIR = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
 LIB_PATH = BUILD_DIR / "libtpu_spmv_torch_kernels.so"
@@ -139,6 +141,11 @@ def build(verbose: bool = False, force: bool = False) -> BuildInfo:
     """
     if not force and not _stale():
         return BuildInfo(LIB_PATH, 0.0, "")
+    with obs.span("build.kernels.compile"):
+        return _compile(verbose)
+
+
+def _compile(verbose: bool) -> BuildInfo:
     BUILD_DIR.mkdir(exist_ok=True)
     tag = os.getpid()
     t0 = time.perf_counter()
@@ -181,16 +188,24 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed."""
     global _lib
     if _lib is None:
-        build()
-        lib = ctypes.CDLL(str(LIB_PATH))
-        for name, args in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = list(args)
-            fn.restype = ctypes.c_int
-        lib.tsp_error_string.argtypes = [ctypes.c_int]
-        lib.tsp_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        _lib = _load()
     return _lib
+
+
+@obs.span("build.kernels")
+def _load() -> ctypes.CDLL:
+    """The library's first load: the stale check (and the build, span
+    build.kernels.compile, when a source is newer), the dlopen and the
+    signatures."""
+    build()
+    lib = ctypes.CDLL(str(LIB_PATH))
+    for name, args in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(args)
+        fn.restype = ctypes.c_int
+    lib.tsp_error_string.argtypes = [ctypes.c_int]
+    lib.tsp_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def check(rc: int, what: str) -> None:

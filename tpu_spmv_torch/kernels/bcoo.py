@@ -14,7 +14,7 @@ import dataclasses
 
 import torch
 
-from tpu_spmv_torch import hw
+from tpu_spmv_torch import hw, obs
 from tpu_spmv_torch.formats.csr import CSRMatrix
 
 
@@ -58,6 +58,7 @@ class BCOOLayout:
         return cls(mat=mat, m=csr.m, n=csr.n, nnz=csr.nnz)
 
 
+@obs.entry
 def spmv_bcoo(layout: BCOOLayout, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x (or Y = A @ X for X of shape (n, B)) by the sparse
     tensor's matmul."""

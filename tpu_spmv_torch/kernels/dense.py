@@ -17,7 +17,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from tpu_spmv_torch import hw
+from tpu_spmv_torch import hw, obs
 from tpu_spmv_torch.formats.csr import CSRMatrix
 from tpu_spmv_torch.formats.sell import TensorLayout
 
@@ -60,6 +60,7 @@ class DenseLayout(TensorLayout):
         return cls(a, mat.m, mat.n, mat.nnz)
 
 
+@obs.entry
 def spmv_dense(layout: DenseLayout, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x on the densified operator."""
     return torch.mv(layout.a, x.float())

@@ -17,7 +17,7 @@ import dataclasses
 
 import torch
 
-from tpu_spmv_torch import hw
+from tpu_spmv_torch import hw, obs
 from tpu_spmv_torch.formats.dia import DiaSlabs
 from tpu_spmv_torch.formats.sell import LANES
 from tpu_spmv_torch.kernels import _build
@@ -168,6 +168,7 @@ def spmv_dia_windowed_reference(layout: DiaSlabs,
 
 
 def _check_dia(layout: DiaSlabs, x: torch.Tensor, what: str) -> None:
+    obs.step("entry.check")
     _build.check_operands(layout, x, what)
     if layout.vals.dtype not in _VAL_KIND:
         raise ValueError(f"{what}: unsupported vals dtype {layout.vals.dtype}")
@@ -178,15 +179,18 @@ def _check_dia(layout: DiaSlabs, x: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what}: vals cover fewer rows than m")
 
 
+@obs.entry
 def spmv_dia(layout: DiaSlabs, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x with A in DIA layout. x: (n,) float32 -> y: (m,) float32."""
     if x.device.type == "cpu":
         return spmv_dia_reference(layout, x)
     _check_dia(layout, x, "spmv_dia")
     T, D, rb, lanes = layout.vals.shape
+    obs.step("entry.alloc")
     y = torch.empty(layout.m, dtype=torch.float32, device=x.device)
     if layout.m == 0:
         return y
+    obs.step("entry.launch")
     rc = _build.library().tsp_spmv_dia(
         _VAL_KIND[layout.vals.dtype], layout.vals.data_ptr(),
         layout.offs.data_ptr(), D, rb, x.data_ptr(), y.data_ptr(),
@@ -214,6 +218,7 @@ def dia_windowed_ctas(layout: DiaSlabs, ring: DiaRing) -> int:
     return ctas
 
 
+@obs.entry
 def spmv_dia_windowed(layout: DiaSlabs, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x through a ring of x in shared memory filled a step ahead
     (dia_ring); same layout and bits as spmv_dia. Raises ValueError when
@@ -228,10 +233,12 @@ def spmv_dia_windowed(layout: DiaSlabs, x: torch.Tensor) -> torch.Tensor:
         raise ValueError("spmv_dia_windowed: vals must be 16-byte aligned "
                          "(a step's values are bulk-copied); pass a copy")
     ring = dia_ring(layout, dia_smem_budget(x.device))
+    kind, *sizes = _ring_args(layout, ring)
+    obs.step("entry.alloc")
     y = torch.empty(layout.m, dtype=torch.float32, device=x.device)
     if layout.m == 0:
         return y
-    kind, *sizes = _ring_args(layout, ring)
+    obs.step("entry.launch")
     rc = _build.library().tsp_spmv_dia_windowed(
         kind, layout.vals.data_ptr(), layout.offs.data_ptr(), *sizes,
         x.data_ptr(), y.data_ptr(), layout.m, layout.n, ring.smem,

@@ -16,11 +16,13 @@ from __future__ import annotations
 
 import torch
 
+from tpu_spmv_torch import obs
 from tpu_spmv_torch.formats.packed import PackedRanked
 from tpu_spmv_torch.formats.sell import LANES, SUBLANES, RankedSlabs
 from tpu_spmv_torch.kernels import _build
 from tpu_spmv_torch.kernels.sell import (
-    _LCOL_KIND, _VAL_KIND, _check_slabs, _segment_args, ranked_bases,
+    _LCOL_KIND, _VAL_KIND, _check_slabs, _scratch, _segment_args,
+    ranked_bases,
 )
 
 
@@ -86,20 +88,24 @@ def launch_packed(layout, x: torch.Tensor, what: str,
     layout: a PackedRanked, or a RankedSlabs, whose segment table counts
     sub-tiles (seg_shift 3) and whose packed deltas hold its bases even
     when grouped (G = 0)."""
+    obs.step("entry.check")
     _build.check_operands(layout, x, what, matrix=matrix)
     check_packed(layout, what)
     ranked = isinstance(layout, RankedSlabs)
     B = x.shape[1] if matrix else 1
-    seg_ptr, seg_chunk, _, split_seg, nsplit, part = _segment_args(
+    seg_ptr, seg_chunk, _, split_seg, nsplit, need = _segment_args(
         layout, x, what, B)
     run_ptr = layout.run_ptr
     if run_ptr.dtype != torch.int32 or run_ptr.dim() != 2 or (
             run_ptr.shape[0] != 2):
         raise ValueError(f"{what}: run_ptr must be (2, R+1) int32")
+    obs.step("entry.alloc")
+    part = _scratch(need, x)
     y = torch.empty(layout.m, *x.shape[1:], dtype=torch.float32,
                     device=x.device)
     if layout.m == 0:
         return y
+    obs.step("entry.launch")
     rc = _build.library().tsp_packed(
         _VAL_KIND[layout.vals.dtype], _LCOL_KIND[layout.lcols.dtype],
         layout.vals.data_ptr(), layout.lcols.data_ptr(),
@@ -121,6 +127,7 @@ def packed_launches(layout, batch: int = 1) -> int:
     return -(-batch // 8) + (layout.split_seg.shape[1] > 0)
 
 
+@obs.entry
 def spmv_packed(layout: PackedRanked, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x with A in packed mixed-height layout (grouped or not).
     x: (n,) float32 -> y: (m,) float32."""

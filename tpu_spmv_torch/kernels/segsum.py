@@ -19,7 +19,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from tpu_spmv_torch import hw
+from tpu_spmv_torch import hw, obs
 from tpu_spmv_torch.formats.csr import CSRMatrix
 from tpu_spmv_torch.formats.sell import TensorLayout
 
@@ -63,6 +63,7 @@ class SegsumLayout(TensorLayout):
         )
 
 
+@obs.entry
 def spmv_segsum(layout: SegsumLayout, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x: gather x at every column, scale, and add the products
     into their rows with index_add_ (the dropped row m takes the

@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import torch
 
-from tpu_spmv_torch import hw
+from tpu_spmv_torch import hw, obs
 from tpu_spmv_torch.formats.sell import LANES, SUBLANES, RankedSlabs, SellSlabs
 from tpu_spmv_torch.kernels import _build
 
@@ -223,8 +223,9 @@ def _segment_args(layout, x: torch.Tensor, what: str, batch: int = 1,
                   part: torch.Tensor | None = None) -> tuple:
     """Checks of the segment table, then the walk's arguments: seg_ptr,
     seg_chunk, the segment count G, split_seg, the split-chunk count K
-    and the partials scratch (partial_rows rows of 128 x batch floats;
-    `part`, when given, must hold at least that many)."""
+    and the floats of the partials scratch (partial_rows rows of 128 x
+    batch; `part`, when given, must hold at least that many), which
+    _scratch allocates."""
     seg_ptr = getattr(layout, "seg_ptr", None)
     if seg_ptr is None:
         raise ValueError(
@@ -242,16 +243,25 @@ def _segment_args(layout, x: torch.Tensor, what: str, batch: int = 1,
         )
     K = layout.split_seg.shape[1]
     need = partial_rows(layout) * LANES * batch
-    if part is None:
-        part = torch.empty(need, dtype=torch.float32, device=x.device)
-    elif (part.dtype != torch.float32 or part.device != x.device
-          or not part.is_contiguous() or part.numel() < need):
+    if part is not None and (
+            part.dtype != torch.float32 or part.device != x.device
+            or not part.is_contiguous() or part.numel() < need):
         raise ValueError(f"{what}: part must be a contiguous float32 "
                          f"scratch of at least {need} on {x.device}")
     return (seg_ptr.data_ptr(), layout.seg_chunk.data_ptr(), G,
-            layout.split_seg.data_ptr(), K, part)
+            layout.split_seg.data_ptr(), K, need)
 
 
+def _scratch(need: int, x: torch.Tensor,
+             part: torch.Tensor | None = None) -> torch.Tensor:
+    """The partials scratch of a call: `part` when given (checked by
+    _segment_args), else `need` new floats on x's device."""
+    if part is not None:
+        return part
+    return torch.empty(need, dtype=torch.float32, device=x.device)
+
+
+@obs.entry
 def spmv_ranked(layout: RankedSlabs, x: torch.Tensor,
                 out: torch.Tensor | None = None,
                 part: torch.Tensor | None = None) -> torch.Tensor:
@@ -262,6 +272,7 @@ def spmv_ranked(layout: RankedSlabs, x: torch.Tensor,
     if x.device.type == "cpu":
         y = spmv_ranked_reference(layout, x)
         return y if out is None else out.add_(y)
+    obs.step("entry.check")
     _build.check_operands(layout, x, "spmv_ranked")
     if out is not None and (
             out.dtype != torch.float32 or out.shape != (layout.m,)
@@ -278,12 +289,15 @@ def spmv_ranked(layout: RankedSlabs, x: torch.Tensor,
     G = layout.num_groups
     if G and layout.grp_b0.numel() != layout.num_subtiles * G:
         raise ValueError("spmv_ranked: grp_b0 must hold G bases per sub-tile")
-    seg_ptr, seg_chunk, nseg, split_seg, nsplit, part = _segment_args(
+    seg_ptr, seg_chunk, nseg, split_seg, nsplit, need = _segment_args(
         layout, x, "spmv_ranked", part=part)
+    obs.step("entry.alloc")
+    part = _scratch(need, x, part)
     y = torch.empty(layout.m, dtype=torch.float32,
                     device=x.device) if out is None else out
     if layout.m == 0:
         return y
+    obs.step("entry.launch")
     rc = _build.library().tsp_spmv_ranked(
         _VAL_KIND[layout.vals.dtype], _LCOL_KIND[layout.lcols.dtype],
         layout.vals.data_ptr(), layout.lcols.data_ptr(),
@@ -298,20 +312,25 @@ def spmv_ranked(layout: RankedSlabs, x: torch.Tensor,
     return y
 
 
+@obs.entry
 def spmv_sell(layout: SellSlabs, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x with A in SELL layout (absolute columns).
     x: (n,) float32 -> y: (m,) float32."""
     if x.device.type == "cpu":
         return spmv_sell_reference(layout, x)
+    obs.step("entry.check")
     _build.check_operands(layout, x, "spmv_sell")
     _check_slabs(layout, "spmv_sell")
     if layout.vals.dtype != torch.float32 or layout.cols.dtype != torch.int32:
         raise ValueError("spmv_sell: vals must be float32 and cols int32")
-    seg_ptr, seg_chunk, nseg, split_seg, nsplit, part = _segment_args(
+    seg_ptr, seg_chunk, nseg, split_seg, nsplit, need = _segment_args(
         layout, x, "spmv_sell")
+    obs.step("entry.alloc")
+    part = _scratch(need, x)
     y = torch.empty(layout.m, dtype=torch.float32, device=x.device)
     if layout.m == 0:
         return y
+    obs.step("entry.launch")
     rc = _build.library().tsp_spmv_sell(
         layout.vals.data_ptr(), layout.cols.data_ptr(), seg_ptr, seg_chunk,
         nseg, split_seg, nsplit, x.data_ptr(), y.data_ptr(), part.data_ptr(),
@@ -344,6 +363,7 @@ def launch_ranked_windowed(layout: RankedSlabs, x: torch.Tensor,
     launch per group of at most 8 columns, then the fix-up of the split
     chunks' partial rows when the layout has any. X must be 16-byte
     aligned (the ring is filled by bulk copies)."""
+    obs.step("entry.check")
     matrix = x.dim() == 2
     _build.check_operands(layout, x, what, matrix=matrix)
     _check_slabs(layout, what)
@@ -360,12 +380,15 @@ def launch_ranked_windowed(layout: RankedSlabs, x: torch.Tensor,
     B = x.shape[1] if matrix else 1
     check_window(layout, B, hw.smem_per_block(x.device))
     steps = _window_args(layout, what)
-    seg_ptr, seg_chunk, _, split_seg, nsplit, part = _segment_args(
+    seg_ptr, seg_chunk, _, split_seg, nsplit, need = _segment_args(
         layout, x, what, B)
+    obs.step("entry.alloc")
+    part = _scratch(need, x)
     y = torch.empty(layout.m, *x.shape[1:], dtype=torch.float32,
                     device=x.device)
     if layout.m == 0:
         return y
+    obs.step("entry.launch")
     rc = _build.library().tsp_ranked_windowed(
         _VAL_KIND[layout.vals.dtype], _LCOL_KIND[layout.lcols.dtype],
         layout.vals.data_ptr(), layout.lcols.data_ptr(),
@@ -399,6 +422,7 @@ def windowed_launches(layout: RankedSlabs, batch: int = 1) -> int:
     return -(-batch // 8) + (layout.split_seg.shape[1] > 0)
 
 
+@obs.entry
 def spmv_ranked_windowed(layout: RankedSlabs, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x with x staged in shared memory, a ring of ring_blocks
     blocks filled a step ahead; same layout and bits as spmv_ranked.

@@ -35,7 +35,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from tpu_spmv_torch import hw
+from tpu_spmv_torch import hw, obs
 from tpu_spmv_torch.formats.csr import CSRMatrix
 from tpu_spmv_torch.formats.sell import LANES, RankedSlabs
 from tpu_spmv_torch.kernels.sell import partial_rows, spmv_ranked
@@ -204,6 +204,7 @@ def spmv_striped_reference(layout: StripedRanked,
     return y
 
 
+@obs.entry
 def spmv_striped(layout: StripedRanked, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x over the column stripes: one spmv_ranked call a stripe,
     the first storing y, the rest adding into it, with one partials
@@ -211,11 +212,14 @@ def spmv_striped(layout: StripedRanked, x: torch.Tensor) -> torch.Tensor:
     y: (m,) float32. One count a call; spmv_ranked counts each pass."""
     if x.device.type == "cpu":
         return spmv_striped_reference(layout, x)
+    obs.step("entry.check")
     if x.shape != (layout.n,):
         raise ValueError(f"spmv_striped: x must be ({layout.n},), got "
                          f"{tuple(x.shape)}")
+    obs.step("entry.alloc")
     part = torch.empty(max(partial_rows(s) for s in layout.stripes) * LANES,
                        dtype=torch.float32, device=x.device)
+    obs.step("entry.launch")
     y = spmv_ranked(layout.stripes[0], _stripe_x(layout, x, 0), part=part)
     for p in range(1, layout.num_stripes):
         spmv_ranked(layout.stripes[p], _stripe_x(layout, x, p), out=y,

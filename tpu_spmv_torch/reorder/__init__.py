@@ -10,6 +10,7 @@ library is available.
 
 import numpy as np
 
+from tpu_spmv_torch import obs
 from tpu_spmv_torch.reorder import native
 from tpu_spmv_torch.reorder.coarsen import hand_coarsen as _np_hand_coarsen
 from tpu_spmv_torch.reorder.coarsen import matching_coarsen  # noqa: F401
@@ -18,6 +19,7 @@ from tpu_spmv_torch.reorder.rcm import bandwidth, cuthill_mckee  # noqa: F401
 from tpu_spmv_torch.reorder.rcm import rcm as _np_rcm
 
 
+@obs.span("build.reorder")
 def rcm(indptr, indices, edge_weights=None, backend="auto", **kwargs):
     """Reverse Cuthill-McKee permutation (new->old). backend: auto|native|numpy."""
     if backend == "auto":

@@ -48,6 +48,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from tpu_spmv_torch import obs
 from tpu_spmv_torch.formats.csr import CSRMatrix
 from tpu_spmv_torch.formats.sell import LANES, TensorLayout
 from tpu_spmv_torch.hw import target_device
@@ -108,11 +109,20 @@ def ic0_factor(mat: CSRMatrix) -> tuple[CSRMatrix, int]:
 
 
 def _build_ic0_systems(mat: CSRMatrix):
-    """Factor and the two solve systems. Returns (L, breakdowns, sys_l,
-    inv_l, rev, sys_u, inv_u)."""
+    """Factor (phase build.ic0.factor) and the two solve systems' level
+    schedules (build.ic0.schedule). Returns (L, breakdowns, sys_l, inv_l,
+    rev, sys_u, inv_u)."""
+    with obs.span("build.ic0.factor"):
+        L, bad = ic0_factor(mat)
+    with obs.span("build.ic0.schedule"):
+        return (L, bad, *_ic0_schedules(L))
+
+
+def _ic0_schedules(L: CSRMatrix):
+    """The LS schedules of L and of the reversed L^T: (sys_l, inv_l,
+    rev, sys_u, inv_u)."""
     import scipy.sparse as sp
 
-    L, bad = ic0_factor(mat)
     sys_l = build_sts(L, order_type="LS", sort_packs=False)
     if sys_l.lower.nnz != L.nnz:
         # nnz leaked to the upper split: the schedule did not keep L's
@@ -126,7 +136,7 @@ def _build_ic0_systems(mat: CSRMatrix):
     if sys_u.lower.nnz != U.nnz:
         raise ValueError("LS schedule failed to preserve U's structure")
     inv_u = np.argsort(sys_u.perm)
-    return L, bad, sys_l, inv_l, rev, sys_u, inv_u
+    return sys_l, inv_l, rev, sys_u, inv_u
 
 
 def _scatter_b(layout: LowerSolveLayout, b: torch.Tensor) -> torch.Tensor:
@@ -160,9 +170,12 @@ class IC0Preconditioner(TensorLayout):
         device = target_device(device)
         L, bad, sys_l, inv_l, rev, sys_u, inv_u = _build_ic0_systems(mat)
         b_dummy = np.zeros(L.m, np.float32)
+        with obs.span("build.ic0.layout"):
+            lay_l = LowerSolveLayout.build(sys_l, b_dummy, device=device)
+            lay_u = LowerSolveLayout.build(sys_u, b_dummy, device=device)
         return cls(
-            lay_l=LowerSolveLayout.build(sys_l, b_dummy, device=device),
-            lay_u=LowerSolveLayout.build(sys_u, b_dummy, device=device),
+            lay_l=lay_l,
+            lay_u=lay_u,
             idx0=torch.from_numpy(np.asarray(sys_l.perm, np.int64)),
             idx1=torch.from_numpy(inv_l[rev[sys_u.perm]].astype(np.int64)),
             idx2=torch.from_numpy(inv_u[rev].astype(np.int64)),
@@ -219,8 +232,17 @@ def capture_pcg_step(layout, precond: IC0Preconditioner, state):
     """A CUDA graph of one PCG iteration that advances `state` (a tuple
     of CUDA tensors (x, r, p, rz), e.g. from pcg_ic0_init) in place at
     every replay. One iteration runs eagerly on a side stream first (on
-    copies, so state is untouched) to build the kernels and set up
-    cuBLAS before capture."""
+    copies, so state is untouched) to warm the kernels and set up cuBLAS
+    before capture. The kernel library is loaded first, as its own phase
+    (build.kernels); the rest is the phase build.capture."""
+    from tpu_spmv_torch.kernels import _build
+
+    _build.library()
+    with obs.span("build.capture"):
+        return _capture_pcg(layout, precond, state)
+
+
+def _capture_pcg(layout, precond: IC0Preconditioner, state):
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):

@@ -18,8 +18,8 @@ from __future__ import annotations
 import argparse
 import pathlib
 import sys
-import time
 
+from tpu_spmv_torch import obs
 from tpu_spmv_torch.io.csr_text import write_csr_text
 from tpu_spmv_torch.io.matrix_market import read_mtx
 from tpu_spmv_torch.reorder import rcm
@@ -47,10 +47,10 @@ def main(argv=None):
         name = pathlib.Path(path).name
         print(f"Converting matrix {name}...", end="", flush=True)
         mat = read_mtx(path)
-        tic = time.perf_counter()
+        since = obs.mark()
         perm = rcm(mat.indptr, mat.indices, backend=args.backend)
         reordered = mat.permuted(perm)
-        print(f"reordered in {time.perf_counter() - tic:f}...", end="")
+        print(f"reordered in {obs.phase_seconds(since):f}...", end="")
         write_csr_text(norm_dir / f"{name}.csr", mat, base=args.base)
         write_csr_text(rcm_dir / f"{name}.rcm.csr", reordered, base=args.base)
         if args.mtx_out:

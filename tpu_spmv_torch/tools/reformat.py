@@ -20,8 +20,8 @@ from __future__ import annotations
 
 import argparse
 import sys
-import time
 
+from tpu_spmv_torch import obs
 from tpu_spmv_torch.formats.csrk import CSRkMatrix
 from tpu_spmv_torch.io.csr_text import (
     read_csr_text,
@@ -57,11 +57,11 @@ def main(argv=None):
             ap.error("--srs and --ssrs are required without --auto")
         srs, ssrs = args.srs, args.ssrs
 
-    tic = time.perf_counter()
+    since = obs.mark()
     k = 2 if args.output.endswith(".csr2") else 3
     sup = (srs,) if k == 2 else (srs, ssrs)
     ck = CSRkMatrix.build(mat, k=k, sup_row_sizes=sup)
-    print(f"preprocessing took {time.perf_counter() - tic:f}s")
+    print(f"preprocessing took {obs.phase_seconds(since):f}s")
 
     if args.plain:
         write_csr_text(args.output, ck.matrix)

@@ -41,6 +41,7 @@ import time
 import numpy as np
 import torch
 
+from tpu_spmv_torch import obs
 from tpu_spmv_torch.tools.spmv import load_input
 
 
@@ -66,13 +67,13 @@ def _ic0(mat, args, device) -> int:
     )
 
     b_host = np.ones(mat.m, np.float32)
-    t0 = time.perf_counter()
+    since = obs.mark()
     lay = RankedSlabs.from_csr(mat).to(device)
     pre = IC0Preconditioner.build(mat, device=device)
     print(f"ic0: rows={pre.lay_l.m} breakdowns={pre.breakdowns}")
     print(f"ic0 solves: L {pre.lay_l.kernel} ({pre.lay_l.num_packs} packs), "
           f"L^T {pre.lay_u.kernel} ({pre.lay_u.num_packs} packs); host "
-          f"set-up {time.perf_counter() - t0:.2f}s")
+          f"set-up {obs.phase_seconds(since):.2f}s")
     b = torch.from_numpy(b_host).to(device)
 
     t0 = time.perf_counter()

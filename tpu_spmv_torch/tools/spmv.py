@@ -114,20 +114,20 @@ class LayoutCache:
 
     def __call__(self, cls, build):
         import os
-        import time
 
+        from tpu_spmv_torch import obs
         from tpu_spmv_torch.formats.sell import SellSlabs, load_layout
 
         cfg = self.config + ((1,) if self.bf16 and cls is not SellSlabs
                              else ())
         if os.path.exists(self.path):
-            t0 = time.perf_counter()
+            since = obs.mark()
             lay = load_layout(self.path, matrix=self.matrix, config=cfg)
             if type(lay) is not cls:
                 raise SystemExit(f"cached layout is {type(lay).__name__}, "
                                  f"kernel wants {cls.__name__}")
             print(f"loaded layout from {self.path} "
-                  f"({time.perf_counter() - t0:.2f} s)")
+                  f"({obs.phase_seconds(since):.2f} s)")
             return lay
         lay = build()
         lay.save(self.path, matrix=self.matrix, config=cfg)

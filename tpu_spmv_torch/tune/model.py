@@ -59,6 +59,7 @@ import types
 
 import numpy as np
 
+from tpu_spmv_torch import obs
 from tpu_spmv_torch.formats.csr import CSRMatrix
 from tpu_spmv_torch.formats.sell import LANES, SUBLANES
 
@@ -314,6 +315,7 @@ def _packed_x_fits(mat, rank_nb: int) -> bool:
         rank_nb=max(rank_nb, 1), n=mat.n, max_nb=1, vals=None))
 
 
+@obs.span("build.plan")
 def tpu_plan(mat, assume_rcm: bool = False, exact: bool = True,
              candidates: list | None = None) -> TpuPlan:
     """The least-cost kernel and layout for y = A @ x
