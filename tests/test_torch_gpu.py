@@ -15,12 +15,18 @@ RelL2 <= 1e-6 (bf16 layouts against the bf16-rounded operator; SpMM
 column by column). A windowed kernel is also held to its resident twin
 on the same layout: spmv_ranked_windowed sums in spmv_ranked's order
 with the same fused multiply-adds, and spmv_dia_windowed in spmv_dia's,
-so each pair gives the same bits; the SpMM twins agree to 1e-5. The triangular solves carry rounding along the
-dependency chain, so kernel, plain version and the f64 oracle agree to
-RelL2 <= 1e-5, with Number Wrong 0 at 0.01 for x = ones.
+so each pair gives the same bits; the SpMM twins agree to 1e-5. The triangular solves' plain versions repeat the
+kernels' arithmetic (one fused multiply-add a slot, in slot order), so
+kernel and plain version give the same bits; they carry rounding along
+the dependency chain, so against the f64 oracle they agree to RelL2 <=
+1e-5, with Number Wrong 0 at 0.01 for x = ones.
 """
 
 import dataclasses
+import os
+import subprocess
+import sys
+import textwrap
 
 import numpy as np
 import pytest
@@ -58,10 +64,11 @@ from tpu_spmv_torch.kernels.sts import (
     lower_solve_blocks, lower_solve_blocks_reference, lower_solve_ranked,
     lower_solve_ranked_reference,
 )
-from tpu_spmv_torch.bench.solve_times import bidiagonal_chain
+from tpu_spmv_torch.bench.solve_times import bidiagonal_chain, hpcg27
 from tpu_spmv_torch.sts.host import build_sts, compute_b, split_lu
 from tpu_spmv_torch.sts.ic0 import (
-    IC0Preconditioner, capture_pcg_step, pcg_ic0_init, pcg_ic0_solve,
+    IC0Preconditioner, _ic0_schedules, capture_pcg_step, ic0_factor,
+    pcg_ic0_init, pcg_ic0_solve,
 )
 from tpu_spmv_torch.sts.solve import (
     LowerSolveLayout, lower_solve, lower_solve_reference,
@@ -813,7 +820,7 @@ def _solve_pair(lay):
 
 def _check_solve_kernel(sys_, b, ranked):
     """The solve kernel the layout picks (ranked or blocks) against its
-    plain version and the f64 oracle; returns the layout."""
+    plain version (bit for bit) and the f64 oracle; returns the layout."""
     lay = LowerSolveLayout.build(sys_, b, ranked=ranked)
     assert lay.b_scale.device.type == "cuda"  # built for the card
     kernel, plain, slabs, steps = _solve_pair(lay)
@@ -823,7 +830,7 @@ def _check_solve_kernel(sys_, b, ranked):
     xp = plain(slabs, lay.b_scale, steps)
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
-    assert _rel(xk.cpu(), xp.cpu()) <= 1e-5
+    assert torch.equal(xk, xp)
     x = xk.reshape(-1)[lay.pad_index].cpu().numpy()
     assert _rel(x, lower_solve_reference(sys_, b)) <= 1e-5
     assert int(np.sum(np.abs(x - 1.0) > 0.01)) == 0
@@ -886,8 +893,8 @@ def test_solve_replays_bit_identical_past_the_prefetch(cuda):
 @pytest.mark.parametrize("ranked", [True, False], ids=["ranked", "blocks"])
 @pytest.mark.parametrize("case", sorted(_SOLVES))
 def test_solve_kernels_match_plain(cuda, case, ranked):
-    """Both solve kernels against their plain versions and the oracle.
-    Every LS system's chunk 0 is all padding (the level-0 rows have no
+    """Both solve kernels against their plain versions (bit for bit)
+    and the oracle. Every LS system's chunk 0 is all padding (the level-0 rows have no
     strict-L entries), whose slots point at chunk 0 itself."""
     make, kw = _SOLVES[case]
     sys_ = build_sts(make(), **kw)
@@ -904,7 +911,7 @@ def test_solve_kernels_match_plain(cuda, case, ranked):
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
     assert xk.shape == xp.shape
-    assert _rel(xk.cpu(), xp.cpu()) <= 1e-5
+    assert torch.equal(xk, xp)
     x = xk.reshape(-1)[lay.pad_index].cpu().numpy()
     assert _rel(x, lower_solve_reference(sys_, b)) <= 1e-5
     assert int(np.sum(np.abs(x - 1.0) > 0.01)) == 0
@@ -924,32 +931,119 @@ def test_solve_kernels_on_an_all_padding_system(cuda):
 
 
 def test_solve_flags_reset_between_calls_and_graph_replays(cuda):
-    """Each call zeroes x, the ready flags and the ticket on its stream,
-    so back-to-back calls and replays of a captured call (whose frozen
-    arguments cannot carry an epoch) all solve afresh."""
+    """Each call sets x's chunk rows to the sentinel (an unsolved row is
+    its own ready flag) and zeroes the guard rows and the ticket on its
+    stream, so back-to-back calls and replays of a captured call (whose
+    frozen arguments cannot carry an epoch) all solve afresh: a replay
+    that found the last replay's rows would take them as solved, and a
+    ticket left at its end would start no chunk."""
     sys_ = build_sts(laplacian_2d(60), order_type="LS")
     b = compute_b(sys_.lower)
     rng = np.random.default_rng(4)
     for ranked in (True, False):
         lay = _built(sys_, b, ranked).to(cuda)
-        kernel = _solve_pair(lay)[0]
-        x1, x2 = lower_solve(lay), lower_solve(lay)
+        kernel, plain, slabs, steps = _solve_pair(lay)
+        x1, x2 = kernel(slabs, lay.b_scale), kernel(slabs, lay.b_scale)
         torch.cuda.synchronize()
         assert torch.equal(x1, x2)
+        assert not (x1.view(torch.int32) == -1).any()  # no row unsolved
+        assert not x1[slabs.num_chunks:].any()  # guard rows zero
         static_b = lay.b_scale.clone()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
-            out = lower_solve(lay, static_b)
+            out = kernel(slabs, static_b)
         before = kernel.launches
         for _ in range(3):
             new_b = torch.from_numpy(rng.standard_normal(
                 tuple(static_b.shape)).astype(np.float32)).to(cuda)
             static_b.copy_(new_b)
             graph.replay()
-            expect = lower_solve(lay, new_b)
+            expect = kernel(slabs, new_b)
             torch.cuda.synchronize()
             assert torch.equal(out, expect)
+            assert torch.equal(out, plain(slabs, new_b, steps))
         assert kernel.launches == before + 3  # the eager calls only
+
+
+def _hpcg_ic0_systems(n=16):
+    """The two solve systems of IC(0) on HPCG's operator on an n^3 grid
+    in natural order: L, and the reversed L^T (sts/ic0's schedules)."""
+    L, bad = ic0_factor(hpcg27(n))
+    assert bad == 0
+    sys_l, _, _, sys_u, _ = _ic0_schedules(L)
+    return {"lower": sys_l, "upper": sys_u}
+
+
+@pytest.mark.parametrize("ranked", [True, False], ids=["ranked", "blocks"])
+@pytest.mark.parametrize("which", ["lower", "upper"])
+def test_solve_kernels_bit_equal_on_hpcg_ic0(cuda, which, ranked):
+    """Both kernels give their plain versions' bits on the IC(0) factor
+    of HPCG's 27-point grid (16^3: 7 * 15 + 1 levels), the forward and
+    the reversed-upper system, for x = ones and a random b."""
+    sys_ = _hpcg_ic0_systems()[which]
+    assert sys_.num_packs == 106
+    lay = _check_solve_kernel(sys_, compute_b(sys_.lower), ranked)
+    kernel, plain, slabs, steps = _solve_pair(lay)
+    b = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        tuple(lay.b_scale.shape)).astype(np.float32)).to(cuda)
+    xk = kernel(slabs, b)
+    assert torch.equal(xk, plain(slabs, b, steps))
+    assert torch.equal(xk, plain(slabs, b))  # chunk by chunk
+
+
+_NONFINITE_B = textwrap.dedent("""
+    import numpy as np, torch
+    from tpu_spmv_torch.bench.solve_times import hpcg27_system
+    from tpu_spmv_torch.kernels.sts import (
+        lower_solve_blocks, lower_solve_blocks_reference,
+        lower_solve_ranked, lower_solve_ranked_reference)
+    from tpu_spmv_torch.sts.host import compute_b
+    from tpu_spmv_torch.sts.solve import LowerSolveLayout
+
+    sys_ = hpcg27_system(8)
+    lay = LowerSolveLayout.build(sys_, compute_b(sys_.lower), ranked=True)
+    bits = lay.b_scale.clone().view(torch.int32).reshape(-1)
+    rows = lay.pad_index[torch.tensor([40, 130, 260, 390])]
+    bits[rows] = torch.tensor([0x7FC00000, 0x7F800000, -0x800000, -1],
+                              dtype=torch.int32, device=bits.device)
+    b = bits.view(torch.float32).view(lay.b_scale.shape)
+    for kernel, plain, slabs in (
+            (lower_solve_ranked, lower_solve_ranked_reference, lay.ranked),
+            (lower_solve_blocks, lower_solve_blocks_reference, lay.slabs)):
+        xk = kernel(slabs, b)
+        xp = plain(slabs, b)
+        torch.cuda.synchronize()
+        assert not (xk.view(torch.int32) == -1).any(), "a row reads unsolved"
+        for test in (torch.isnan, torch.isposinf, torch.isneginf):
+            assert torch.equal(test(xk), test(xp)), test.__name__
+        fin = torch.isfinite(xp)
+        assert torch.equal(xk[fin], xp[fin])
+        print(kernel.__name__, "nan", int(torch.isnan(xk).sum()), "inf",
+              int(torch.isinf(xk).sum()), "finite", int(fin.sum()))
+    print("OK")
+""")
+
+
+def test_solve_kernels_take_nan_inf_and_the_sentinel_in_b(cuda):
+    """A b holding NaN, +inf, -inf and the sentinel's own bits
+    (0xFFFFFFFF) at some rows of HPCG's 27-point IC(0) factor (8^3):
+    both kernels return, no row of x reads the sentinel, and the NaN and
+    inf positions and the finite bits are the plain versions'. Run in a
+    process of its own under a watchdog: a row that read as unsolved
+    forever would hang its consumers, and a hung kernel is killed with
+    its process."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root, os.environ.get("PYTHONPATH", "")]))
+    try:
+        done = subprocess.run([sys.executable, "-c", _NONFINITE_B], cwd=root,
+                              env=env, capture_output=True, text=True,
+                              timeout=600)
+    except subprocess.TimeoutExpired:
+        pytest.fail("the solve did not return within 600 s: a row stayed "
+                    "unsolved")
+    assert done.returncode == 0, done.stdout + done.stderr
+    assert done.stdout.strip().endswith("OK"), done.stdout
 
 
 def test_ic0_apply_and_pcg_on_card(cuda):

@@ -6,12 +6,15 @@ Same matrix in, same schedule and layout out: `build_sts` and
 wrappers run on a CPU tensor) are held against JAX's `lower_solve` in
 Pallas interpret mode and against the f64 serial oracle: RelL2 <= 1e-5
 (both solve in f32, in different orders, and errors grow along the
-dependency chain) and Number Wrong 0 at 0.01 for x = ones. The CLIs run
+dependency chain) and Number Wrong 0 at 0.01 for x = ones; their
+arithmetic (the kernels': one single-rounding fused multiply-add a slot,
+in slot order) is held to a serial model in exact rationals. The CLIs run
 on the CPU, and the options the port does not run are refused naming
 their ROADMAP item.
 """
 
 import dataclasses
+from fractions import Fraction
 
 import numpy as np
 import pytest
@@ -25,9 +28,10 @@ from tpu_spmv.sts import host as jhost
 from tpu_spmv.sts import solve as jsolve
 
 from test_torch_formats import assert_same_layout
+from tpu_spmv_torch.bench.solve_times import hpcg27, hpcg27_system
 from tpu_spmv_torch.kernels.sts import (
-    lower_solve_blocks, lower_solve_blocks_reference, lower_solve_ranked,
-    lower_solve_ranked_reference, solve_steps,
+    _fma_rn, lower_solve_blocks, lower_solve_blocks_reference,
+    lower_solve_ranked, lower_solve_ranked_reference, solve_steps,
 )
 from tpu_spmv_torch.sts import host as thost
 from tpu_spmv_torch.sts import solve as tsolve
@@ -423,3 +427,102 @@ def test_solve_group_is_the_kernels():
            / "sts.cu").read_text()
     assert int(re.search(r"constexpr int kGroup = (\d+);", src).group(1)) \
         == tsolve.SOLVE_GROUP
+
+
+def _round32(q: Fraction) -> np.float32:
+    """The float32 nearest the rational q, ties to even (float(q) is
+    rounded once to float64; its float32 neighbours bracket q)."""
+    f = np.float32(float(q))
+    near = [np.nextafter(f, np.float32(-np.inf)), f,
+            np.nextafter(f, np.float32(np.inf))]
+    return min(near, key=lambda y: (abs(Fraction(float(y)) - q),
+                                    int(np.asarray(y).view(np.uint32)) & 1))
+
+
+def test_fma_rn_rounds_once():
+    """_fma_rn is float32 RN(a * b + c), one rounding: on sums whose
+    float64 value lands on a float32 midpoint (where rounding twice goes
+    the wrong way), on random magnitudes, and on signed zeros, infs and
+    NaN."""
+    a, b, c = [], [], []
+    for i in (1, 3, 77, 1001):
+        for sa, sc, c0 in ((1, 1, 1 + 2**-23), (-1, -1, 1 + 2**-23),
+                           (1, 1, 1 + 2**-22), (1, 1, 2.0**40 + 2**18)):
+            a.append(sa * 2**-12 * (1 + i * 2**-23))
+            b.append(2**-12 * (1 - i * 2**-23) * (2.0**40 if c0 > 2 else 1))
+            c.append(sc * c0)
+    rng = np.random.default_rng(0)
+    n = 3000
+    a += list(rng.standard_normal(n) * np.exp2(rng.integers(-30, 30, n)))
+    b += list(rng.standard_normal(n) * np.exp2(rng.integers(-30, 30, n)))
+    c += list(rng.standard_normal(n) * np.exp2(rng.integers(-50, 50, n)))
+    a, b, c = (np.asarray(v, np.float32) for v in (a, b, c))
+    got = _fma_rn(a.astype(np.float64) * b, c)
+    want = np.array([_round32(Fraction(float(x)) * Fraction(float(y))
+                              + Fraction(float(z))) for x, y, z in zip(a, b, c)])
+    assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+    twice = (a.astype(np.float64) * b + c).astype(np.float32)
+    assert not np.array_equal(twice, want)  # the cases do bite
+    inf, nan = float("inf"), float("nan")
+    p = np.array([0.0 * -1.0, 0.0, inf, inf, nan, 1.0])
+    acc = np.array([-0.0, -0.0, -inf, 1.0, 1.0, inf], np.float32)
+    with np.errstate(invalid="ignore"):
+        out = _fma_rn(p, acc)
+    assert out[0] == 0 and np.signbit(out[0])  # -0 + -0
+    assert out[1] == 0 and not np.signbit(out[1])  # +0 + -0
+    assert np.isnan(out[2]) and out[3] == inf and np.isnan(out[4])
+    assert out[5] == inf
+
+
+def _serial_solve(slabs, b_scale) -> np.ndarray:
+    """The kernels' arithmetic, one row at a time in exact rationals:
+    chunk by chunk, acc = RN(val * x + acc) over the row's slots in slot
+    order (a slot of a block >= its chunk reads 0), x = RN(b - acc)."""
+    cp = slabs.chunk_ptr.numpy()
+    vals = slabs.vals.numpy().reshape(-1, 8, 128)
+    cols = slabs.cols.numpy().reshape(-1, 8, 128)
+    b = b_scale.numpy().reshape(-1)
+    x = np.zeros((slabs.num_chunks + 1) * 128, np.float32)
+    for c in range(slabs.num_chunks):
+        for lane in range(128):
+            acc = np.float32(0)
+            for s in range(cp[c], cp[c + 1]):
+                for r in range(8):
+                    col = cols[s, r, lane]
+                    xv = x[col] if 0 <= col and col // 128 < c else 0.0
+                    acc = _round32(Fraction(float(vals[s, r, lane]))
+                                   * Fraction(float(xv)) + Fraction(float(acc)))
+            x[c * 128 + lane] = np.float32(b[c * 128 + lane]) - acc
+    return x
+
+
+def test_plain_solve_is_the_kernels_arithmetic():
+    """The plain blocks solve gives the serial model's bits, chunk by
+    chunk and pack by pack, on the IC(0) factor of HPCG's 27-point
+    operator (4^3) with a random b."""
+    sys_ = hpcg27_system(4)
+    lay = tsolve.LowerSolveLayout.build(sys_, np.zeros(sys_.lower.m, np.float32),
+                                        ranked=False, device="cpu")
+    b = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        tuple(lay.b_scale.shape)).astype(np.float32))
+    want = _serial_solve(lay.slabs, b)
+    for steps in (None, lay.slab_steps):
+        got = lower_solve_blocks_reference(lay.slabs, b, steps).reshape(-1)
+        assert np.array_equal(got.numpy().view(np.uint32), want.view(np.uint32))
+
+
+@pytest.mark.parametrize("n", [3, 5, 9])
+def test_hpcg27_levels(n):
+    """hpcg27(n) is HPCG's operator ((3n - 2)^3 nonzeros, 26 on the
+    diagonal) and its IC(0) factor in level order has 7 (n - 1) + 1
+    levels: row (x, y, z) of the natural order sits at level
+    x + 2y + 4z."""
+    mat = hpcg27(n)
+    assert mat.nnz == (3 * n - 2) ** 3
+    assert np.array_equal(mat.diagonal(), np.full(n ** 3, 26.0, np.float32))
+    sys_ = hpcg27_system(n)
+    assert sys_.num_packs == 7 * (n - 1) + 1
+    z, y, x = np.divmod(np.arange(n ** 3), n * n)[0], *np.divmod(
+        np.arange(n ** 3) % (n * n), n)
+    level = np.repeat(np.arange(sys_.num_packs), np.diff(sys_.pack_ptr))
+    assert np.array_equal(level[np.argsort(sys_.perm)], x + 2 * y + 4 * z)

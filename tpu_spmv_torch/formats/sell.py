@@ -21,7 +21,7 @@ arrays alone:
   wait_ptr, wait_chunk
              the wait table of a strict-L solve layout (`wait_fields`,
              None on other layouts): the earlier chunks whose rows each
-             chunk's slots read, on which the solve kernels wait;
+             chunk's slots read, the chains the solve's cost walks;
   run_ptr    the run table of RankedSlabs ((2, R+1) int32,
              formats/packed.ranked_walk_fields: run_fields of seg_ptr *
              SUBLANES): consecutive segments grouped into runs that
@@ -343,8 +343,9 @@ def wait_fields(layout) -> dict:
     Derived from the slabs themselves, padding slots included, so it
     covers exactly what the solve kernels gather (a slot whose block is
     >= c, or whose column is negative, is padding they skip) and is the
-    same for a layout built on either package. The solve kernels wait
-    on these chunks' ready flags, each once, before their gathers."""
+    same for a layout built on either package. The solve's cost model
+    (sts/solve.solve_cost) walks its chains; the kernels wait on the
+    rows themselves."""
     C = layout.num_chunks
     cp = layout.chunk_ptr.cpu().numpy().astype(np.int64)
     owner = np.repeat(np.arange(C, dtype=np.int64), np.diff(cp))

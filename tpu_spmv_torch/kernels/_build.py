@@ -63,14 +63,13 @@ _SIGNATURES = {
         _I, _I, _P, _P, _P, _P, _P, _P, _I, _U, _P, _I, _P, _P, _I, _P, _I,
         _P, _P, _P, _LL, _LL, _I, _P,
     ),
-    # vals, cols, chunk_ptr, wait_ptr, wait_chunk, b_scale, x, flags,
+    # vals, cols, chunk_ptr, b_scale, x (and the ticket), counters,
     # num_chunks, x_blocks, stream
-    "tsp_lower_solve_blocks": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _LL, _P),
+    "tsp_lower_solve_blocks": (_P, _P, _P, _P, _P, _P, _I, _LL, _P),
     # lcol_kind, vals, lcols, sub_b0, sub_dlo, sub_dhi, chunk_ptr,
-    # wait_ptr, wait_chunk, b_scale, x, flags, num_chunks, x_blocks,
-    # stream
+    # b_scale, x (and the ticket), counters, num_chunks, x_blocks, stream
     "tsp_lower_solve_ranked": (
-        _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _LL, _P,
+        _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _LL, _P,
     ),
     # val_kind, vals, offs, D, rb, S, W, stage_bytes, x, y, m, n, smem,
     # stream

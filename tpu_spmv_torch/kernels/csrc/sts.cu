@@ -25,10 +25,11 @@
 //
 // What bounds it: latency along the chain of dependencies, not bytes.
 // The time follows the chunk-level dependency depth (1024 levels on
-// lap2d_1024 in level order), so what matters is what one level costs
-// on the chain: on an H100 about 1 us, the cost of one link of a
-// bidiagonal chain (bench/solve_times.py, PERF.md). The design keeps
-// everything else off the chain:
+// lap2d_1024 in level order, 722 on HPCG's 27-point 104^3 grid in
+// natural order), so what matters is what one level costs on the chain
+// (bench/solve_times.py times a link of the bidiagonal chain and a
+// level of the 27-point system; PERF.md). The design keeps everything
+// but the solved values themselves off the chain:
 //   1. Slabs before waits. A chunk's slab loads depend on no other
 //      chunk, and a CTA takes its ticket long before its producers
 //      finish (hundreds of CTAs are resident, a few chunks a level). So
@@ -37,44 +38,71 @@
 //      ranked kernel, their decoded window bases too) into registers,
 //      and marks padding slots (block >= c, or a negative column),
 //      which gather nothing; one thread each bulk-prefetches the rest of
-//      a longer chunk's values and columns into L2. Only then does the
-//      CTA wait.
-//   2. One wait per producer. The layout's wait table (formats/sell.
-//      wait_fields: wait_ptr, wait_chunk) lists the distinct earlier
-//      chunks that chunk c's slots read, latest first. The CTA's threads
-//      take one entry each, 128 at a time, each spinning on one ready
-//      flag: polling traffic in L2 is a thread per producer, not a
-//      thread per slot.
-//   3. One gather round trip a group. After the barrier, the group's x
-//      loads are issued back to back, the next group's slab loads behind
-//      them, then the group's products are summed in a fixed slot order,
+//      a longer chunk's values and columns into L2.
+//   2. The value is the flag. Before the kernel, the chunks' rows of x
+//      are set to the sentinel bit pattern 0xFFFFFFFF. A thread issues
+//      its group's gathers back to back and then re-reads, in rounds
+//      with __nanosleep back-off between them, only the slots that
+//      still read the sentinel. A ready producer costs one L2 round
+//      trip: no flag, no barrier, no second read.
+//   3. One gather round trip a group. The next group's slab loads are
+//      issued behind the group's gathers, then the group's products are
+//      summed with explicit fused multiply-adds in a fixed slot order,
 //      so two calls (and two replays of a captured call) give the same
-//      bits. A chunk of at most kGroup sub-tiles (every chunk of
-//      lap2d_1024 and lap3d_101 in level order) is one round trip.
+//      bits, and the plain version repeats them exactly. A chunk of at
+//      most kGroup sub-tiles (every chunk of lap2d_1024 and lap3d_101 in
+//      level order) is one round trip.
 //      Branches on a group's size are uniform over the CTA, so a chunk
 //      shorter than kGroup issues nothing for the sub-tiles it lacks.
-//   4. The write, one release per CTA: __stcg of the row, a barrier,
-//      and thread 0's st.release.gpu of ready[c].
-// The memory-model chain that makes a producer's rows visible to the
-// consumer's gathers: producer threads' __stcg(x) -> bar.sync ->
-// producer thread 0's st.release.gpu(ready[b]) -> a consumer thread's
-// ld.acquire.gpu(ready[b]) that reads 1 -> __syncwarp, bar.sync -> the
-// consumer threads' x loads, which go to L2 (ld.global.cg, __ldcg) and
-// never through L1, which is not coherent across SMs. (CUTLASS's
-// semaphore uses the same barrier-then-release pair.)
+//   4. The write: each thread stores its own row, b - acc, as soon as
+//      its sum is done. No barrier and no release: the chunk publishes
+//      row by row.
+// The memory model. Each row of x is one 32-bit word, written once by
+// one thread (st.relaxed.gpu) and read by consumers with ld.relaxed.gpu:
+// strong operations at gpu scope on one location are coherent, so a
+// consumer reads either the sentinel or the final value, never a stale
+// L1 line, and a read of the new bits is the data itself, with nothing
+// else to publish. So no fence, no release/acquire pair and no barrier
+// sit on the chain; the only barrier is the ticket's, at the start. The
+// sentinel cannot be produced by the solve: on sm_90 add, sub and fma
+// return the canonical NaN 0x7FFFFFFF for a NaN result (a NaN b does
+// not pass through with its bits), and the store maps the one pattern
+// to the canonical NaN besides, so a NaN, inf or sentinel-patterned b
+// gives a NaN row, never a row that reads as unsolved. Guard blocks
+// past the chunks are zeroed, not set to the sentinel: padding slots
+// that read them go through without waiting.
+// Deadlock: a chunk reads only rows of chunks < c, each handed by the
+// ticket to a CTA that was already running, which reads only earlier
+// chunks in turn; so chunk 0's CTA finishes and the waits unwind.
 //
-// What each step was worth, and what was tried and dropped (groups of 4
-// sub-tiles at 158 registers a thread, slabs staged in shared memory),
-// is in PERF.md. Where the layout has many sub-tiles a chunk
-// (banded_1m's column-binned ranked layout: a median of 7, against 2
-// for its blocks layout) the walk is bound by its slab rounds, not the
-// chain.
+// The poll traffic is the design's cost: ~2,000 CTAs can be resident,
+// ~160 levels ahead of the frontier on HPCG's grid, so nearly every
+// first read of a level-scheduled system finds the sentinel. Two
+// throttles were timed on an H100 (bench/solve_times.py, a link of the
+// bidiagonal chain / a level of HPCG's 104^3 IC(0) factor, ranked
+// kernel): (a) every waiting slot each round, with back-off, 0.494 /
+// 0.762 us; (b) the slot of the latest producer (the largest column)
+// alone until it is in, then the rest, 0.725 / 1.629 us. (a) is kept. Its back-off: 0, 32, 64,
+// 128, 256 ns gave 0.722, 0.712, 0.719, 0.772, 0.893 us a level (0.457
+// to 0.531 us a link); 32 ns is kept (PERF.md).
 //
-// Each call zeroes the flags and the ticket, and the guard blocks of x
-// past the chunks (every row of every chunk is written by its CTA), with
-// cudaMemsetAsync on its own stream, so a CUDA graph that captures a
-// call replays all of it (replay freezes the arguments; nothing else
-// needs resetting).
+// What each earlier step was worth, and what was tried and dropped
+// (groups of 4 sub-tiles at 158 registers a thread, slabs staged in
+// shared memory), is in PERF.md.
+// Where the layout has many sub-tiles a chunk (banded_1m's
+// column-binned ranked layout: a median of 7, against 2 for its blocks
+// layout) the walk is bound by its slab rounds, not the chain.
+//
+// Each call sets the chunks' rows of x to the sentinel and zeroes the
+// guard blocks past them and the ticket, with cudaMemsetAsync on its
+// own stream, so a CUDA graph that captures a call replays all of it
+// (replay freezes the arguments; nothing else needs resetting).
+//
+// A counting instantiation (kCount, launched only when the caller
+// passes a counter array; bench/solve_times.py) adds, per solve, the
+// slots read (those not marked as padding), those whose first read
+// found the sentinel, and the re-reads those took. The instantiation
+// the solvers run compiles the counting out.
 
 #include <cuda_runtime.h>
 
@@ -89,21 +117,25 @@ constexpr int kSolveSublanes = 8;
 // thread).
 constexpr int kGroup = 2;
 constexpr int kWarpSize = 32;
-// The poll's back-off: spinning without it, or with 128 ns, was slower
-// on the chain (PERF.md).
+// The poll's back-off between re-reads of a waiting slot.
 constexpr unsigned kSleepNs = 32;
+// What an unsolved row of x reads: no float operation yields it (see
+// the header).
+constexpr unsigned kSentinel = 0xFFFFFFFFu;
+constexpr unsigned kCanonicalNan = 0x7FFFFFFFu;
+// The counting instantiation's counters: slots read, first reads that
+// found the sentinel, re-reads.
+constexpr int kCounters = 3;
 
-__device__ __forceinline__ int load_acquire(const int* p) {
-  int v;
-  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];"
-               : "=r"(v)
-               : "l"(p)
-               : "memory");
+__device__ __forceinline__ unsigned load_relaxed(const float* p) {
+  unsigned v;
+  asm volatile("ld.relaxed.gpu.global.b32 %0, [%1];" : "=r"(v) : "l"(p));
   return v;
 }
 
-__device__ __forceinline__ void store_release(int* p, int v) {
-  asm volatile("st.release.gpu.global.b32 [%0], %1;" ::"l"(p), "r"(v)
+__device__ __forceinline__ void store_relaxed(float* p, float v) {
+  asm volatile("st.relaxed.gpu.global.b32 [%0], %1;" ::"l"(p),
+               "r"(__float_as_uint(v))
                : "memory");
 }
 
@@ -185,10 +217,6 @@ __device__ __forceinline__ void load_slots(const float* __restrict__ vals,
   }
 }
 
-__device__ __forceinline__ float gather(const float* x, int col) {
-  return col >= 0 ? __ldcg(x + col) : 0.f;
-}
-
 // A group: up to kGroup consecutive sub-tiles of the chunk, the unit of
 // one gather round trip. Every branch on a group's size is the same for
 // the whole CTA (s, s1 are the chunk's), so a sub-tile past the chunk
@@ -204,14 +232,76 @@ __device__ __forceinline__ void load_group(const float* __restrict__ vals,
   }
 }
 
-template <typename Cols>
+// The group's gathers, issued back to back: x's bits at each slot read,
+// 0 at a slot marked as padding. Slots past the chunk (p >= n) are not touched.
+__device__ __forceinline__ void gather_group(
+    const float* x, const Slots (&g)[kGroup], int n,
+    unsigned (&xb)[kGroup][kSolveSublanes]) {
+#pragma unroll
+  for (int p = 0; p < kGroup; ++p) {
+    if (p < n) {
+#pragma unroll
+      for (int r = 0; r < kSolveSublanes; ++r) {
+        xb[p][r] = g[p].col[r] >= 0 ? load_relaxed(x + g[p].col[r]) : 0u;
+      }
+    }
+  }
+}
+
+// Until no slot of the group reads the sentinel: each round re-reads
+// every slot still waiting, back to back; rounds after the first back
+// off first.
+template <bool kCount>
+__device__ __forceinline__ void wait_group(
+    const float* x, const Slots (&g)[kGroup], int n,
+    unsigned (&xb)[kGroup][kSolveSublanes], unsigned (&count)[kCounters]) {
+  if (kCount) {
+#pragma unroll
+    for (int p = 0; p < kGroup; ++p) {
+      if (p < n) {
+#pragma unroll
+        for (int r = 0; r < kSolveSublanes; ++r) {
+          count[0] += g[p].col[r] >= 0;
+          count[1] += xb[p][r] == kSentinel;
+        }
+      }
+    }
+  }
+  for (int round = 0;; ++round) {
+    bool waiting = false;
+#pragma unroll
+    for (int p = 0; p < kGroup; ++p) {
+      if (p < n) {
+#pragma unroll
+        for (int r = 0; r < kSolveSublanes; ++r) {
+          waiting |= xb[p][r] == kSentinel;
+        }
+      }
+    }
+    if (!waiting) return;
+    if (round > 0) __nanosleep(kSleepNs);
+#pragma unroll
+    for (int p = 0; p < kGroup; ++p) {
+      if (p < n) {
+#pragma unroll
+        for (int r = 0; r < kSolveSublanes; ++r) {
+          if (xb[p][r] == kSentinel) {
+            xb[p][r] = load_relaxed(x + g[p].col[r]);
+            if (kCount) ++count[2];
+          }
+        }
+      }
+    }
+  }
+}
+
+template <typename Cols, bool kCount>
 __global__ void __launch_bounds__(kSolveLanes)
     lower_solve_kernel(const float* __restrict__ vals, Cols cols,
                        const int* __restrict__ chunk_ptr,
-                       const int* __restrict__ wait_ptr,
-                       const int* __restrict__ wait_chunk,
                        const float* __restrict__ b_scale, float* x,
-                       int* ready, int* ticket, int num_chunks) {
+                       int* ticket, int num_chunks,
+                       unsigned long long* counters) {
   __shared__ int chunk;
   if (threadIdx.x == 0) chunk = atomicAdd(ticket, 1);
   __syncthreads();
@@ -240,109 +330,108 @@ __global__ void __launch_bounds__(kSolveLanes)
     }
   }
 
-  // 2. Each producer chunk waited on once, by one thread; the barrier
-  // releases the CTA.
-  const int w1 = __ldg(wait_ptr + c + 1);
-  for (int i = __ldg(wait_ptr + c) + lane; i < w1; i += kSolveLanes) {
-    const int* flag = ready + __ldg(wait_chunk + i);
-    while (load_acquire(flag) == 0) __nanosleep(kSleepNs);
-  }
-  __syncwarp();
-  __syncthreads();
-
-  // 3. Group by group: all of the group's gathers back to back, the
-  // next group's slab loads behind them, then the group's sum in slot
-  // order. A chunk of at most kGroup sub-tiles (every chunk of
-  // lap2d_1024 and lap3d_101) is one gather round trip.
+  // 2-3. Group by group: the group's gathers, the next group's slab
+  // loads behind them, the wait on the slots that read the sentinel,
+  // then the group's sum in slot order. A chunk of at most kGroup
+  // sub-tiles is one gather round trip when its producers are done.
+  unsigned count[kCounters] = {0u, 0u, 0u};
   float acc = 0.f;
   for (int s = s0; s < s1; s += kGroup) {
-    float xv[kGroup][kSolveSublanes];
+    unsigned xb[kGroup][kSolveSublanes];
+    gather_group(x, g, s1 - s, xb);
+    Slots next[kGroup];
+    load_group(vals, cols, s + kGroup, s1, c, lane, next);
+    wait_group<kCount>(x, g, s1 - s, xb, count);
 #pragma unroll
     for (int p = 0; p < kGroup; ++p) {
       if (s + p < s1) {
 #pragma unroll
         for (int r = 0; r < kSolveSublanes; ++r) {
-          xv[p][r] = gather(x, g[p].col[r]);
+          acc = __fmaf_rn(g[p].v[r], __uint_as_float(xb[p][r]), acc);
         }
-      }
-    }
-    Slots next[kGroup];
-    load_group(vals, cols, s + kGroup, s1, c, lane, next);
-#pragma unroll
-    for (int p = 0; p < kGroup; ++p) {
-      if (s + p < s1) {
-#pragma unroll
-        for (int r = 0; r < kSolveSublanes; ++r) acc += g[p].v[r] * xv[p][r];
       }
     }
 #pragma unroll
     for (int p = 0; p < kGroup; ++p) g[p] = next[p];
   }
 
-  // 4. The row, then one release for the chunk.
-  __stcg(x + row, b - acc);
-  __syncthreads();
-  if (threadIdx.x == 0) store_release(ready + c, 1);
+  // 4. The row: its value is its ready flag.
+  float out = __fsub_rn(b, acc);
+  if (__float_as_uint(out) == kSentinel) out = __uint_as_float(kCanonicalNan);
+  store_relaxed(x + row, out);
+
+  if (kCount) {
+#pragma unroll
+    for (int i = 0; i < kCounters; ++i) {
+      const unsigned warp = __reduce_add_sync(0xFFFFFFFFu, count[i]);
+      if (lane % kWarpSize == 0 && warp) atomicAdd(counters + i, warp);
+    }
+  }
 }
 
-// flags holds ready[num_chunks] and then the ticket. x holds x_blocks
-// rows of 128 (num_chunks + 1 for the blocks solve, plus rank_nb guard
-// blocks for the ranked one, as the TPU kernels' outputs); the rows past
-// the chunks are zeroed here, the chunks' rows written by the kernel.
+// x holds x_blocks rows of 128 (num_chunks + 1 for the blocks solve,
+// plus rank_nb guard blocks for the ranked one, as the TPU kernels'
+// outputs) and then one int32 word, the ticket. The chunks' rows are
+// set to the sentinel here and written by the kernel; the rows past the
+// chunks and the ticket, contiguous, are zeroed. counters: null, or
+// kCounters uint64 that the counting instantiation adds to.
 template <typename Cols>
 int launch_solve(const void* vals, Cols cols, const void* chunk_ptr,
-                 const void* wait_ptr, const void* wait_chunk,
-                 const void* b_scale, void* x, void* flags, int num_chunks,
-                 long long x_blocks, void* stream) {
+                 const void* b_scale, void* x, void* counters,
+                 int num_chunks, long long x_blocks, void* stream) {
   if (num_chunks < 1 || x_blocks <= num_chunks) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* xf = static_cast<float*>(x);
   const long long chunk_rows = (long long)num_chunks * kSolveLanes;
-  cudaError_t e = cudaMemsetAsync(
-      xf + chunk_rows, 0,
-      (size_t)(x_blocks * kSolveLanes - chunk_rows) * sizeof(float), s);
+  const long long x_rows = x_blocks * kSolveLanes;
+  cudaError_t e = cudaMemsetAsync(xf, 0xFF, (size_t)chunk_rows * sizeof(float), s);
   if (e == cudaSuccess) {
-    e = cudaMemsetAsync(flags, 0, ((size_t)num_chunks + 1) * sizeof(int), s);
+    e = cudaMemsetAsync(xf + chunk_rows, 0,
+                        (size_t)(x_rows - chunk_rows + 1) * sizeof(float), s);
   }
   if (e != cudaSuccess) return (int)e;
-  int* ready = static_cast<int*>(flags);
-  lower_solve_kernel<Cols><<<num_chunks, kSolveLanes, 0, s>>>(
-      static_cast<const float*>(vals), cols,
-      static_cast<const int*>(chunk_ptr), static_cast<const int*>(wait_ptr),
-      static_cast<const int*>(wait_chunk), static_cast<const float*>(b_scale),
-      xf, ready, ready + num_chunks, num_chunks);
+  int* ticket = reinterpret_cast<int*>(xf + x_rows);
+  auto* count = static_cast<unsigned long long*>(counters);
+  if (count == nullptr) {
+    lower_solve_kernel<Cols, false><<<num_chunks, kSolveLanes, 0, s>>>(
+        static_cast<const float*>(vals), cols,
+        static_cast<const int*>(chunk_ptr),
+        static_cast<const float*>(b_scale), xf, ticket, num_chunks, count);
+  } else {
+    lower_solve_kernel<Cols, true><<<num_chunks, kSolveLanes, 0, s>>>(
+        static_cast<const float*>(vals), cols,
+        static_cast<const int*>(chunk_ptr),
+        static_cast<const float*>(b_scale), xf, ticket, num_chunks, count);
+  }
   return (int)cudaGetLastError();
 }
 
 template <typename L>
 int launch_ranked(const void* vals, const void* lcols, const void* sub_b0,
                   const void* sub_dlo, const void* sub_dhi,
-                  const void* chunk_ptr, const void* wait_ptr,
-                  const void* wait_chunk, const void* b_scale, void* x,
-                  void* flags, int num_chunks, long long x_blocks,
+                  const void* chunk_ptr, const void* b_scale, void* x,
+                  void* counters, int num_chunks, long long x_blocks,
                   void* stream) {
   const RankCols<L> cols{static_cast<const L*>(lcols),
                          static_cast<const int*>(sub_b0),
                          static_cast<const unsigned*>(sub_dlo),
                          static_cast<const unsigned*>(sub_dhi)};
-  return launch_solve(vals, cols, chunk_ptr, wait_ptr, wait_chunk, b_scale,
-                      x, flags, num_chunks, x_blocks, stream);
+  return launch_solve(vals, cols, chunk_ptr, b_scale, x, counters,
+                      num_chunks, x_blocks, stream);
 }
 
 }  // namespace
 
 extern "C" int tsp_lower_solve_blocks(const void* vals, const void* cols,
                                       const void* chunk_ptr,
-                                      const void* wait_ptr,
-                                      const void* wait_chunk,
                                       const void* b_scale, void* x,
-                                      void* flags, int num_chunks,
+                                      void* counters, int num_chunks,
                                       long long x_blocks, void* stream) {
   const AbsoluteCols decode{static_cast<const int*>(cols)};
-  return launch_solve(vals, decode, chunk_ptr, wait_ptr, wait_chunk, b_scale,
-                      x, flags, num_chunks, x_blocks, stream);
+  return launch_solve(vals, decode, chunk_ptr, b_scale, x, counters,
+                      num_chunks, x_blocks, stream);
 }
 
 // lcol_kind: 0 uint8, 1 int16, 2 int32.
@@ -351,15 +440,12 @@ extern "C" int tsp_lower_solve_ranked(int lcol_kind, const void* vals,
                                       const void* sub_dlo,
                                       const void* sub_dhi,
                                       const void* chunk_ptr,
-                                      const void* wait_ptr,
-                                      const void* wait_chunk,
                                       const void* b_scale, void* x,
-                                      void* flags, int num_chunks,
+                                      void* counters, int num_chunks,
                                       long long x_blocks, void* stream) {
 #define TSP_SOLVE_RANKED(L)                                                  \
   return launch_ranked<L>(vals, lcols, sub_b0, sub_dlo, sub_dhi, chunk_ptr, \
-                          wait_ptr, wait_chunk, b_scale, x, flags,          \
-                          num_chunks, x_blocks, stream)
+                          b_scale, x, counters, num_chunks, x_blocks, stream)
   switch (lcol_kind) {
     case 0:
       TSP_SOLVE_RANKED(uint8_t);

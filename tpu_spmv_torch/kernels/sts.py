@@ -13,19 +13,30 @@ Counterpart of the two Pallas kernels of `tpu_spmv/sts/solve.py`:
 
 Both solve x[c] = b_scale[c] - sum(val * x[col]) over chunk c's slots,
 chunk after chunk (see tpu_spmv_torch/sts/solve.py for the layout). The
-plain versions (`*_reference`) walk the dependency steps in order: per
-step, a gather of x at the slots of its chunks' sub-tiles, a sum per
-sub-tile, an accumulating `index_put_` into the chunks, then
-x[chunks] = b_scale - acc.
+kernels sum each row's slots in slot order (sub-tile, then sublane)
+with one fused multiply-add a slot, then subtract from b_scale. The
+plain versions (`*_reference`) repeat that arithmetic exactly, so a
+kernel and its plain version give the same bits: they walk the
+dependency steps in order and, per step, gather x at the slots of its
+chunks' sub-tiles, place each chunk's products slot by slot, and fold
+them into the chunk's rows one slot at a time with a single rounding
+each (`_fma_rn`), then x[chunks] = b_scale - acc, in NumPy on the host
+(the same IEEE bits as the card's, at a fraction of torch's per-call
+cost on small arrays).
 A step is a run of chunks whose rows are mutually independent: one pack
 of the schedule (`steps` from `solve_steps(chunk_ptr, pack_chunk_ptr)`),
-or one chunk when no schedule is given. The kernels need no steps; they
-need the slabs' wait table (formats/sell.wait_fields, which
-LowerSolveLayout.build fills): the earlier chunks each chunk waits on.
+or one chunk when no schedule is given. The kernels need no steps: each
+row of x is its own ready flag (csrc/sts.cu). They still require the
+slabs' wait table (formats/sell.wait_fields, which LowerSolveLayout.build
+fills), which the solve's cost model and choice read
+(sts/solve.solve_cost).
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor
 it launches the kernel or raises (a layout without a wait table
-raises). `<wrapper>.launches` counts kernel launches.
+raises). `<wrapper>.launches` counts kernel launches. `counts=` (an
+int64 tensor of 3 on the card, added to) launches the counting
+instantiation instead: the slots read, the first reads that found a row
+unsolved, and the re-reads those took (bench/solve_times.py).
 """
 
 from __future__ import annotations
@@ -50,29 +61,61 @@ def solve_steps(chunk_ptr, pack_chunk_ptr=None) -> np.ndarray:
     return np.stack([pc, cp[pc]], 1)
 
 
-def _solve_plain(vals, cols_of, sub_chunk, b_scale, steps, x_blocks):
-    """x blocks of (x_blocks, 128), step by step. cols_of(s0, s1) gives
-    the (s1 - s0, 8, 128) int64 columns of sub-tiles s0..s1. Graph-
-    capturable: the loop bounds are host integers. The gather is
-    index_select and the sum index_put_(accumulate=True): on the CPU,
-    advanced indexing and index_add_ open a thread-pool region per call,
-    and thousands of those stall for seconds when several processes
-    share the cores."""
-    dev = b_scale.device
-    v = vals.view(-1, SUBLANES, LANES)
-    owner = sub_chunk.long()
-    b = b_scale.reshape(-1)
-    x = torch.zeros(x_blocks * LANES, dtype=torch.float32, device=dev)
+def _fma_rn(p: np.ndarray, acc: np.ndarray) -> np.ndarray:
+    """float32 RN(p + acc) with one rounding, p a float64 product of two
+    float32 values (exact in float64): the kernels' __fmaf_rn. The sum
+    is rounded to odd in float64 (53 >= 24 + 2 bits), so rounding that
+    to float32 rounds the exact sum once."""
+    c = acc.astype(np.float64)
+    s = p + c
+    t = s - p
+    # The exact error of the sum (TwoSum); NaN where s is not finite.
+    e = (p - (s - t)) + (c - t)
+    bits = s.view(np.int64)
+    # An inexact sum with an even last bit steps one unit toward e.
+    inexact_even = ((e < 0) | (e > 0)) & ((bits & 1) == 0)
+    toward = np.where((e > 0) == (s > 0), 1, -1)
+    return (bits + np.where(inexact_even, toward, 0)).view(
+        np.float64).astype(np.float32)
+
+
+def _solve_plain(vals, cols_of, chunk_ptr, b_scale, steps, x_blocks):
+    """x blocks of (x_blocks, 128), step by step, in the kernels'
+    arithmetic, on the host in NumPy (IEEE float32 and float64, the
+    card's bits) and returned on b_scale's device. cols_of(s0, s1) gives
+    the (s1 - s0, 8, 128) int64 columns of sub-tiles s0..s1. A step's
+    products are placed by (chunk, slot of the chunk) and folded into
+    the chunks' rows one slot at a time. A padding slot (value 0) that
+    points at an earlier chunk of the same step reads 0 here, where the
+    kernels read that chunk's solved row: the same bits unless that row
+    is inf or NaN. Stepping chunk by chunk (steps=None) gives the
+    kernels' bits for any x."""
+    v = vals.cpu().numpy().reshape(-1, SUBLANES, LANES)
+    cp = chunk_ptr.cpu().numpy().astype(np.int64)
+    b = b_scale.cpu().numpy().reshape(-1)
+    x = np.zeros(x_blocks * LANES, np.float32)
     for (c0, s0), (c1, s1) in zip(steps[:-1].tolist(), steps[1:].tolist()):
         if c1 == c0:
             continue
-        xg = x.index_select(0, cols_of(s0, s1).reshape(-1))
-        part = (v[s0:s1] * xg.view(-1, SUBLANES, LANES)).sum(1)
-        acc = torch.zeros(c1 - c0, LANES, dtype=torch.float32, device=dev)
-        acc.index_put_((owner[s0:s1] - c0,), part, accumulate=True)
+        lens = np.diff(cp[c0:c1 + 1])
+        k = int(lens.max()) if lens.size else 0
+        acc = np.zeros((c1 - c0, LANES), np.float32)
+        if k:
+            cols = cols_of(s0, s1).cpu().numpy()
+            slots = np.zeros(((c1 - c0) * k, SUBLANES, LANES))
+            # Sub-tile s of chunk c goes to row (c - c0) * k + (s - cp[c]).
+            place = (np.repeat(np.arange(c1 - c0) * k - cp[c0:c1], lens)
+                     + np.arange(s0, s1))
+            with np.errstate(invalid="ignore"):
+                slots[place] = v[s0:s1].astype(np.float64) * x[cols]
+                slots = slots.reshape(c1 - c0, k * SUBLANES, LANES)
+                # A slot whose products are all 0 leaves acc as it is
+                # (acc is never -0), so only the others are folded.
+                for j in np.flatnonzero(slots.any(axis=(0, 2))):
+                    acc = _fma_rn(slots[:, j], acc)
         r0, r1 = c0 * LANES, c1 * LANES
         x[r0:r1] = b[r0:r1] - acc.reshape(-1)
-    return x.view(x_blocks, LANES)
+    return torch.from_numpy(x).to(b_scale.device).view(x_blocks, LANES)
 
 
 def lower_solve_blocks_reference(slabs: SellSlabs, b_scale: torch.Tensor,
@@ -82,7 +125,7 @@ def lower_solve_blocks_reference(slabs: SellSlabs, b_scale: torch.Tensor,
         steps = solve_steps(slabs.chunk_ptr)
     cols = slabs.cols.view(-1, SUBLANES, LANES)
     return _solve_plain(
-        slabs.vals, lambda s0, s1: cols[s0:s1].long(), slabs.sub_chunk,
+        slabs.vals, lambda s0, s1: cols[s0:s1].long(), slabs.chunk_ptr,
         b_scale, steps, slabs.num_chunks + 1,
     )
 
@@ -99,7 +142,7 @@ def lower_solve_ranked_reference(ranked: RankedSlabs, b_scale: torch.Tensor,
     return _solve_plain(
         ranked.vals,
         lambda s0, s1: bases[s0:s1, :, None] * LANES + lcols[s0:s1].long(),
-        ranked.sub_chunk, b_scale, steps,
+        ranked.chunk_ptr, b_scale, steps,
         ranked.num_chunks + 1 + ranked.rank_nb,
     )
 
@@ -108,7 +151,8 @@ def _check(layout, b_scale: torch.Tensor, what: str) -> None:
     """What both kernels require: b_scale float32 (num_chunks + 1, 128),
     contiguous, on a CUDA device, with every layout tensor contiguous on
     that device; float32 values; chunk_ptr (num_chunks + 1,) int32; and
-    the wait table."""
+    the wait table, which the kernels do not read but the solve's cost
+    model does (a layout without one was not built for a solve)."""
     if b_scale.device.type != "cuda":
         raise ValueError(f"{what}: b_scale is on {b_scale.device}, not a "
                          "CUDA device")
@@ -148,32 +192,44 @@ def _check(layout, b_scale: torch.Tensor, what: str) -> None:
                          "(num_chunks+1,) and wait_chunk (W,)")
 
 
-def _outputs(num_chunks: int, x_blocks: int, device):
-    """x and the flags (ready per chunk, then the ticket); the C entry
-    zeroes the flags and x's rows past the chunks on the launch stream,
-    and the kernel writes every chunk's rows."""
-    return (
-        torch.empty(x_blocks, LANES, dtype=torch.float32, device=device),
-        torch.empty(num_chunks + 1, dtype=torch.int32, device=device),
-    )
+def _output(x_blocks: int, device) -> tuple:
+    """x, (x_blocks, 128) float32, and its buffer, one int32 word longer:
+    the ticket. The C entry sets the chunks' rows to the sentinel and
+    zeroes the rows past them and the ticket, on the launch stream; the
+    kernel writes every chunk's rows."""
+    buf = torch.empty(x_blocks * LANES + 1, dtype=torch.float32,
+                      device=device)
+    return buf[:-1].view(x_blocks, LANES), buf
+
+
+def _counters(counts, b_scale: torch.Tensor) -> int:
+    """The counter array's pointer for the C entry: 0 (the solvers'
+    instantiation) or an int64 (3,) tensor on b_scale's device."""
+    if counts is None:
+        return 0
+    if (counts.dtype != torch.int64 or tuple(counts.shape) != (3,)
+            or counts.device != b_scale.device):
+        raise ValueError("counts must be int64 of shape (3,) on b_scale's "
+                         "device")
+    return counts.data_ptr()
 
 
 def lower_solve_blocks(slabs: SellSlabs, b_scale: torch.Tensor,
-                       steps=None) -> torch.Tensor:
+                       steps=None, *, counts=None) -> torch.Tensor:
     """Solve over strict-L SellSlabs; returns x as (num_chunks + 1, 128)
-    padded blocks. steps is read by the plain version only."""
+    padded blocks. steps is read by the plain version only; counts (on
+    the card only) launches the counting instantiation (module doc)."""
     if b_scale.device.type == "cpu":
         return lower_solve_blocks_reference(slabs, b_scale, steps)
     _check(slabs, b_scale, "lower_solve_blocks")
     if slabs.cols.dtype != torch.int32:
         raise ValueError("lower_solve_blocks: cols must be int32")
     C = slabs.num_chunks
-    x, flags = _outputs(C, C + 1, b_scale.device)
+    x, buf = _output(C + 1, b_scale.device)
     rc = _build.library().tsp_lower_solve_blocks(
         slabs.vals.data_ptr(), slabs.cols.data_ptr(),
-        slabs.chunk_ptr.data_ptr(), slabs.wait_ptr.data_ptr(),
-        slabs.wait_chunk.data_ptr(), b_scale.data_ptr(), x.data_ptr(),
-        flags.data_ptr(), C, C + 1, _build.stream_of(b_scale),
+        slabs.chunk_ptr.data_ptr(), b_scale.data_ptr(), buf.data_ptr(),
+        _counters(counts, b_scale), C, C + 1, _build.stream_of(b_scale),
     )
     _build.check(rc, "lower_solve_blocks")
     lower_solve_blocks.launches += 1
@@ -181,10 +237,10 @@ def lower_solve_blocks(slabs: SellSlabs, b_scale: torch.Tensor,
 
 
 def lower_solve_ranked(ranked: RankedSlabs, b_scale: torch.Tensor,
-                       steps=None) -> torch.Tensor:
+                       steps=None, *, counts=None) -> torch.Tensor:
     """Solve over strict-L RankedSlabs; returns x as
     (num_chunks + 1 + rank_nb, 128) padded blocks. steps is read by the
-    plain version only."""
+    plain version only; counts as lower_solve_blocks'."""
     if b_scale.device.type == "cpu":
         return lower_solve_ranked_reference(ranked, b_scale, steps)
     _check(ranked, b_scale, "lower_solve_ranked")
@@ -194,14 +250,13 @@ def lower_solve_ranked(ranked: RankedSlabs, b_scale: torch.Tensor,
         )
     C = ranked.num_chunks
     x_blocks = C + 1 + ranked.rank_nb
-    x, flags = _outputs(C, x_blocks, b_scale.device)
+    x, buf = _output(x_blocks, b_scale.device)
     rc = _build.library().tsp_lower_solve_ranked(
         _LCOL_KIND[ranked.lcols.dtype], ranked.vals.data_ptr(),
         ranked.lcols.data_ptr(), ranked.sub_b0.data_ptr(),
         ranked.sub_dlo.data_ptr(), ranked.sub_dhi.data_ptr(),
-        ranked.chunk_ptr.data_ptr(), ranked.wait_ptr.data_ptr(),
-        ranked.wait_chunk.data_ptr(), b_scale.data_ptr(), x.data_ptr(),
-        flags.data_ptr(), C, x_blocks, _build.stream_of(b_scale),
+        ranked.chunk_ptr.data_ptr(), b_scale.data_ptr(), buf.data_ptr(),
+        _counters(counts, b_scale), C, x_blocks, _build.stream_of(b_scale),
     )
     _build.check(rc, "lower_solve_ranked")
     lower_solve_ranked.launches += 1

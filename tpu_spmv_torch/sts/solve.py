@@ -24,13 +24,13 @@ the solve costs its longest chain of chunks through the wait table.
 
 The device solve differs: the TPU kernels rely on a grid that runs in
 order on one core, while the port's kernels (kernels/sts.py,
-csrc/sts.cu) order the chunks themselves with a ticket and per-chunk
-ready flags. The layout adds what each side needs: the wait table of
-the slabs and of the ranked layout (formats/sell.wait_fields: the
-earlier chunks each chunk reads, on which the kernels wait), and on the
-host, for the plain versions, the chunk range of each pack (from
-`sys.pack_ptr` and the padding) and the sub-tile range that goes with
-it.
+csrc/sts.cu) order the chunks themselves with a ticket, and each row of
+x is its own ready flag (a sentinel until it is solved). The layout adds
+what each side needs: the wait table of the slabs and of the ranked
+layout (formats/sell.wait_fields: the earlier chunks each chunk reads,
+the chain solve_cost walks), and on the host, for the plain versions,
+the chunk range of each pack (from `sys.pack_ptr` and the padding) and
+the sub-tile range that goes with it.
 
 The builders build for the card unless asked for another device
 (`device="cpu"` for the plain versions), and raise without one
