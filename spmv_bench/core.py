@@ -25,18 +25,20 @@ class Run:
     `spans` (host seconds of the program's build, by phase) and the
     window's readings; the harness adds set-up, memory and the trace;
     the metric readers read it all. With `control` the entry runs the
-    bfloat16 reference in the program's place."""
+    bfloat16 reference in the program's place. `processes` is the
+    number of ranks that run the cell, one card each, `rank` this one's
+    (spmv_bench/ranks.py)."""
 
     def __init__(self, cell: str, config: dict, traffic: dict,
                  limits: dict, seed: int, device: torch.device,
-                 control: bool = False):
+                 control: bool = False, processes: int = 1, rank: int = 0):
         self.cell, self.config, self.traffic = cell, config, traffic
         self.limits, self.seed, self.device = limits, seed, device
-        self.control = control
+        self.control, self.processes, self.rank = control, processes, rank
         self.entry = traffic["entry"]
         self.spans: dict[str, float] = {}
         self.counts: dict[str, int] = {}
-        self.notes: dict[str, str] = {}
+        self.notes: dict[str, object] = {}
         self.nnz = 0
         self.window_s = 0.0
         self.setup_s = 0.0

@@ -37,12 +37,14 @@ from spmv_bench.reference import cg as ref_cg, rel_l2, spmv as ref_spmv
 
 
 def _copy_into(state, new) -> None:
-    """Advance `state` (tensors, or lists of shard tensors) to `new` in
-    place, as a captured iteration does."""
+    """Advance `state` (tensors, or lists of shard tensors, None for
+    another process's) to `new` in place, as a captured iteration
+    does."""
     for old, upd in zip(state, new):
         if isinstance(old, list):
             for o, u in zip(old, upd):
-                o.copy_(u)
+                if o is not None:
+                    o.copy_(u)
         else:
             old.copy_(upd)
 
@@ -79,7 +81,7 @@ class Entry:
         self.max_iters = int(cfg["max_iters"])
         with run.span("input.rhs"):
             self.b = rhs(csr, int(run.traffic["rhs"]), int(cfg["rhs_seed"]),
-                         run.seed, run.device)
+                         run.seed, self.rhs_device())
         precond = run.traffic["precond"]
         if precond not in ("none", "ic0"):
             raise SystemExit(f"unknown precond {precond!r}")
@@ -98,6 +100,15 @@ class Entry:
             self._program(precond)
         self.bs = [self.prep(b) for b in self.b]
         self.solve(self.bs[0])
+
+    def rhs_device(self):
+        """Where the right-hand sides are kept: the run's device."""
+        return self.run.device
+
+    def agree(self, go_on: bool) -> bool:
+        """Whether the loop goes on: go_on, this process's decision (a
+        group's ranks take rank 0's)."""
+        return go_on
 
     def _control(self, precond):
         solver = ref_cg.Bf16Solver(self.csr, precond, self.run.device)
@@ -221,6 +232,7 @@ class Entry:
         self.sample = Reservoir(int(run.traffic["sample"]), run.seed)
         nxt, i, iters, failed = self.sample.next, 0, 0, 0
         run.sync()
+        self.agree(True)
         t0 = time.perf_counter()
         end = t0 + seconds
         while True:
@@ -233,7 +245,7 @@ class Entry:
             if i == nxt:
                 nxt = self.sample.take(i, (i % k, self.x().clone()))
             i += 1
-            if te >= end:
+            if not self.agree(te < end):
                 break
         run.window_s = te - t0
         run.counts.update(solves=i, iters=iters, failed_solves=failed)
@@ -241,9 +253,10 @@ class Entry:
     def traced(self, seconds: float):
         k, i, iters = len(self.bs), 0, 0
         end = time.perf_counter() + seconds
-        while time.perf_counter() < end:
+        while self.agree(time.perf_counter() < end):
             iters += self.solve(self.bs[i % k])[1]
             i += 1
+        self.run.counts["traced_iters"] = iters
         return self.iter_work * iters + self.start_work * i
 
     def check(self):

@@ -38,6 +38,38 @@ def solve(csr, b: torch.Tensor, rtol: float = 1e-12,
                        f"{max_iters} iterations")
 
 
+def solve_many(csr, bs: torch.Tensor, rtol: float = 1e-12,
+               max_iters: int = 20000) -> torch.Tensor:
+    """solve() of each row of bs (k, n) at once, on bs's device: the
+    float64 operator is built once and each iteration makes one product
+    with all k columns; a column that has converged stops moving.
+    Returns (k, n) float64."""
+    a = operator(csr, torch.float64, bs.device)
+    b = bs.to(torch.float64).T.contiguous()
+    x = torch.zeros_like(b)
+    r = b.clone()
+    p = r.clone()
+    rz = (r * r).sum(0)
+    stop = (rtol * torch.linalg.vector_norm(b, dim=0)) ** 2
+    done = torch.zeros_like(rz, dtype=torch.bool)
+    for it in range(1, max_iters + 1):
+        ap = a @ p
+        alpha = torch.where(done, 0.0, rz / (p * ap).sum(0))
+        x += alpha * p
+        r -= alpha * ap
+        if it % 50 == 0:
+            r = b - a @ x
+        rz_new = (r * r).sum(0)
+        if it % 10 == 0:
+            done |= rz_new <= stop
+            if bool(done.all()):
+                return x.T
+        p = r + torch.where(done, 0.0, rz_new / rz) * p
+        rz = rz_new
+    raise RuntimeError(f"the float64 reference CG did not reach {rtol} in "
+                       f"{max_iters} iterations")
+
+
 class Bf16Solver:
     """The control of a solve cell, run in the program's place: CG, or
     with precond "ic0" IC(0)-PCG on a plain IC(0) factor, every value

@@ -11,10 +11,12 @@ Once the window has closed and the program's state is freed, the answers
 kept from the window are judged against the plain reference. The last
 line of standard output is one JSON object: correct, attempted, failed,
 metrics, device, with --trace 1 breakdown, and last the numbers compared
-beside their limits, which also end standard error. Without a CUDA card
-the run fails and prints no result. With --control 1 the bfloat16
-reference runs in the program's place: the control of `correct`, which
-has to come out false."""
+beside their limits, which also end standard error. Without as many
+CUDA cards as the cell's `chips` the run fails and prints no result.
+A cell on N > 1 cards runs as N processes, one card each, this one rank
+0 (spmv_bench/ranks.py): only rank 0 reports, traces and judges. With
+--control 1 the bfloat16 reference runs in the program's place, on one
+card: the control of `correct`, which has to come out false."""
 
 import time
 
@@ -119,16 +121,30 @@ def power_limit_w():
         return None
 
 
+def rank_args(cell: str, seed: int, seconds: float, trace: bool,
+              device: str, root: pathlib.Path = ROOT,
+              config: dict | None = None) -> list:
+    """The arguments of the run that the other ranks are given."""
+    return ["--workload", cell, "--seed", str(seed), "--seconds",
+            repr(float(seconds)), "--trace", str(int(trace)), "--device",
+            device, "--root", str(root), "--config", json.dumps(config or {})]
+
+
 def run_cell(cell: str, seed: int, seconds: float, trace: bool, device,
              root: pathlib.Path = ROOT, config: dict | None = None,
-             t0: float | None = None, control: bool = False) -> dict:
+             t0: float | None = None, control: bool = False,
+             rank: int = 0, started: bool = False) -> dict | None:
     """One run of `cell`; returns the result object. config overrides
     keys of the cell's configuration (the tests' small grids); control
     puts the bfloat16 reference in the program's place, judged by the
-    same check."""
+    same check, in one process. A cell on N > 1 cards runs as N
+    processes: rank 0 (this call; `started` where its caller has
+    started them) starts the others (ranks.started), each on its card
+    (cuda:r) or on the CPU where `device` is the CPU, and they call
+    run_cell with their rank, which returns None."""
     import torch
 
-    from spmv_bench import matrices
+    from spmv_bench import matrices, ranks
     from spmv_bench.core import Run
     from spmv_bench.trace import profile
 
@@ -136,34 +152,45 @@ def run_cell(cell: str, seed: int, seconds: float, trace: bool, device,
     bench = manifest(root)
     files = cell_files(bench, cell, root)
     cfg = dict(files["config"], **(config or {}))
+    n = 1 if control else int(files["workload"]["chips"])
     if device.type == "cuda":
         torch.cuda.set_device(device)
         torch.cuda.init()
         torch.cuda.reset_peak_memory_stats(device)
-    run = Run(cell, cfg, files["traffic"], files["limits"], seed, device,
-              control)
-    runner = importlib.import_module(f"spmv_bench.entries.{run.entry}")
-    with contextlib.redirect_stdout(sys.stderr):
-        with run.span("input.matrix"):
-            csr = matrices.generate(cfg, seed)
-        run.nnz = csr.nnz
-        entry = runner.Entry(run, csr)
-        # What set-up leaves behind is never collected again: the
-        # window's collections then scan only the window's objects.
-        gc.collect()
-        gc.freeze()
-        run.setup_s = time.perf_counter() - t0
-        entry.window(seconds)
-        if trace:
-            if hasattr(entry, "issue"):
-                entry.issue()
-            secs = min(seconds, float(run.traffic["trace_seconds"]))
-            run.traced_work, run.trace = profile(
-                lambda: entry.traced(secs), device)
-        if device.type == "cuda":
-            run.memory_peak_bytes = torch.cuda.max_memory_allocated(device)
-        numbers, wrong = entry.check()
-    gc.unfreeze()
+    with ranks.started(1 if rank or started else n, rank_args(
+            cell, seed, seconds, trace, device.type, root, config)):
+        run = Run(cell, cfg, files["traffic"], files["limits"], seed,
+                  device, control, processes=n, rank=rank)
+        runner = importlib.import_module(f"spmv_bench.entries.{run.entry}")
+        with contextlib.redirect_stdout(sys.stderr):
+            with run.span("input.matrix"):
+                csr = matrices.generate(cfg, seed)
+            run.nnz = csr.nnz
+            entry = runner.Entry(run, csr)
+            # What set-up leaves behind is never collected again: the
+            # window's collections then scan only the window's objects.
+            gc.collect()
+            gc.freeze()
+            run.setup_s = time.perf_counter() - t0
+            entry.window(seconds)
+            if trace:
+                if hasattr(entry, "issue"):
+                    entry.issue()
+                secs = min(seconds, float(run.traffic["trace_seconds"]))
+                if rank == 0:
+                    run.traced_work, run.trace = profile(
+                        lambda: entry.traced(secs), device)
+                else:
+                    entry.traced(secs)
+            if device.type == "cuda":
+                run.memory_peak_bytes = torch.cuda.max_memory_allocated(
+                    device)
+            numbers, wrong = entry.check()
+        gc.unfreeze()
+    if rank:
+        print(f"spmv_bench: rank {rank} spans_s {json.dumps(run.spans)}",
+              file=sys.stderr, flush=True)
+        return None
 
     metrics = {}
     for m in metric_specs(bench, cell, trace):
@@ -176,7 +203,8 @@ def run_cell(cell: str, seed: int, seconds: float, trace: bool, device,
     dev = {"platform": "gpu" if device.type == "cuda" else device.type,
            "kind": (torch.cuda.get_device_name(device)
                     if device.type == "cuda" else "cpu"),
-           "count": 1, "memory_peak_bytes": run.memory_peak_bytes}
+           "count": run.processes,
+           "memory_peak_bytes": run.memory_peak_bytes}
     if device.type == "cuda":
         dev["power_limit_w"] = power_limit_w()
     if run.trace is not None:
@@ -212,17 +240,26 @@ def main(argv=None) -> int:
                     "false)")
     args = ap.parse_args(argv)
 
-    import torch
+    from spmv_bench import ranks
 
     chips = cell_files(manifest(), args.workload)["workload"]["chips"]
-    if not torch.cuda.is_available() or torch.cuda.device_count() < chips:
-        print(f"spmv_bench: the cell needs {chips} CUDA card(s); "
-              f"torch sees {torch.cuda.device_count()}", file=sys.stderr)
-        return 2
+    chips = 1 if args.control else chips
     set_cache_dirs()
-    result = run_cell(args.workload, args.seed, args.seconds,
-                      bool(args.trace), torch.device("cuda", 0),
-                      control=bool(args.control))
+    # The other ranks start before this process imports torch, so that
+    # their start overlaps this one's and the group's start waits less.
+    with ranks.started(chips, rank_args(args.workload, args.seed,
+                                        args.seconds, bool(args.trace),
+                                        "cuda")):
+        import torch
+
+        if not torch.cuda.is_available() or (
+                torch.cuda.device_count() < chips):
+            print(f"spmv_bench: the cell needs {chips} CUDA card(s); "
+                  f"torch sees {torch.cuda.device_count()}", file=sys.stderr)
+            raise SystemExit(2)
+        result = run_cell(args.workload, args.seed, args.seconds,
+                          bool(args.trace), torch.device("cuda", 0),
+                          control=bool(args.control), started=True)
     bad = forbidden_modules()
     if bad:
         print(f"spmv_bench: the run loaded {', '.join(bad)}",

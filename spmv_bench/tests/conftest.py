@@ -1,3 +1,4 @@
+import json
 import pathlib
 import sys
 
@@ -7,10 +8,6 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parents[2]
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
-
-# Small grids that a CPU run holds; the cells' own sizes run on the card.
-SMALL = {"ecology1": {"nx": 48, "ny": 40},
-         "hpcg_104": {"nx": 12, "ny": 10, "nz": 8}}
 
 
 @pytest.fixture(autouse=True)
@@ -22,14 +19,29 @@ def _threads():
 
 
 @pytest.fixture
-def small():
-    """run_cell on the CPU at a small grid: (cell, seed, **kw) -> result."""
+def small(monkeypatch):
+    """run_cell on the CPU at the grid its configuration's `small` key
+    gives (the cells' own sizes run on the card): (cell, seed, ...,
+    **config keys) -> result. A cell on several cards runs its ranks
+    under gloo, rank 0 in a process of its own (faults.run_group).
+    fault: ("step", precond, kind), planted under the timed path of
+    every rank (faults.break_step), or for a group any fault that
+    faults.plant takes."""
+    import faults
     from spmv_bench.run import cell_files, manifest, run_cell
 
     def go(cell, seed=2**31 + 11, seconds=0.3, trace=False, control=False,
-           **kw):
-        config = cell_files(manifest(), cell)["workload"]["config"]
+           fault=None, root=ROOT, **kw):
+        files = cell_files(manifest(root), cell, root)
+        config = dict(files["config"]["small"], **kw)
+        if files["workload"]["chips"] > 1 and not control:
+            done = faults.run_group(cell, seed, seconds, trace, config,
+                                    fault, root)
+            assert done.returncode == 0, done.stderr[-4000:]
+            return json.loads(done.stdout.splitlines()[-1])
+        if fault is not None:
+            faults.break_step(monkeypatch.setattr, *fault[1:])
         return run_cell(cell, seed, seconds, trace, torch.device("cpu"),
-                        config=dict(SMALL[config], **kw), control=control)
+                        root=root, config=config, control=control)
 
     return go

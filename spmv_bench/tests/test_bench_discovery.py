@@ -17,9 +17,13 @@ NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 def test_manifest_resolves():
     bench = harness.manifest()
     assert bench["command"][-1] == "spmv_bench.run"
+    four = [w["name"] for w in bench["workloads"] if w["chips"] == 4]
+    assert len(four) <= max(1, len(bench["workloads"]) // 4)
     for w in bench["workloads"]:
         files = harness.cell_files(bench, w["name"])
-        assert w["chips"] == 1
+        assert w["chips"] in (1, 4)
+        # The CPU tests run every cell at its configuration's small grid.
+        assert set(files["config"]["small"]) <= set(files["config"])
         entry = files["traffic"]["entry"]
         assert (harness.HERE / "entries" / f"{entry}.py").exists()
         assert harness.metric_specs(bench, w["name"], False)
@@ -80,6 +84,37 @@ def test_new_cell_and_metric_are_new_files(tmp_path):
     # device_mem_gib reads the card's allocator: nothing on the CPU.
     assert set(out["metrics"]) == {"spmv_gflops.device_bound", "setup_s",
                                    "calls_done"}
+    after = {p: p.read_bytes() for p in before}
+    assert after == before
+
+
+def test_new_configuration_is_new_files(tmp_path, small):
+    """A configuration, with the small grid the CPU tests run it at, and
+    a cell of it are files and manifest entries only: the tests that
+    run every cell take it as they are."""
+    root = _copy(tmp_path)
+    before = {p: p.read_bytes() for p in (root / "spmv_bench").rglob("*")
+              if p.is_file()}
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    cfg = json.loads((root / "spmv_bench/configs/hpcg_104.json").read_text())
+    cfg.update(name="hpcg_48", nx=48, ny=48, nz=48, n=48**3,
+               nnz=142**3, small={"nx": 6, "ny": 5, "nz": 7})
+    (root / "spmv_bench/configs/hpcg_48.json").write_text(json.dumps(cfg))
+    (root / "spmv_bench/cells/hpcg_48.cg.json").write_text(
+        json.dumps({"rel_err": 1e-3, "failed_solves": 0}))
+    bench["configs"].append({"name": "hpcg_48", "source": "test",
+                             "file": "spmv_bench/configs/hpcg_48.json",
+                             "reduced": [], "why": "test"})
+    bench["workloads"].append({"name": "hpcg_48.cg", "config": "hpcg_48",
+                               "traffic": "cg", "chips": 1, "why": "test"})
+    for m in bench["end_to_end"]:
+        if m["name"] == "solve_ms.cg":
+            m["workloads"].append("hpcg_48.cg")
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+
+    out = small("hpcg_48.cg", root=root)
+    assert out["correct"] and out["attempted"] > 0
+    assert set(out["metrics"]) == {"solve_ms.cg", "setup_s"}
     after = {p: p.read_bytes() for p in before}
     assert after == before
 

@@ -32,6 +32,22 @@ def test_configs_state_the_sources_sizes():
             * (3 * hpcg["nz"] - 2)) == hpcg["nnz"]
 
 
+def test_hpcg_104x4_is_four_ranks_of_hpcg_104():
+    one, four = _config("hpcg_104"), _config("hpcg_104x4")
+    assert (four["n"], four["nnz"]) == (4_499_456, 119_740_600)
+    assert four["nx"] * four["ny"] * four["nz"] == four["n"] == 4 * one["n"]
+    assert ((3 * four["nx"] - 2) * (3 * four["ny"] - 2)
+            * (3 * four["nz"] - 2)) == four["nnz"]
+    assert four["local_grid"] == [one["nx"], one["ny"], one["nz"]]
+    assert [four[k] // g for k, g in zip(("nx", "ny", "nz"),
+                                         four["process_grid"])] == (
+        four["local_grid"])
+    assert four["ranks"] == 4 == four["process_grid"][2]
+    for key in ("generator", "diagonal", "rcm", "precision", "reduction",
+                "check_every", "max_iters", "rhs_seed"):
+        assert four[key] == one[key], key
+
+
 @pytest.mark.parametrize("nx,ny", [(1, 1), (2, 3), (7, 5), (16, 16)])
 def test_grid5_size_pattern_and_spd(nx, ny):
     cfg = dict(_config("ecology1"), nx=nx, ny=ny)

@@ -7,6 +7,8 @@ import os
 import subprocess
 import sys
 
+import pytest
+
 from spmv_bench import run as harness
 
 ENV = dict(os.environ, PYTHONPATH=str(harness.ROOT), CUDA_VISIBLE_DEVICES="")
@@ -65,10 +67,11 @@ def test_reference_loads_nothing_of_the_program():
                     "tpu_spmv_torch", "tpu_spmv", "jax", "jaxlib"), path
 
 
-def test_no_card_fails_without_a_result():
+@pytest.mark.parametrize("cell", ["ecology1.spmv", "hpcg_104x4.cg"])
+def test_no_card_fails_without_a_result(cell):
     out = subprocess.run(
         [sys.executable, "-m", "spmv_bench.run", "--workload",
-         "ecology1.spmv", "--seed", "3", "--seconds", "1", "--trace", "0"],
+         cell, "--seed", "3", "--seconds", "1", "--trace", "0"],
         cwd=harness.ROOT, env=ENV, capture_output=True, text=True,
         timeout=600)
     assert out.returncode != 0

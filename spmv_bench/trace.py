@@ -4,7 +4,9 @@ gaps by what the host was doing.
 
 busy_s is the union of the device's operations (kernels, copies, sets)
 inside the window; window_s is the window's own span, a host annotation
-that ends after the device has drained, in the trace's clock. An idle
+that ends after the device has drained, in the trace's clock.
+device_by_name holds every device operation's seconds by its name, for
+the readers (device_ops, the breakdown, keeps the TOP of them). An idle
 gap is labelled by the innermost host event (an operator, a runtime
 call or a harness annotation) that covers its midpoint, "python" where
 none does; the gaps' seconds are summed by label."""
@@ -33,6 +35,13 @@ class Trace:
     device_ops: list
     idle_gaps: list
     n_device_ops: int
+    device_by_name: dict = dataclasses.field(default_factory=dict)
+
+    def device_s_of(self, prefix: str) -> float:
+        """Device seconds of the operations whose name starts with
+        prefix."""
+        return sum(v for k, v in self.device_by_name.items()
+                   if k.startswith(prefix))
 
 
 def profile(body, device) -> tuple[object, Trace]:
@@ -99,7 +108,7 @@ def summarize(events: list) -> Trace:
                  device_s=sum(by_name.values()),
                  device_ops=[[k, v] for k, v in by_name.most_common(TOP)],
                  idle_gaps=[[k, v] for k, v in idle.most_common(TOP)],
-                 n_device_ops=len(dev))
+                 n_device_ops=len(dev), device_by_name=dict(by_name))
 
 
 def _label(host: list, starts: list, t: float) -> str:
