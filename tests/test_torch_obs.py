@@ -340,6 +340,67 @@ def test_cli_timers_read_the_phase_spans(tmp_path, capsys):
     assert took == pytest.approx(build.seconds, abs=1e-6)
 
 
+def test_counters_are_set_read_and_reset():
+    """The counter store, read as the benchmark reads it: by the module's
+    name, never by importing the program."""
+    import sys
+
+    obs.set_counters({"dia.ring_segments": 3, "dia.step_rows": 512})
+    obs.set_counters({"dia.step_rows": 256})
+    read = getattr(sys.modules.get("tpu_spmv_torch.obs"), "counters", None)
+    assert read() == {"dia.ring_segments": 3, "dia.step_rows": 256}
+    read()["dia.other"] = 1  # a copy
+    assert "dia.other" not in obs.counters()
+    obs.reset()
+    assert obs.counters() == {}
+
+
+def _spmm_layouts(mat):
+    from tpu_spmv_torch.formats.packed import PackedRanked
+    from tpu_spmv_torch.kernels import spmm
+
+    ranked = RankedSlabs.from_csr(mat)
+    return {"spmm_packed": (PackedRanked.from_csr(mat), spmm.spmm_packed),
+            "spmm_ranked": (ranked, spmm.spmm_ranked),
+            "spmm_ranked_windowed": (ranked, spmm.spmm_ranked_windowed)}
+
+
+@pytest.mark.parametrize("name", ["spmm_packed", "spmm_ranked",
+                                  "spmm_ranked_windowed"])
+def test_spmm_calls_record_their_span(name):
+    mat = laplacian_2d(24)
+    lay, fn = _spmm_layouts(mat)[name]
+    X = torch.randn(mat.n, 3)
+    obs.reset()  # the layouts' build phases
+    fn(lay, X)
+    assert obs.spans() == []
+    with profile(activities=[ProfilerActivity.CPU]):
+        for _ in range(2):
+            fn(lay, X)
+    assert [s.name for s in obs.spans()] == [f"entry.{name}"] * 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["spmm_packed", "spmm_ranked",
+                                  "spmm_ranked_windowed"])
+def test_an_spmm_launch_records_its_three_steps(cuda, name):
+    mat = laplacian_2d(64)
+    lay, fn = _spmm_layouts(mat)[name]
+    lay = lay.to(cuda)
+    X = torch.randn(mat.n, 8, device=cuda)
+    fn(lay, X)
+    torch.cuda.synchronize()
+    obs.reset()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        fn(lay, X)
+        torch.cuda.synchronize()
+    spans = obs.spans()
+    call, = _by_name(spans, f"entry.{name}")
+    steps = sorted((s for s in spans if s.parent == call.id),
+                   key=lambda s: s.start_ns)
+    assert [s.name for s in steps] == STEPS
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("kernel", ["packed", "dia"])
 def test_a_launch_records_its_three_steps(cuda, kernel):

@@ -2,14 +2,17 @@
 main matrices, for comparing two trees of the port on one card.
 
     python -m tpu_spmv_torch.bench.dia_times [--tag NAME]
-        [--cases lap2d_4096:f32 lap2d_4096:bf16 lap2d_1024:f32]
-        [--step-rows S [S ...]]
+        [--cases lap2d_4096:f32 lap2d_4096:bf16 lap2d_1024:f32
+                 hpcg27_256:f32] [--step-rows S [S ...]]
 
 On each case (lap2d_4096: 16.8M rows, x 67 MB, past half the L2;
-lap2d_1024: 1M rows; natural order, DIA layout in the case's value type)
-it times (warm TimeMin, CUDA graph, bench/harness.bench_spmv, twice
-each) spmv_dia_windowed and spmv_dia on the same layout and x, one line
-each, with the windowed kernel's largest difference from spmv_dia, after
+lap2d_1024: 1M rows; hpcg27_256, not run by default: HPCG's 27-point
+operator on NVIDIA's 256^3 grid, 16.8M rows and 449M nonzeros, whose
+ring is cut into one segment a z-plane; natural order, DIA layout in the
+case's value type) it times (warm TimeMin, CUDA graph,
+bench/harness.bench_spmv, twice each) spmv_dia_windowed and spmv_dia on
+the same layout and x, one line each, with the windowed kernel's largest
+difference from spmv_dia and whether the two are bit-equal, after
 the card's nvidia-smi name and power limit and the rate of a 400 MB
 device-to-device copy (torch's copy_, best of 20: the rate a stream that
 reads and writes device memory reaches on this card, beside the data
@@ -29,6 +32,7 @@ import numpy as np
 import torch
 
 CASES = ("lap2d_4096:f32", "lap2d_4096:bf16", "lap2d_1024:f32")
+CHOICES = CASES + ("hpcg27_256:f32",)
 
 
 def _time(fn, lay, x, nnz: int) -> str:
@@ -59,13 +63,14 @@ def _copy_rate(dev, floats: int = 100_000_000) -> str:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--tag", default="tree")
-    ap.add_argument("--cases", nargs="*", default=CASES, choices=CASES)
+    ap.add_argument("--cases", nargs="*", default=CASES, choices=CHOICES)
     ap.add_argument("--step-rows", type=int, nargs="*", default=())
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: the times are the card's")
 
     from tpu_spmv_torch import hw
+    from tpu_spmv_torch.bench.solve_times import hpcg27
     from tpu_spmv_torch.formats.dia import DiaSlabs
     from tpu_spmv_torch.kernels import dia as kdia
     from tpu_spmv_torch.tools.spmv import load_input
@@ -77,16 +82,25 @@ def main(argv=None) -> int:
     for case in args.cases:
         name, tag = case.split(":")
         if name != loaded:
-            loaded, mat = name, load_input(f"synthetic:{name}")
+            loaded, mat = name, None
+            mat = (hpcg27(256) if name == "hpcg27_256"
+                   else load_input(f"synthetic:{name}"))
         vdt = torch.bfloat16 if tag == "bf16" else None
         lay = DiaSlabs.from_csr(mat, val_dtype=vdt).to(dev)
         x = torch.from_numpy(np.random.default_rng(0).standard_normal(
             mat.n).astype(np.float32)).to(dev)
-        diff = float((kdia.spmv_dia_windowed(lay, x)
-                      - kdia.spmv_dia(lay, x)).abs().max())
+        y_win, y_dia = kdia.spmv_dia_windowed(lay, x), kdia.spmv_dia(lay, x)
+        diff = float((y_win - y_dia).abs().max())
+        same = bool(torch.equal(y_win, y_dia))
+        del y_win, y_dia
         print(f"{args.tag} {case} spmv_dia_windowed: warm TimeMin us "
               f"{_time(kdia.spmv_dia_windowed, lay, x, mat.nnz)} "
-              f"(max|windowed-dia| {diff:.3g})", flush=True)
+              f"(max|windowed-dia| {diff:.3g}, bit-equal {same})",
+              flush=True)
+        ring = kdia.dia_ring(lay, kdia.dia_smem_budget(dev))
+        print(f"{args.tag} {case} ring: {ring.segments} "
+              f"S={ring.step_rows} W={ring.ring} {ring.smem} bytes "
+              f"{kdia.dia_windowed_ctas(lay, ring)} CTAs", flush=True)
         print(f"{args.tag} {case} spmv_dia on the same layout: warm TimeMin "
               f"us {_time(kdia.spmv_dia, lay, x, mat.nnz)}", flush=True)
         if not hasattr(kdia, "DIA_STEP_ROWS"):

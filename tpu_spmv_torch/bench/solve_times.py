@@ -71,22 +71,31 @@ def bidiagonal_chain(n: int = CHAIN_ROWS):
     )
 
 
-def hpcg27(n: int):
-    """HPCG's operator on an n^3 grid (GenerateProblem_ref: 26 on the
-    diagonal, -1 for each neighbour inside the grid), rows in natural
-    order (x fastest), as a CSRMatrix."""
+def hpcg27(n: int, nz: int | None = None):
+    """HPCG's operator on an n x n x nz grid (n^3 by default;
+    GenerateProblem_ref: 26 on the diagonal, -1 for each neighbour inside
+    the grid), rows in natural order (x fastest), as a CSRMatrix, built
+    row by row in column order: no sort of the nonzeros, which at 256^3
+    (449M) would take minutes."""
     from tpu_spmv_torch.formats.csr import CSRMatrix
 
-    idx = np.arange(n ** 3).reshape(n, n, n)  # (z, y, x)
-    rows, cols = [], []
-    for dz, dy, dx in itertools.product((-1, 0, 1), repeat=3):
-        src = idx[max(0, -dz):n - max(0, dz), max(0, -dy):n - max(0, dy),
-                  max(0, -dx):n - max(0, dx)]
-        rows.append(src.reshape(-1))
-        cols.append((src + dz * n * n + dy * n + dx).reshape(-1))
-    rows, cols = np.concatenate(rows), np.concatenate(cols)
-    vals = np.where(rows == cols, 26.0, -1.0).astype(np.float32)
-    return CSRMatrix.from_coo(rows, cols, vals, (n ** 3, n ** 3))
+    nz = n if nz is None else nz
+    rows = nz * n * n
+    z, y, x = np.unravel_index(np.arange(rows, dtype=np.int64), (nz, n, n))
+    inside = np.empty((rows, 27), dtype=bool)
+    cols = np.empty((rows, 27), dtype=np.int32)
+    for k, (dz, dy, dx) in enumerate(itertools.product((-1, 0, 1),
+                                                       repeat=3)):
+        inside[:, k] = ((z + dz >= 0) & (z + dz < nz) & (y + dy >= 0)
+                        & (y + dy < n) & (x + dx >= 0) & (x + dx < n))
+        cols[:, k] = np.arange(rows, dtype=np.int64) + (dz * n * n + dy * n
+                                                        + dx)
+    del z, y, x
+    indptr = np.zeros(rows + 1, dtype=np.int64)
+    np.cumsum(inside.sum(axis=1), out=indptr[1:])
+    vals = np.full((rows, 27), -1.0, np.float32)
+    vals[:, 13] = 26.0  # (0, 0, 0), the 14th of the 27 offsets
+    return CSRMatrix(indptr, cols[inside], vals[inside], (rows, rows))
 
 
 def hpcg27_system(n: int):

@@ -5,15 +5,19 @@ their plain PyTorch versions.
 `spmv_dia_windowed(layout, x)` its `spmv_dia_windowed`, the route for an
 x past `dia_x_fits`: persistent CTAs walk steps of S rows, a producer
 warp bulk-copying each step's diagonal values into one of two stages and
-sliding x into a ring of W floats in shared memory (`dia_ring` sizes
-both). On a CPU tensor each runs its plain version; on a CUDA tensor it
-launches its kernel or raises. `<wrapper>.launches` counts kernel
+sliding x into a ring of W floats in shared memory for each segment of
+the diagonals (`dia_ring` cuts the segments and sizes both). On a CPU
+tensor each runs its plain version; on a CUDA tensor it launches its
+kernel or raises. `<wrapper>.launches` counts kernel
 launches.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import functools
+import typing
 
 import torch
 
@@ -34,6 +38,10 @@ DIA_STEP_ROWS = 1024
 # PERF.md). The launcher refuses a shared-memory size that does not hold
 # its own count of stages, so the two cannot drift apart unnoticed.
 DIA_STAGES = 2
+# The most segments a ring is cut into (csrc/windowed.cu's
+# kDiaMaxSegments): their first diagonals travel in the kernel's
+# parameters.
+DIA_MAX_SEGMENTS = 64
 
 
 def spmv_dia_reference(layout: DiaSlabs, x: torch.Tensor) -> torch.Tensor:
@@ -86,20 +94,45 @@ def _round_up(v: int, m: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class DiaRing:
-    """Shared memory of one CTA of spmv_dia_windowed (csrc/windowed.cu)."""
+    """Shared memory of one CTA of spmv_dia_windowed (csrc/windowed.cu):
+    the diagonals cut into C segments, runs of consecutive offsets, each
+    with a window of x of its own."""
 
     step_rows: int  # S: rows a step, a multiple of 128 dividing the tile
-    ring: int  # W: floats of x held, >= span + 2S, a multiple of 32
+    ring: int  # W: floats of x a segment holds, >= its span + 2S, 32 | W
     stage_bytes: int  # one stage: the D runs of a step's S values
-    smem: int  # dynamic: the ring, two stages and the D offsets
+    smem: int  # dynamic: C rings of W floats, two stages and the D offsets
+    segments: tuple = (0,)  # the first diagonal of each segment
 
 
-def _ring_at(layout: DiaSlabs, rows: int) -> DiaRing:
-    span = max(layout.offsets) - min(layout.offsets)
-    d = layout.num_diagonals
+def _ring_size(offsets, elem: int, rows: int, firsts=(0,)) -> DiaRing:
+    """The ring of `rows` a step with segments starting at the diagonals
+    `firsts`: every segment takes the widest one's W."""
+    ends = tuple(firsts[1:]) + (len(offsets),)
+    span = max(offsets[e - 1] - offsets[f] for f, e in zip(firsts, ends))
+    d = len(offsets)
     ring = _round_up(span + DIA_STAGES * rows, 32)
-    stage = _round_up(d * rows * layout.vals.element_size(), 128)
-    return DiaRing(rows, ring, stage, 4 * ring + DIA_STAGES * stage + 4 * d)
+    stage = _round_up(d * rows * elem, 128)
+    return DiaRing(rows, ring, stage,
+                   4 * len(firsts) * ring + DIA_STAGES * stage + 4 * d,
+                   tuple(firsts))
+
+
+def _ring_at(layout: DiaSlabs, rows: int, firsts=(0,)) -> DiaRing:
+    return _ring_size(layout.offsets, layout.vals.element_size(), rows,
+                      firsts)
+
+
+def ring_splits(offsets) -> list:
+    """The segment cuts dia_ring tries, in order, each a tuple of first
+    diagonals: one segment, then cut at the largest gap between
+    consecutive offsets, then at the two largest (ties: the lower
+    diagonal first), and so on up to one segment an offset or
+    DIA_MAX_SEGMENTS."""
+    gaps = sorted(range(1, len(offsets)),
+                  key=lambda j: (offsets[j - 1] - offsets[j], j))
+    most = min(len(offsets), DIA_MAX_SEGMENTS)
+    return [(0,) + tuple(sorted(gaps[:c])) for c in range(most)]
 
 
 def dia_smem_budget(device) -> int:
@@ -110,60 +143,108 @@ def dia_smem_budget(device) -> int:
     budget = hw.smem_per_block(device)
     if torch.device(device).type != "cuda":
         return budget
+    return budget - _static_smem()
+
+
+@functools.lru_cache(maxsize=1)
+def _static_smem() -> int:
     static = _build.library().tsp_dia_windowed_static_smem()
     if static < 0:
         _build.check(-static, "dia_smem_budget")
-    return budget - static
+    return static
 
 
-def dia_ring(layout: DiaSlabs, budget: int) -> DiaRing:
-    """The ring of spmv_dia_windowed: the largest step S of at most
-    DIA_STEP_ROWS rows that is a multiple of 128, divides the layout's
-    tile (rb * 128 rows, so a step's values are one contiguous run per
-    diagonal) and whose ring of W = span + 2S floats (span = max offset -
-    min offset; rounded up to 32 floats, so every bulk copy into it stays
-    16-byte aligned), two stages of D * S values and the D offsets fit
-    `budget` bytes of dynamic shared memory (dia_smem_budget). Raises
-    ValueError when not even 128 rows fit."""
-    rows_per_tile = layout.vals.shape[2] * LANES
-    top = min(DIA_STEP_ROWS, rows_per_tile) // LANES * LANES
-    for rows in range(top, 0, -LANES):
-        if rows_per_tile % rows:
-            continue
-        ring = _ring_at(layout, rows)
-        if ring.smem <= budget:
-            return ring
-    need = _ring_at(layout, LANES).smem
-    span = max(layout.offsets) - min(layout.offsets)
+def ring_plan(offsets: tuple, rows_per_tile: int, elem: int, budget: int,
+              most: int) -> DiaRing:
+    """The ring of spmv_dia_windowed for ascending `offsets`, a tile of
+    `rows_per_tile` rows and `elem`-byte values: the fewest segments
+    (ring_splits' order), and at that cut the largest step S of at most
+    `most` rows that is a multiple of 128, divides the tile (so a step's
+    values are one contiguous run per diagonal), and whose C rings of W
+    floats (the widest segment's span + 2S, rounded up to 32 floats, so
+    every bulk copy into it stays 16-byte aligned), two stages of D * S
+    values and the D offsets fit `budget` bytes of dynamic shared memory.
+    One segment stages x once a CTA run; each more segment stages it once
+    more, so fewer segments come before a larger step. Raises ValueError
+    when no cut fits at 128 rows."""
+    top = min(most, rows_per_tile) // LANES * LANES
+    splits = ring_splits(offsets)
+    for firsts in splits:
+        for rows in range(top, 0, -LANES):
+            if rows_per_tile % rows:
+                continue
+            ring = _ring_size(offsets, elem, rows, firsts)
+            if ring.smem <= budget:
+                return ring
+    need = min(_ring_size(offsets, elem, LANES, f).smem for f in splits)
+    span = max(offsets) - min(offsets)
     raise ValueError(
         f"windowed DIA ring and stages are {need} bytes at 128 rows a step "
-        f"(halo {span} entries, {layout.num_diagonals} diagonals), beyond "
-        f"the {budget}-byte shared-memory budget: the diagonal offsets span "
+        f"at the least, over every cut into segments up to one an offset "
+        f"(halo {span} entries, {len(offsets)} diagonals), beyond the "
+        f"{budget}-byte shared-memory budget: the diagonal offsets span "
         "too far; use a gather kernel (ranked) for this structure"
     )
 
 
-def spmv_dia_windowed_reference(layout: DiaSlabs,
-                                x: torch.Tensor) -> torch.Tensor:
-    """Plain version through the reference's per-tile windows: x padded
-    with glo and ghi zero guard blocks, tile t's window the win_w =
-    glo + rb + ghi blocks from block t * rb of it, and row i of the tile
-    reading the window at glo * 128 + i + off for each offset, added in
-    ascending offset order as spmv_dia_reference does."""
+def dia_ring(layout: DiaSlabs, budget: int) -> DiaRing:
+    """The ring of spmv_dia_windowed for this layout under `budget`
+    bytes of dynamic shared memory (dia_smem_budget): ring_plan at the
+    layout's offsets, tile and value size, and steps of at most
+    DIA_STEP_ROWS rows."""
+    return ring_plan(tuple(layout.offsets), layout.vals.shape[2] * LANES,
+                     layout.vals.element_size(), budget, DIA_STEP_ROWS)
+
+
+def x_staged_floats(offsets, ring: DiaRing, m: int, n: int,
+                    ctas: int) -> int:
+    """Entries of x (inside [0, n)) that one call of spmv_dia_windowed
+    copies into shared memory over all its CTAs: CTA b walks steps [i0,
+    i1) (an even share of the ceil(m / S) steps) and stages, for each
+    segment, x over [i0 S + lo, i1 S + hi), lo and hi the segment's
+    lowest and highest offsets."""
+    S = ring.step_rows
+    steps = -(-m // S)
+    ends = ring.segments[1:] + (len(offsets),)
+    total = 0
+    for b in range(ctas):
+        i0, i1 = b * steps // ctas, (b + 1) * steps // ctas
+        if i1 <= i0:
+            continue
+        for f, e in zip(ring.segments, ends):
+            lo = max(i0 * S + offsets[f], 0)
+            hi = min(i1 * S + offsets[e - 1], n)
+            total += max(hi - lo, 0)
+    return total
+
+
+def spmv_dia_windowed_reference(layout: DiaSlabs, x: torch.Tensor,
+                                segments: tuple = (0,)) -> torch.Tensor:
+    """Plain version through windows of x, one for each segment of the
+    diagonals, given by its first diagonal (DiaRing.segments; by default
+    one segment, the whole band): for each tile and each segment, the
+    tile's rows + the segment's span entries of x from the tile's first
+    row plus the segment's lowest offset (zero outside [0, n)), row i of
+    the tile reading it at i + off - lowest; the diagonals added in
+    ascending offset order, as spmv_dia_reference adds them, so the
+    segments do not change the result."""
     T, D, rb, _ = layout.vals.shape
-    glo, ghi = _guard_blocks(layout)
     rows = rb * LANES
-    xp = torch.zeros((glo + T * rb + ghi) * LANES, dtype=torch.float32,
+    offs = layout.offsets
+    below, above = max(0, -min(offs)), max(0, max(offs))
+    xp = torch.zeros(below + T * rows + above, dtype=torch.float32,
                      device=x.device)
-    xp[glo * LANES : glo * LANES + layout.n] = x
-    start = torch.arange(T, device=x.device) * rows
-    wins = xp[start[:, None]
-              + torch.arange((glo + rb + ghi) * LANES, device=x.device)]
+    xp[below : below + layout.n] = x
+    start = torch.arange(T, device=x.device) * rows + below
     vals = layout.vals.reshape(T, D, rows).float()
     y = torch.zeros(T, rows, dtype=torch.float32, device=x.device)
-    for k, off in enumerate(layout.offsets):
-        lo = glo * LANES + off
-        y += vals[:, k] * wins[:, lo : lo + rows]
+    for first, end in zip(segments, tuple(segments[1:]) + (D,)):
+        low, span = offs[first], offs[end - 1] - offs[first]
+        wins = xp[(start + low)[:, None]
+                  + torch.arange(rows + span, device=x.device)]
+        for k in range(first, end):
+            at = offs[k] - low
+            y += vals[:, k] * wins[:, at : at + rows]
     return y.reshape(-1)[: layout.m]
 
 
@@ -201,39 +282,79 @@ def spmv_dia(layout: DiaSlabs, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def _ring_args(layout: DiaSlabs, ring: DiaRing) -> tuple:
-    _, D, rb, _ = layout.vals.shape
-    return (_VAL_KIND[layout.vals.dtype], D, rb, ring.step_rows, ring.ring,
-            ring.stage_bytes)
+def _ring_args(shape, dtype, ring: DiaRing) -> tuple:
+    """The C entries' sizes for vals of `shape` and `dtype`: val_kind, D,
+    rb, S, W, stage_bytes, the segments' first diagonals (a C array
+    ending in D) and C."""
+    _, D, rb, _ = shape
+    firsts = (ctypes.c_int * (len(ring.segments) + 1))(*ring.segments, D)
+    return (_VAL_KIND[dtype], D, rb, ring.step_rows, ring.ring,
+            ring.stage_bytes, firsts, len(ring.segments))
+
+
+def _ctas(sizes: tuple, m: int, smem: int, device) -> int:
+    with torch.cuda.device(device):
+        ctas = _build.library().tsp_dia_windowed_ctas(*sizes, max(m, 1),
+                                                      smem)
+    if ctas < 0:
+        _build.check(-ctas, "dia_windowed_ctas")
+    return ctas
 
 
 def dia_windowed_ctas(layout: DiaSlabs, ring: DiaRing) -> int:
     """CTAs a launch of spmv_dia_windowed runs on the current card for
     this layout and ring: as many as fit at once at its shared memory, at
     most one per step. Raises like a launch."""
-    ctas = _build.library().tsp_dia_windowed_ctas(
-        *_ring_args(layout, ring), max(layout.m, 1), ring.smem)
-    if ctas < 0:
-        _build.check(-ctas, "dia_windowed_ctas")
-    return ctas
+    return _ctas(_ring_args(layout.vals.shape, layout.vals.dtype, ring),
+                 layout.m, ring.smem, layout.vals.device)
+
+
+class _Launch(typing.NamedTuple):
+    ring: DiaRing
+    sizes: tuple  # _ring_args
+    counters: dict  # what obs.set_counters records of a call
+
+
+@functools.lru_cache(maxsize=64)
+@obs.span("build.dia_ring")
+def _launch_plan(offsets: tuple, shape: tuple, dtype, m: int, n: int,
+                 budget: int, most: int, device: torch.device) -> _Launch:
+    """The ring (ring_plan), the C entry's sizes and the counters of a
+    call, planned once per layout shape, budget, step limit and card, in
+    the phase span build.dia_ring."""
+    if list(offsets) != sorted(offsets):
+        raise ValueError("spmv_dia_windowed: offsets must be ascending")
+    elem = torch.empty((), dtype=dtype).element_size()
+    ring = ring_plan(offsets, shape[2] * LANES, elem, budget, most)
+    sizes = _ring_args(shape, dtype, ring)
+    ctas = _ctas(sizes, m, ring.smem, device)
+    return _Launch(ring, sizes, {
+        "dia.ring_segments": len(ring.segments),
+        "dia.ring_smem_bytes": ring.smem,
+        "dia.step_rows": ring.step_rows,
+        "dia.x_staged_floats": x_staged_floats(offsets, ring, m, n, ctas),
+    })
 
 
 @obs.entry
 def spmv_dia_windowed(layout: DiaSlabs, x: torch.Tensor) -> torch.Tensor:
-    """y = A @ x through a ring of x in shared memory filled a step ahead
-    (dia_ring); same layout and bits as spmv_dia. Raises ValueError when
-    vals is not 16-byte aligned or no ring fits the card's shared memory
-    (dia_smem_budget)."""
+    """y = A @ x through rings of x in shared memory filled a step ahead,
+    one a segment of the diagonals (dia_ring; planned once per layout
+    shape and card); same layout and bits as spmv_dia. Raises ValueError
+    when vals is not 16-byte aligned or no ring fits the card's shared
+    memory (dia_smem_budget). Each call sets the counters (obs)
+    dia.ring_segments, dia.ring_smem_bytes, dia.step_rows and
+    dia.x_staged_floats (x_staged_floats)."""
     if x.device.type == "cpu":
         return spmv_dia_windowed_reference(layout, x)
     _check_dia(layout, x, "spmv_dia_windowed")
-    if list(layout.offsets) != sorted(layout.offsets):
-        raise ValueError("spmv_dia_windowed: offsets must be ascending")
     if layout.vals.data_ptr() % 16:
         raise ValueError("spmv_dia_windowed: vals must be 16-byte aligned "
                          "(a step's values are bulk-copied); pass a copy")
-    ring = dia_ring(layout, dia_smem_budget(x.device))
-    kind, *sizes = _ring_args(layout, ring)
+    plan = _launch_plan(tuple(layout.offsets), tuple(layout.vals.shape),
+                        layout.vals.dtype, layout.m, layout.n,
+                        dia_smem_budget(x.device), DIA_STEP_ROWS, x.device)
+    kind, *sizes = plan.sizes
     obs.step("entry.alloc")
     y = torch.empty(layout.m, dtype=torch.float32, device=x.device)
     if layout.m == 0:
@@ -241,11 +362,12 @@ def spmv_dia_windowed(layout: DiaSlabs, x: torch.Tensor) -> torch.Tensor:
     obs.step("entry.launch")
     rc = _build.library().tsp_spmv_dia_windowed(
         kind, layout.vals.data_ptr(), layout.offs.data_ptr(), *sizes,
-        x.data_ptr(), y.data_ptr(), layout.m, layout.n, ring.smem,
+        x.data_ptr(), y.data_ptr(), layout.m, layout.n, plan.ring.smem,
         _build.stream_of(x),
     )
     _build.check(rc, "spmv_dia_windowed")
     spmv_dia_windowed.launches += 1
+    obs.set_counters(plan.counters)
     return y
 
 

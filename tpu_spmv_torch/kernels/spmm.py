@@ -30,13 +30,16 @@ X is (n, B) float32, row-major, any B >= 1; Y is (m, B) float32. On a
 CPU tensor each runs its plain version (the single-vector plain
 versions with an (n, B) gather); on a CUDA tensor it launches the
 kernel or raises. `<wrapper>.launches` counts calls that launched the
-kernel, once per call.
+kernel, once per call. Each is an eager entry (obs.entry: its call span
+and the launchers' entry.check / entry.alloc / entry.launch steps while
+a profiler records), as the SpMV wrappers are.
 """
 
 from __future__ import annotations
 
 import torch
 
+from tpu_spmv_torch import obs
 from tpu_spmv_torch.formats.packed import PackedRanked
 from tpu_spmv_torch.formats.sell import RankedSlabs
 from tpu_spmv_torch.kernels.packed import launch_packed, spmv_packed_reference
@@ -63,6 +66,7 @@ def spmm_packed_reference(layout: PackedRanked, X: torch.Tensor) -> torch.Tensor
     return spmv_packed_reference(layout, X)
 
 
+@obs.entry
 def spmm_ranked(layout: RankedSlabs, X: torch.Tensor) -> torch.Tensor:
     """Y = A @ X with A in rank-windowed SELL layout (grouped or not)."""
     if X.device.type == "cpu":
@@ -72,6 +76,7 @@ def spmm_ranked(layout: RankedSlabs, X: torch.Tensor) -> torch.Tensor:
     return Y
 
 
+@obs.entry
 def spmm_ranked_windowed(layout: RankedSlabs, X: torch.Tensor) -> torch.Tensor:
     """Y = A @ X with X staged in shared memory, a ring of ring_blocks
     blocks of 128 rows and B columns filled a step ahead; same results
@@ -84,6 +89,7 @@ def spmm_ranked_windowed(layout: RankedSlabs, X: torch.Tensor) -> torch.Tensor:
     return Y
 
 
+@obs.entry
 def spmm_packed(layout: PackedRanked, X: torch.Tensor) -> torch.Tensor:
     """Y = A @ X with A in packed mixed-height layout (grouped or not)."""
     if X.device.type == "cpu":

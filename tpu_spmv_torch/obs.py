@@ -33,6 +33,10 @@ entries and counting those it dropped, so a traced window's calls never
 push out a build's phases. `spans()` returns what they hold, `reset()`
 clears them. The recorder has no exporter and no file output, and reads
 no environment variable.
+
+Beside the spans, a small store of counters: named numbers a kernel
+wrapper sets for what its last call did (`set_counters`, a dict update
+a call), read with `counters()` and cleared by `reset()`.
 """
 
 from __future__ import annotations
@@ -133,6 +137,7 @@ class _Local(threading.local):
 
 
 RECORDER = Recorder()
+_COUNTERS: dict = {}
 _ids = itertools.count(1)
 _local = _Local()
 
@@ -251,9 +256,21 @@ def dropped() -> Dropped:
     return Dropped(RECORDER.phases.dropped(), RECORDER.calls.dropped())
 
 
+def set_counters(values: dict) -> None:
+    """Sets each counter named in `values` to its value (the last call's
+    reading, not a running total)."""
+    _COUNTERS.update(values)
+
+
+def counters() -> dict:
+    """A copy of the counters set since the last reset."""
+    return dict(_COUNTERS)
+
+
 def reset() -> None:
     RECORDER.phases.clear()
     RECORDER.calls.clear()
+    _COUNTERS.clear()
 
 
 def mark() -> int:

@@ -328,7 +328,8 @@ def build_layout(matrix, kernel: str, val_dtype=None, bin_blocks: int = 0,
         ring = dia_ring(layout, dia_smem_budget(device))
         print(f"x exceeds the L2 residency budget ({x_budget(matrix.n, device)}"
               f"); using the HBM-windowed DIA kernel: steps of "
-              f"{ring.step_rows} rows, a ring of {ring.ring} floats of x, "
+              f"{ring.step_rows} rows, {len(ring.segments)} segment(s) of "
+              f"the diagonals, a ring of {ring.ring} floats of x each, "
               f"{ring.smem} bytes of shared memory a CTA")
         return layout, spmv_dia_windowed, "dia"
     if kernel == "ranked" and bin_blocks > 0 and not _packed_x_fits(
