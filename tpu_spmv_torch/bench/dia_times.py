@@ -3,13 +3,26 @@ main matrices, for comparing two trees of the port on one card.
 
     python -m tpu_spmv_torch.bench.dia_times [--tag NAME]
         [--cases lap2d_4096:f32 lap2d_4096:bf16 lap2d_1024:f32
-                 hpcg27_256:f32] [--step-rows S [S ...]]
+                 hpcg27_256:f32 hpcg27_512x512x64:f32 lap3d_256:f32]
+        [--step-rows S [S ...]]
 
-On each case (lap2d_4096: 16.8M rows, x 67 MB, past half the L2;
-lap2d_1024: 1M rows; hpcg27_256, not run by default: HPCG's 27-point
-operator on NVIDIA's 256^3 grid, 16.8M rows and 449M nonzeros, whose
-ring is cut into one segment a z-plane; natural order, DIA layout in the
-case's value type) it times (warm TimeMin, CUDA graph,
+The cases, natural order, DIA layout in the case's value type, and the
+route kernels/dia.dia_route picks for each on an H100:
+
+- lap2d_4096: 16.8M rows, x 67 MB, past half the L2; windowed, one ring.
+- lap2d_1024: 1M rows; resident, x fits.
+- hpcg27_256 (not run by default, nor the two below): HPCG's 27-point
+  operator on NVIDIA's 256^3 grid, 16.8M rows and 449M nonzeros, whose
+  ring is cut into one segment a z-plane; resident, its reuse window
+  (15.3 MB) within the budget.
+- hpcg27_512x512x64: the same operator on 512 x 512 x 64, 16.8M rows;
+  resident, its reuse window (60.9 MB) past the budget, though a ring of
+  3 segments fits.
+- lap3d_256: the 7-point Laplacian on 256^3, 16.8M rows, a ring of 3
+  segments; resident, its reuse window (4.7 MB) within the budget.
+
+On each case it prints the route where the tree has dia_route, and
+times (warm TimeMin, CUDA graph,
 bench/harness.bench_spmv, twice each) spmv_dia_windowed and spmv_dia on
 the same layout and x, one line each, with the windowed kernel's largest
 difference from spmv_dia and whether the two are bit-equal, after
@@ -32,7 +45,22 @@ import numpy as np
 import torch
 
 CASES = ("lap2d_4096:f32", "lap2d_4096:bf16", "lap2d_1024:f32")
-CHOICES = CASES + ("hpcg27_256:f32",)
+CHOICES = CASES + ("hpcg27_256:f32", "hpcg27_512x512x64:f32",
+                   "lap3d_256:f32")
+
+
+def _matrix(name: str):
+    from tpu_spmv_torch.bench.matrices import laplacian_3d
+    from tpu_spmv_torch.bench.solve_times import hpcg27
+    from tpu_spmv_torch.tools.spmv import load_input
+
+    if name == "hpcg27_256":
+        return hpcg27(256)
+    if name == "hpcg27_512x512x64":
+        return hpcg27(512, 64)
+    if name == "lap3d_256":
+        return laplacian_3d(256)
+    return load_input(f"synthetic:{name}")
 
 
 def _time(fn, lay, x, nnz: int) -> str:
@@ -70,10 +98,8 @@ def main(argv=None) -> int:
         raise SystemExit("no CUDA device: the times are the card's")
 
     from tpu_spmv_torch import hw
-    from tpu_spmv_torch.bench.solve_times import hpcg27
     from tpu_spmv_torch.formats.dia import DiaSlabs
     from tpu_spmv_torch.kernels import dia as kdia
-    from tpu_spmv_torch.tools.spmv import load_input
 
     print(hw.nvidia_smi(), flush=True)
     dev = torch.device("cuda")
@@ -83,10 +109,14 @@ def main(argv=None) -> int:
         name, tag = case.split(":")
         if name != loaded:
             loaded, mat = name, None
-            mat = (hpcg27(256) if name == "hpcg27_256"
-                   else load_input(f"synthetic:{name}"))
+            mat = _matrix(name)
         vdt = torch.bfloat16 if tag == "bf16" else None
         lay = DiaSlabs.from_csr(mat, val_dtype=vdt).to(dev)
+        if hasattr(kdia, "dia_route"):
+            route = kdia.dia_route(lay)
+            print(f"{args.tag} {case} route: {route.kernel} ({route.rule}; "
+                  f"x {route.x_bytes} B, reuse window {route.window_bytes} B,"
+                  f" budget {route.budget_bytes} B)", flush=True)
         x = torch.from_numpy(np.random.default_rng(0).standard_normal(
             mat.n).astype(np.float32)).to(dev)
         y_win, y_dia = kdia.spmv_dia_windowed(lay, x), kdia.spmv_dia(lay, x)

@@ -2,13 +2,13 @@
 their plain PyTorch versions.
 
 `spmv_dia(layout, x)` replaces `tpu_spmv/kernels/dia.py:spmv_dia` and
-`spmv_dia_windowed(layout, x)` its `spmv_dia_windowed`, the route for an
-x past `dia_x_fits`: persistent CTAs walk steps of S rows, a producer
-warp bulk-copying each step's diagonal values into one of two stages and
-sliding x into a ring of W floats in shared memory for each segment of
-the diagonals (`dia_ring` cuts the segments and sizes both). On a CPU
-tensor each runs its plain version; on a CUDA tensor it launches its
-kernel or raises. `<wrapper>.launches` counts kernel
+`spmv_dia_windowed(layout, x)` its `spmv_dia_windowed`, which `dia_route`
+picks for some x past `dia_x_fits`: persistent CTAs walk steps of S
+rows, a producer warp bulk-copying each step's diagonal values into one
+of two stages and sliding x into a ring of W floats in shared memory for
+each segment of the diagonals (`dia_ring` cuts the segments and sizes
+both). On a CPU tensor each runs its plain version; on a CUDA tensor it
+launches its kernel or raises. `<wrapper>.launches` counts kernel
 launches.
 """
 
@@ -42,6 +42,9 @@ DIA_STAGES = 2
 # kDiaMaxSegments): their first diagonals travel in the kernel's
 # parameters.
 DIA_MAX_SEGMENTS = 64
+# The share of the L2 that dia_x_fits holds the padded x to, and
+# dia_route the band's reuse window: half, the reference's rule.
+L2_BUDGET_FRAC = 0.5
 
 
 def spmv_dia_reference(layout: DiaSlabs, x: torch.Tensor) -> torch.Tensor:
@@ -73,19 +76,33 @@ def _guard_blocks(layout: DiaSlabs) -> tuple:
     return max(0, -min(qbs)), max(max(qbs) + 2, 1)
 
 
-def dia_x_fits(layout: DiaSlabs, budget_frac: float = 0.5) -> bool:
+def _padded_x_bytes(layout: DiaSlabs) -> int:
+    glo, ghi = _guard_blocks(layout)
+    return 4 * (glo + layout.num_blocks + ghi) * LANES
+
+
+def dia_x_fits(layout: DiaSlabs,
+               budget_frac: float = L2_BUDGET_FRAC) -> bool:
     """True when the padded x, (glo + num_blocks + ghi) * 128 floats,
     fits budget_frac of the L2 of the card the layout lies on
     (hw.l2_bytes: the H100's 50 MB off the card): then spmv_dia's x
-    reads stay in L2. Otherwise the CLI takes spmv_dia_windowed.
+    reads stay in L2. Otherwise dia_route weighs the band's L2 reuse
+    window and the ring.
 
     The reference (tpu_spmv/kernels/dia.py:dia_x_fits) also charges the
     double-buffered diagonal tiles and y tile that its kernel holds in
     VMEM. No GPU kernel here holds slab tiles or partials in L2 between
     uses, so only x is charged."""
-    glo, ghi = _guard_blocks(layout)
-    n_pad = (glo + layout.num_blocks + ghi) * LANES
-    return 4 * n_pad <= budget_frac * hw.l2_bytes(layout.vals.device)
+    return _padded_x_bytes(layout) <= budget_frac * hw.l2_bytes(
+        layout.vals.device)
+
+
+def l2_window_bytes(offsets, elem: int) -> int:
+    """Bytes that stream through the L2 while spmv_dia holds one entry
+    of x between its first and its last read: the band's span in rows
+    (max(offsets) - min(offsets)) times what a row streams, its D values
+    of `elem` bytes, 4 bytes of y and 4 of x."""
+    return (max(offsets) - min(offsets)) * (len(offsets) * elem + 8)
 
 
 def _round_up(v: int, m: int) -> int:
@@ -194,6 +211,67 @@ def dia_ring(layout: DiaSlabs, budget: int) -> DiaRing:
     DIA_STEP_ROWS rows."""
     return ring_plan(tuple(layout.offsets), layout.vals.shape[2] * LANES,
                      layout.vals.element_size(), budget, DIA_STEP_ROWS)
+
+
+@dataclasses.dataclass(frozen=True)
+class DiaRoute:
+    """dia_route's choice of kernel for a DIA layout and what it
+    compared."""
+
+    kernel: str  # "resident" (spmv_dia) or "windowed" (spmv_dia_windowed)
+    rule: str  # the test that decided it, in dia_route's order
+    x_bytes: int  # the padded x
+    window_bytes: int  # l2_window_bytes
+    budget_bytes: int  # the share of the L2 both are held to
+    ring: DiaRing | None = None  # the windowed kernel's, where routed
+
+    @property
+    def counters(self) -> dict:
+        return {"dia.route_resident": int(self.kernel == "resident"),
+                "dia.l2_window_bytes": self.window_bytes,
+                "dia.l2_budget_bytes": self.budget_bytes}
+
+
+def dia_route(layout: DiaSlabs) -> DiaRoute:
+    """The kernel for this layout on the card it lies on, from the first
+    of these tests that holds (budget: L2_BUDGET_FRAC of the L2, as
+    dia_x_fits):
+
+    1. "x fits": the padded x within the budget -> resident;
+    2. "one ring": a ring of one segment fits shared memory
+       (dia_ring), so the windowed kernel stages x once -> windowed;
+    3. "reuse window": l2_window_bytes within the budget, so x survives
+       in the L2 between its first and last read -> resident;
+    4. "past the window": resident too, its x re-read from device memory
+       once for each far group of diagonals, as a ring cut into segments
+       stages it once a segment, and at a lower step rate. On an H100
+       resident beat the segmented ring 1.83x with the window at 232% of
+       the budget (27-point, 512 x 512 x 64) and 1.72x at 929% (1024 x
+       1024 x 16); where no cut fits at all, resident is the one route.
+
+    Sets the counters (obs) dia.route_resident, dia.l2_window_bytes and
+    dia.l2_budget_bytes once, here, not per call."""
+    dev = layout.vals.device
+    budget = int(L2_BUDGET_FRAC * hw.l2_bytes(dev))
+    x_bytes = _padded_x_bytes(layout)
+    window = l2_window_bytes(layout.offsets, layout.vals.element_size())
+
+    def route(kernel, rule, ring=None):
+        chosen = DiaRoute(kernel, rule, x_bytes, window, budget, ring)
+        obs.set_counters(chosen.counters)
+        return chosen
+
+    if x_bytes <= budget:
+        return route("resident", "x fits")
+    try:
+        ring = dia_ring(layout, dia_smem_budget(dev))
+    except ValueError:
+        ring = None
+    if ring is not None and len(ring.segments) == 1:
+        return route("windowed", "one ring", ring)
+    if window <= budget:
+        return route("resident", "reuse window")
+    return route("resident", "past the window")
 
 
 def x_staged_floats(offsets, ring: DiaRing, m: int, n: int,

@@ -36,7 +36,9 @@ no environment variable.
 
 Beside the spans, a small store of counters: named numbers a kernel
 wrapper sets for what its last call did (`set_counters`, a dict update
-a call), read with `counters()` and cleared by `reset()`.
+a call), or a route decision for the layout it chose (kernels/dia.
+dia_route, once a layout), read with `counters()` and cleared by
+`reset()`.
 """
 
 from __future__ import annotations

@@ -26,7 +26,9 @@ otherwise, in the reference's format, so a cache of either package loads
 in the other.
 
 An x past the L2 residency gate (half the L2, hw.l2_bytes) takes the
-windowed DIA or ranked kernel, e.g. `synthetic:lap2d_4096` (x 67 MB), or,
+windowed DIA kernel where its ring stages x once, e.g.
+`synthetic:lap2d_4096` (x 67 MB; resident spmv_dia otherwise, e.g.
+HPCG's 256^3 grid: kernels/dia.dia_route); the windowed ranked kernel, or,
 for a column-binned ranked layout (`--bin-blocks W`), the column-striped
 passes, e.g. `synthetic:scattered_16m --kernel ranked --bin-blocks 64`
 (x 64 MB). There `--val-dtype bf16` stores bf16 stripes only where the
@@ -144,6 +146,32 @@ def x_budget(n: int, device, batch: int = 1) -> str:
             f"{hw.l2_bytes(device) / 2**20:.0f} MB L2")
 
 
+def dia_route_message(route) -> str:
+    """build_layout's line for a DIA layout's route (kernels/dia.
+    dia_route): the rule that decided and the bytes it compared."""
+    if route.rule == "x fits":
+        return (f"DIA route (x fits): x {route.x_bytes} B within the "
+                f"{route.budget_bytes} B budget, half the L2; resident "
+                "spmv_dia")
+    head = (f"x exceeds the L2 residency budget (x {route.x_bytes} B padded "
+            f"against {route.budget_bytes} B, half the L2); DIA route "
+            f"({route.rule}): ")
+    if route.rule == "one ring":
+        ring = route.ring
+        return head + (
+            f"using the HBM-windowed DIA kernel: steps of {ring.step_rows} "
+            f"rows, one segment of the diagonals, a ring of {ring.ring} "
+            f"floats of x, {ring.smem} bytes of shared memory a CTA")
+    window = (f"no ring of one segment fits shared memory; the band's L2 "
+              f"reuse window is {route.window_bytes} B against the "
+              f"{route.budget_bytes} B budget")
+    if route.rule == "reuse window":
+        return head + window + (", so x stays in the L2 between its first "
+                                "and last read; resident spmv_dia")
+    return head + window + ("; resident spmv_dia, its x reads go to device "
+                            "memory once for each far group of diagonals")
+
+
 def fit_window(layout, batch: int, device):
     """(layout, B'): the windowed kernels' ring of x blocks
     (kernels/sell.window_bytes), `batch` columns wide, held to the shared
@@ -259,9 +287,9 @@ def build_layout(matrix, kernel: str, val_dtype=None, bin_blocks: int = 0,
     dense); device defaults to the card (hw.target_device). Routed as
     tpu_spmv/tools/spmv.py routes them: a packed build that exceeds the
     packed-delta range falls back to ranked, and a ranked one to sell,
-    each saying so; past the x residency gate (kernels/dia.dia_x_fits,
-    kernels/sell.resident_x_fits) dia and ranked take their windowed
-    kernels, a column-binned ranked layout takes the column-striped
+    each saying so; dia takes the kernel kernels/dia.dia_route picks;
+    past the x residency gate (kernels/sell.resident_x_fits) ranked takes
+    its windowed kernel, a column-binned ranked layout the column-striped
     passes (bf16 values only where the card's calibration times them
     faster: striped_val_dtype), and sell warns. kernel "striped" stores
     `val_dtype` as given (main applies the gate to it).
@@ -273,7 +301,7 @@ def build_layout(matrix, kernel: str, val_dtype=None, bin_blocks: int = 0,
     from tpu_spmv_torch.formats.packed import PackedRanked
     from tpu_spmv_torch.formats.sell import RankedSlabs, SellSlabs
     from tpu_spmv_torch.kernels.dia import (
-        dia_ring, dia_smem_budget, dia_x_fits, spmv_dia, spmv_dia_windowed,
+        dia_route, spmv_dia, spmv_dia_windowed,
     )
     from tpu_spmv_torch.kernels.packed import spmv_packed
     from tpu_spmv_torch.kernels.sell import (
@@ -323,14 +351,10 @@ def build_layout(matrix, kernel: str, val_dtype=None, bin_blocks: int = 0,
         layout = DiaSlabs.from_csr(matrix, val_dtype=val_dtype).to(device)
         print(f"DIA: {layout.num_diagonals} diagonals, "
               f"fill {layout.padding_ratio:.2f}x")
-        if dia_x_fits(layout):
+        route = dia_route(layout)
+        print(dia_route_message(route))
+        if route.kernel == "resident":
             return layout, spmv_dia, "dia"
-        ring = dia_ring(layout, dia_smem_budget(device))
-        print(f"x exceeds the L2 residency budget ({x_budget(matrix.n, device)}"
-              f"); using the HBM-windowed DIA kernel: steps of "
-              f"{ring.step_rows} rows, {len(ring.segments)} segment(s) of "
-              f"the diagonals, a ring of {ring.ring} floats of x each, "
-              f"{ring.smem} bytes of shared memory a CTA")
         return layout, spmv_dia_windowed, "dia"
     if kernel == "ranked" and bin_blocks > 0 and not _packed_x_fits(
             matrix, bin_blocks):
