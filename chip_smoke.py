@@ -28,17 +28,16 @@ residency gate):
      and B = 5 columns (before each spmm_ranked phase a line gives the
      runs its walk takes and the device launches per call, and two
      replays of a captured call at B = 8 must give the same bits); the
-     windowed kernels spmv_dia_windowed (lap2d_4096 f32 and bf16,
-     lap2d_1024, and HPCG's operator on a 256 x 256 x 16 grid, its ring
-     cut into the 256^3 grid's three segments, with the counters of a
-     call printed), spmv_ranked_windowed (lap2d_4096 and lap2d_1024 after
+     windowed kernels spmv_dia_windowed (lap2d_4096 f32 and bf16 and
+     lap2d_1024, each call's dia.x_staged_floats printed and held to
+     x_staged_floats), spmv_ranked_windowed (lap2d_4096 and lap2d_1024 after
      RCM, banded_1m) and spmm_ranked_windowed (lap2d_1024 after RCM, B =
      8 and 5 at the CLI's step and column passes) are also held to their
      resident kernels on the same layout (spmv_dia_windowed to spmv_dia
      and spmv_ranked_windowed to spmv_ranked bit for bit, and two
      replays of a captured call of each must give the same bits), before
      each ring phase a line gives the ring's size (DIA: the step S, the
-     segments, the ring W and the stage bytes; ranked: the ring's bytes and the
+     ring W and the stage bytes; ranked: the ring's bytes and the
      steps), the CTAs, the column passes and the launches per call
      (lap2d_1024 at B = 8 must run in one pass), and lap2d_4096's host
      set-up seconds are printed; before each phase of spmv_ranked and spmv_sell a line
@@ -489,29 +488,38 @@ def _ring(label, lay, batch=1, passes=1):
 
 def _dia_ring(label, lay):
     """One line on the ring of a spmv_dia_windowed phase (kernels/dia.
-    dia_ring): the step S, the segments and each one's ring W (the widest
-    segment's span + 2S floats, rounded), the bytes of a stage and of all
-    shared memory, the CTAs a launch runs and the launches one call
-    counts (a call on x = 0)."""
+    dia_ring): the step S, the ring W (span + 2S floats, rounded), the
+    bytes of a stage and of all shared memory, the CTAs a launch runs,
+    the launches one call counts and the entries of x it stages (a call
+    on x = 0), which must be the counter dia.x_staged_floats and
+    x_staged_floats' count."""
     import torch
 
+    from tpu_spmv_torch import obs
     from tpu_spmv_torch.kernels.dia import (
         dia_ring, dia_smem_budget, dia_windowed_ctas, spmv_dia_windowed,
+        x_staged_floats,
     )
 
     ring = dia_ring(lay, dia_smem_budget(lay.vals.device))
+    ctas = dia_windowed_ctas(lay, ring)
     span = max(lay.offsets) - min(lay.offsets)
     before = spmv_dia_windowed.launches
     spmv_dia_windowed(lay, torch.zeros(lay.n, device=lay.vals.device))
     launches = spmv_dia_windowed.launches - before
+    staged = obs.counters().get("dia.x_staged_floats")
+    want = x_staged_floats(lay.offsets, ring, lay.m, lay.n, ctas)
     print(f"    [{label}] steps of S={ring.step_rows} rows "
           f"({-(-lay.m // ring.step_rows)} steps), "
-          f"{len(ring.segments)} segment(s) from diagonals {ring.segments}, "
-          f"ring W={ring.ring} floats each (span {span} in all + 2S), "
+          f"ring W={ring.ring} floats (span {span} + 2S), "
           f"stages of {ring.stage_bytes} bytes "
           f"({lay.num_diagonals} diagonals), {ring.smem} bytes of shared "
-          f"memory, {dia_windowed_ctas(lay, ring)} CTAs, {launches} "
-          "launch(es) per call", flush=True)
+          f"memory, {ctas} CTAs, {launches} launch(es) per call, "
+          f"dia.x_staged_floats {staged} ({staged / lay.n:.4f} n)",
+          flush=True)
+    if staged != want:
+        raise SmokeFailure(f"{label}: dia.x_staged_floats {staged}, "
+                           f"x_staged_floats {want}")
     return ring
 
 
@@ -708,12 +716,11 @@ def _windowed_phases(stats):
     order through spmv_dia_windowed (f32 and bf16) and after RCM through
     spmv_ranked_windowed, and lap2d_1024 after RCM through
     spmm_ranked_windowed at B = 8 and 5, at the step and column passes B'
-    the CLI picks (B = 8 must take one pass); plus HPCG's operator on a
-    256 x 256 x 16 grid through spmv_dia_windowed's ring cut into three
-    segments (_hpcg_segments) and lap2d_1024's DIA layout through
-    spmv_dia_windowed beside spmv_dia. Each is also held to its
-    resident kernel on the same layout (the single-vector ones bit for
-    bit). Prints the host set-up seconds."""
+    the CLI picks (B = 8 must take one pass); plus lap2d_1024's DIA
+    layout through spmv_dia_windowed beside spmv_dia. Each is also held
+    to its resident kernel on the same layout (the single-vector ones bit
+    for bit), and each DIA ring's staged count to x_staged_floats
+    (_dia_ring). Prints the host set-up seconds."""
     import torch
 
     from tpu_spmv_torch.formats.dia import DiaSlabs
@@ -771,8 +778,6 @@ def _windowed_phases(stats):
     print("lap2d_4096 host set-up s: " + ", ".join(
         f"{k} {v:.2f}" for k, v in setup.items()), flush=True)
 
-    _hpcg_segments(stats)
-
     mat = load_input("synthetic:lap2d_1024")
     ck, perm = prepare(mat, "auto")
     lay = DiaSlabs.from_csr(ck.matrix).to(dev)
@@ -798,53 +803,6 @@ def _windowed_phases(stats):
                       spmm_ranked_windowed,
                       spmm_ranked_windowed_reference, lay, mat, perm, mat,
                       stats, batch=cols, twin=spmm_ranked, csr=ck.matrix)
-
-
-def _hpcg_segments(stats):
-    """spmv_dia_windowed with its ring cut into segments, at the plan the
-    256^3 HPCG grid runs: HPCG's operator on a 256 x 256 x 16 grid (1M
-    rows, natural order) has the 256^3 grid's 27 offsets and tile, so
-    dia_ring cuts the same three segments, one a z-plane, at S = 512.
-    Held to the plain version through the same segments and bit for bit
-    to spmv_dia; prints the counters of the last call (obs.counters)."""
-    import numpy as np
-
-    from tpu_spmv_torch import obs
-    from tpu_spmv_torch.bench.solve_times import hpcg27
-    from tpu_spmv_torch.formats.dia import DiaSlabs
-    from tpu_spmv_torch.kernels.dia import (
-        dia_windowed_ctas, spmv_dia, spmv_dia_windowed,
-        spmv_dia_windowed_reference, x_staged_floats,
-    )
-
-    mat = hpcg27(256, nz=16)
-    lay = DiaSlabs.from_csr(mat).to("cuda")
-    label = "hpcg27 256x256x16 dia_windowed f32"
-    ring = _dia_ring(label, lay)
-    if len(ring.segments) != 3 or ring.step_rows != 512:
-        raise SmokeFailure(f"{label}: segments {ring.segments} at "
-                           f"S={ring.step_rows}, not 3 at 512 (the 256^3 "
-                           "grid's plan)")
-
-    def segmented(lay, x):
-        return spmv_dia_windowed_reference(lay, x, ring.segments)
-
-    obs.reset()
-    _check_kernel(f"{label} (S={ring.step_rows}, {len(ring.segments)} "
-                  "segments)", spmv_dia_windowed, segmented, lay, mat,
-                  np.arange(mat.n), mat, stats, twin=spmv_dia, csr=mat,
-                  twin_equal=True)
-    got = obs.counters()
-    want = x_staged_floats(lay.offsets, ring, lay.m, lay.n,
-                           dia_windowed_ctas(lay, ring))
-    print(f"    [{label}] counters: " + ", ".join(
-        f"{k} {v}" for k, v in sorted(got.items()))
-        + f" ({got.get('dia.x_staged_floats', 0) / lay.n:.4f} n staged)",
-        flush=True)
-    if (got.get("dia.ring_segments") != 3
-            or got.get("dia.x_staged_floats") != want):
-        raise SmokeFailure(f"{label}: counters {got}, x staged not {want}")
-    obs.reset()
 
 
 def _striped_phases(stats, times):

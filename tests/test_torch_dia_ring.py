@@ -2,29 +2,27 @@
 the CPU: its host sizing (kernels/dia.dia_ring) and a step-by-step model
 of the walk in plain torch.
 
-The sizing: the fewest segments (runs of consecutive offsets, cut at
-the largest gaps), and at that cut the step S, a multiple of 128 that
-divides the layout's tile, at most DIA_STEP_ROWS, and the largest whose
-rings and two stages fit the budget; each segment's ring holds W >=
-span + 2S floats of the widest segment, a multiple of 32, so every bulk
-copy into it is 16-byte aligned; a layout whose one ring fits keeps it
-as it was; the refusal names the least bytes of 128 rows a step over
-every cut. HPCG's 256^3 operator is planned from its offsets alone.
+The sizing: the step S, a multiple of 128 that divides the layout's
+tile, at most DIA_STEP_ROWS, and the largest whose ring and two stages
+fit the budget; the ring holds W >= span + 2S floats, a multiple of 32,
+so every bulk copy into it is 16-byte aligned; the refusal names the
+bytes of 128 rows a step. HPCG's 256^3 operator is refused from its
+offsets alone.
 
 The model walks each CTA's contiguous steps as the kernel does: the
-producer stages step t + 1 (its D value runs, and for each segment the
-S entries of x past step t's window, the whole window of S + span at a
-CTA's first step) before the consumers read step t, the most the
-kernel's barriers let it run ahead; x goes into slot (g + xa - ubase)
-mod W of the segment's ring, its 16-byte aligned part in one bulk copy or two where it wraps the ring (each
-checked aligned), the unaligned ends and the entries outside [0, n) by
-"lanes" (0 outside). The ring starts as NaN, so a read of a slot never
-written, or overwritten too early, shows. Its result is held to
+producer stages step t + 1 (its D value runs, and the S entries of x
+past step t's window, the whole window of S + span at a CTA's first
+step) before the consumers read step t, the most the kernel's barriers
+let it run ahead; x goes into ring slot (g + xa - ubase) mod W, its
+16-byte aligned part in one bulk copy or two where it wraps the ring
+(each checked aligned), the unaligned ends and the entries outside [0,
+n) by "lanes" (0 outside). The ring starts as NaN, so a read of a slot
+never written, or overwritten too early, shows. Its result is held to
 spmv_dia_reference and to the JAX package's spmv_dia_windowed (Pallas,
 interpret mode) on the same layout: RelL2 <= 1e-6 and Number Wrong 0
 against each (the model adds in float32 without fused multiply-adds, the
-kernel with them); bf16 layouts against CSRMatrix.rounded; a ring cut
-into segments bit for bit against spmv_dia_reference. Cases:
+kernel with them); bf16 layouts against CSRMatrix.rounded; on a 27-point
+stencil bit for bit against spmv_dia_reference. Cases:
 offsets with no multiple of 4, positive and negative offsets only, n not
 a multiple of 128 (a partial last step), steps that end at a tile's end
 (S = the tile) and inside it, x at each 4-byte offset from a 16-byte
@@ -34,6 +32,7 @@ boundary, and CTA counts from one to more than the steps.
 import dataclasses
 import functools
 import itertools
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -54,11 +53,12 @@ from tpu_spmv_torch.formats.dia import DiaSlabs
 from tpu_spmv_torch.formats.sell import LANES
 from tpu_spmv_torch.kernels import dia as kdia
 
+from test_torch_dia_route import _hpcg, _ring_at
 from test_torch_gpu import DIAGONALS, diagonal_matrix
 
 
 def _ring_fits(lay, rows, budget):
-    return kdia._ring_at(lay, rows).smem <= budget
+    return _ring_at(lay, rows).smem <= budget
 
 
 SIZINGS = {
@@ -95,8 +95,7 @@ def test_dia_ring_sizing(case, budget, monkeypatch):
     assert ring.stage_bytes == stage
     assert ring.smem == 4 * W + 2 * stage + 4 * lay.num_diagonals
     assert ring.smem <= budget
-    # One ring fits, so the layout keeps it, as it was before segments.
-    assert ring.segments == (0,) and ring == kdia._ring_at(lay, S)
+    assert ring == _ring_at(lay, S)
     # The largest step that divides the tile and fits.
     assert not any(
         tile % rows == 0 and _ring_fits(lay, rows, budget)
@@ -115,18 +114,12 @@ def test_dia_ring_takes_the_tile_when_it_is_the_step():
     assert kdia.dia_ring(lay, hw.H100_SMEM_PER_BLOCK).step_rows == 1024
 
 
-def _least_at_128(lay):
-    return min(kdia._ring_at(lay, LANES, f).smem
-               for f in kdia.ring_splits(lay.offsets))
-
-
 @pytest.mark.parametrize("case", sorted(SIZINGS))
 def test_dia_ring_refuses_when_128_rows_do_not_fit(case):
-    """The refusal comes only when no cut into segments, up to one an
-    offset, fits at 128 rows; it names the least bytes over the cuts."""
+    """The refusal comes only when the ring does not fit at 128 rows; it
+    names the bytes it needs there."""
     lay = SIZINGS[case][0]()
-    need = _least_at_128(lay)
-    assert need <= kdia._ring_at(lay, LANES).smem
+    need = _ring_at(lay, LANES).smem
     assert kdia.dia_ring(lay, need).step_rows == LANES
     with pytest.raises(ValueError, match=f"{need} bytes at 128 rows a step"):
         kdia.dia_ring(lay, need - 1)
@@ -134,16 +127,12 @@ def test_dia_ring_refuses_when_128_rows_do_not_fit(case):
 
 def ring_walk(lay, x, ring, ctas, xa=0):
     """y by the kernel's walk (see the module docstring), and for each
-    CTA (its steps, the entries it wrote into its rings, the entries of
-    x among them)."""
+    CTA (its steps, the entries it wrote into its ring, the entries of x
+    among them)."""
     S, W = ring.step_rows, ring.ring
     offs = list(lay.offsets)
     _, D, rb, _ = lay.vals.shape
-    firsts = list(ring.segments)
-    ends = firsts[1:] + [D]
-    segs = [(offs[f], offs[e - 1] - offs[f]) for f, e in zip(firsts, ends)]
-    seg_of = [c for c, (f, e) in enumerate(zip(firsts, ends))
-              for _ in range(f, e)]
+    low, span = offs[0], offs[-1] - offs[0]
     tile = rb * LANES
     m, n = lay.m, lay.n
     vals = lay.vals.float()
@@ -154,11 +143,11 @@ def ring_walk(lay, x, ring, ctas, xa=0):
         i0, i1 = b * steps // ctas, (b + 1) * steps // ctas
         if i1 <= i0:
             continue
-        ubase = [(i0 * S + lo + xa) // 4 * 4 for lo, _ in segs]
-        e = [i0 * S + lo + xa - u for (lo, _), u in zip(segs, ubase)]
-        # Each diagonal's slot past pos0 in its segment's ring.
-        dk = [offs[k] - segs[seg_of[k]][0] + e[seg_of[k]] for k in range(D)]
-        buf = torch.full((len(segs), W), float("nan"))
+        ubase = (i0 * S + low + xa) // 4 * 4
+        e = i0 * S + low + xa - ubase
+        # Each diagonal's slot past pos0.
+        dk = [offs[k] - low + e for k in range(D)]
+        buf = torch.full((W,), float("nan"))
         stage = {}
         count = [0, 0]
 
@@ -167,29 +156,27 @@ def ring_walk(lay, x, ring, ctas, xa=0):
             tt, blk = divmod(r0, tile)
             stage[t % 2] = vals[tt, :, blk // LANES:(blk + S) // LANES].reshape(
                 D, S)
-            for c, (low, span) in enumerate(segs):
-                lo = r0 + low + (span if t else 0)
-                hi = r0 + S + low + span
-                c0, c1 = max(lo, 0), min(hi, n)
-                ga = gb = hi
-                if c1 > c0:
-                    ua, ub = -(-(c0 + xa) // 4) * 4, (c1 + xa) // 4 * 4
-                    if ub > ua:
-                        ga, gb = ua - xa, ub - xa
-                if gb > ga:
-                    p = (ga + xa - ubase[c]) % W
-                    first = min(gb - ga, W - p)
-                    for dst, src, cnt in ((p, ga, first),
-                                          (0, ga + first, gb - ga - first)):
-                        if cnt:
-                            assert dst % 4 == 0 and (src + xa) % 4 == 0
-                            assert cnt % 4 == 0
-                            buf[c, dst:dst + cnt] = x[src:src + cnt]
-                for g in [*range(lo, ga), *range(gb, hi)]:
-                    buf[c, (g + xa - ubase[c]) % W] = (
-                        float(x[g]) if 0 <= g < n else 0.0)
-                count[0] += hi - lo
-                count[1] += max(0, min(hi, n) - max(lo, 0))
+            lo = r0 + low + (span if t else 0)
+            hi = r0 + S + low + span
+            c0, c1 = max(lo, 0), min(hi, n)
+            ga = gb = hi
+            if c1 > c0:
+                ua, ub = -(-(c0 + xa) // 4) * 4, (c1 + xa) // 4 * 4
+                if ub > ua:
+                    ga, gb = ua - xa, ub - xa
+            if gb > ga:
+                p = (ga + xa - ubase) % W
+                first = min(gb - ga, W - p)
+                for dst, src, cnt in ((p, ga, first),
+                                      (0, ga + first, gb - ga - first)):
+                    if cnt:
+                        assert dst % 4 == 0 and (src + xa) % 4 == 0
+                        assert cnt % 4 == 0
+                        buf[dst:dst + cnt] = x[src:src + cnt]
+            for g in [*range(lo, ga), *range(gb, hi)]:
+                buf[(g + xa - ubase) % W] = float(x[g]) if 0 <= g < n else 0.0
+            count[0] += hi - lo
+            count[1] += max(0, min(hi, n) - max(lo, 0))
 
         def consume(t):
             r0 = (i0 + t) * S
@@ -201,7 +188,7 @@ def ring_walk(lay, x, ring, ctas, xa=0):
                 q = pos0 + i + dk[k]
                 assert int(q.max()) < 2 * W  # one subtraction wraps it
                 q = torch.where(q >= W, q - W, q)
-                acc = acc + stage[t % 2][k, :rows] * buf[seg_of[k], q]
+                acc = acc + stage[t % 2][k, :rows] * buf[q]
             y[r0:r0 + rows] = acc
 
         produce(0)
@@ -252,7 +239,6 @@ def test_ring_model_matches_the_plain_version_and_pallas(case, rows, bf16,
     y, written = ring_walk(lay, torch.from_numpy(x), ring, ctas=3)
     span = max(lay.offsets) - min(lay.offsets)
     # x is read once per CTA run, plus one halo.
-    assert ring.segments == (0,)
     assert all(cnt == nt * rows + span for nt, cnt, _ in written)
     assert sum(nt for nt, _, _ in written) == -(-mat.m // rows)
     _close(y, kdia.spmv_dia_reference(lay, torch.from_numpy(x)))
@@ -337,54 +323,47 @@ def test_hpcg27_on_a_flat_grid(n, nz):
     assert DiaSlabs.from_csr(mat, max_fill=27).offsets == _hpcg_offsets(n)
 
 
-def test_hpcg_256_takes_three_segments_from_its_offsets_alone():
+def _refused_bytes(offs, tile, elem, budget):
+    """The bytes ring_plan's refusal names for steps of 128 rows."""
+    with pytest.raises(ValueError, match="bytes at 128 rows a step") as err:
+        kdia.ring_plan(offs, tile, elem, budget, 1024)
+    return int(re.search(r"are (\d+) bytes", str(err.value)).group(1))
+
+
+def test_hpcg_256_has_no_ring_and_routes_by_its_reuse_window():
     """NVIDIA's HPCG grid, 256^3 a GPU: one ring over every offset needs
-    ~555 KB at 128 rows; one segment a z-plane (offsets dz * 65,536 +
-    {-257 ... 257}, span 514) fits at S = 512, and each segment stages x
-    about once."""
+    ~555 KB at 128 rows, past the H100's shared memory, so spmv_dia runs
+    it: its band's reuse window fits half the L2."""
     offs = _hpcg_offsets(256)
-    n = 256 ** 3
     assert max(offs) - min(offs) == 131_586
-    one = kdia._ring_size(offs, 4, LANES)
-    assert one.smem > 555_000 > hw.H100_SMEM_PER_BLOCK
-    ring = kdia.ring_plan(offs, 32768, 4, hw.H100_SMEM_PER_BLOCK, 1024)
-    assert ring.segments == (0, 9, 18)
-    assert ring.step_rows == 512
-    assert ring.ring == 1568 == -(-(514 + 2 * 512) // 32) * 32
-    assert ring.smem == 3 * 4 * 1568 + 2 * 27 * 512 * 4 + 4 * 27
-    assert 125_000 < ring.smem <= hw.H100_SMEM_PER_BLOCK
-    # One CTA stages each plane's window once: x whole, less the rows
-    # the outer planes' windows leave outside [0, n).
-    assert kdia.x_staged_floats(offs, ring, n, n, 1) == 3 * n - 2 * (
-        65_536 - 257)
-    # The H100's 132 SMs, a CTA each at this shared memory: ~3 n.
-    assert 3.0 < kdia.x_staged_floats(offs, ring, n, n, 132) / n < 3.05
+    need = _refused_bytes(offs, 32768, 4, hw.H100_SMEM_PER_BLOCK)
+    assert need == kdia._ring_size(offs, 4, LANES).smem >= 555_000
+    with pytest.raises(ValueError, match=f"{need} bytes"):
+        kdia.dia_ring(_hpcg(256), hw.H100_SMEM_PER_BLOCK)
+    route = kdia.dia_route(_hpcg(256))
+    assert (route.kernel, route.rule) == ("resident", "reuse window")
 
 
-@pytest.mark.parametrize("offs,tile,elem,segments,rows", [
-    ((-4096, -1, 0, 1, 4096), 32768, 4, (0,), 1024),  # lap2d_4096 f32
-    ((-4096, -1, 0, 1, 4096), 65536, 2, (0,), 1024),  # lap2d_4096 bf16
-    (_hpcg_offsets(104), 32768, 4, (0,), 512),  # HPCG's 104^3 grid
-    (_hpcg_offsets(160), 32768, 4, (0, 9, 18), 512),  # the smallest split
+@pytest.mark.parametrize("offs,tile,elem,rows", [
+    ((-4096, -1, 0, 1, 4096), 32768, 4, 1024),  # lap2d_4096 f32
+    ((-4096, -1, 0, 1, 4096), 65536, 2, 1024),  # lap2d_4096 bf16
+    (_hpcg_offsets(104), 32768, 4, 512),  # HPCG's 104^3 grid
+    (_hpcg_offsets(160), 32768, 4, None),  # the smallest with no ring
 ])
-def test_the_fewest_segments_that_fit(offs, tile, elem, segments, rows):
-    ring = kdia.ring_plan(offs, tile, elem, hw.H100_SMEM_PER_BLOCK, 1024)
-    assert (ring.segments, ring.step_rows) == (segments, rows)
-    if segments == (0,):  # the ring as it was before segments
-        assert ring == kdia._ring_size(offs, elem, rows)
-
-
-def test_splits_cut_at_the_largest_gaps_first():
-    # Gaps 297, 2, 1, 2, 498, 1 before diagonals 1 to 6.
-    offs = (-300, -3, -1, 0, 2, 500, 501)
-    assert kdia.ring_splits(offs) == [
-        (0,), (0, 5), (0, 1, 5), (0, 1, 2, 5), (0, 1, 2, 4, 5),
-        (0, 1, 2, 3, 4, 5), (0, 1, 2, 3, 4, 5, 6)]
+def test_the_fewest_segments_that_fit(offs, tile, elem, rows):
+    """The one ring's step on the card's grids, or its refusal: HPCG's
+    160^3 grid, the smallest cube whose ring does not fit at 128 rows."""
+    budget = hw.H100_SMEM_PER_BLOCK
+    if rows is None:
+        assert _refused_bytes(offs, tile, elem, budget) > budget
+        return
+    ring = kdia.ring_plan(offs, tile, elem, budget, 1024)
+    assert ring == kdia._ring_size(offs, elem, rows)
 
 
 def test_the_ring_is_planned_once_in_its_phase_span(monkeypatch):
     """spmv_dia_windowed's launch plan (the ring, the C entry's sizes and
-    the call's counters) is made once per layout shape, budget and card,
+    the call's staged count) is made once per layout shape, budget and card,
     in the phase span build.dia_ring; the CTA count, the one card query,
     is stubbed here."""
     from tpu_spmv_torch import obs
@@ -403,24 +382,21 @@ def test_the_ring_is_planned_once_in_its_phase_span(monkeypatch):
         assert [s.name for s in obs.spans()] == ["build.dia_ring"]
         ring = kdia.dia_ring(lay, 100_000)
         assert first.ring == ring
-        assert first.counters == {
-            "dia.ring_segments": 1, "dia.ring_smem_bytes": ring.smem,
-            "dia.step_rows": ring.step_rows,
-            "dia.x_staged_floats": kdia.x_staged_floats(
-                lay.offsets, ring, lay.m, lay.n, 5)}
+        assert first.staged == kdia.x_staged_floats(
+            lay.offsets, ring, lay.m, lay.n, 5)
     finally:
         kdia._launch_plan.cache_clear()
         obs.reset()
 
 
-# A 32 x 32 x 4 grid: planes 1,024 rows apart, so one ring spans 2,114
-# entries and three, one a plane, 66 each. The budgets fit three rings at
-# 128 rows and not one.
+# A 32 x 32 x 4 grid: planes 1,024 rows apart, so the ring spans 2,114
+# entries. Budgets that once fit three rings at 128 rows, one a plane,
+# and not one ring.
 SPLIT_BUDGETS = {"f32": (False, 35_000), "bf16": (True, 20_000)}
 
 
 @functools.lru_cache(maxsize=None)
-def _split_case(vdt):
+def _stencil_case(vdt):
     """The 32 x 32 x 4 stencil, the JAX package's layout of it and the
     port's copy, x, and the JAX package's spmv_dia_windowed of x (Pallas
     in interpret mode, ~1.6 s, so made once a value type)."""
@@ -435,38 +411,48 @@ def _split_case(vdt):
 @pytest.mark.parametrize("xa", [0, 3])
 @pytest.mark.parametrize("ctas", [1, 3, 7])
 @pytest.mark.parametrize("vdt", sorted(SPLIT_BUDGETS))
-def test_segmented_walk_is_the_plain_versions_bits(vdt, ctas, xa):
-    bf16, budget = SPLIT_BUDGETS[vdt]
-    mat, lay, x, y_jax = _split_case(vdt)
-    assert kdia._ring_at(lay, LANES).smem > budget
-    ring = kdia.dia_ring(lay, budget)
-    assert ring.segments == (0, 9, 18) and ring.step_rows == LANES
+def test_stencil_walk_is_the_plain_versions_bits(vdt, ctas, xa):
+    """The ring under the card's budget on a 27-point stencil: f32 steps
+    of 512 rows, bf16 of 1,024 (4 steps, so 7 CTAs leave some with none)."""
+    bf16, _ = SPLIT_BUDGETS[vdt]
+    mat, lay, x, y_jax = _stencil_case(vdt)
+    ring = kdia.dia_ring(lay, hw.H100_SMEM_PER_BLOCK)
+    assert ring.step_rows == (1024 if bf16 else 512)
     y, written = ring_walk(lay, x, ring, ctas=ctas, xa=xa)
-    ref = kdia.spmv_dia_reference(lay, x)
-    assert torch.equal(y, ref)
+    assert torch.equal(y, kdia.spmv_dia_reference(lay, x))
     _close(y, y_jax)
     oracle = (mat.rounded() if bf16 else mat).matvec(x.numpy())
     wrong, rel = validate(y.numpy(), oracle)
     assert wrong == 0 and rel <= 1e-6, (wrong, rel)
-    # Every segment's ring is written once a step plus its halo, and the
-    # entries of x among them are what the counter reports.
-    assert all(cnt == 3 * nt * LANES + 3 * 66 for nt, cnt, _ in written)
+    # The ring is written once a step plus the halo, and the entries of x
+    # among them are what the counter reports.
+    assert all(cnt == nt * ring.step_rows + 2114 for nt, cnt, _ in written)
     assert sum(st for _, _, st in written) == kdia.x_staged_floats(
         lay.offsets, ring, lay.m, lay.n, ctas)
 
 
 @pytest.mark.parametrize("vdt", sorted(SPLIT_BUDGETS))
-def test_plain_windowed_version_walks_the_segments(vdt):
-    """The plain version through the ring's three windows, one a
-    segment, gives the bits of one window over the whole band (its
-    default, and the CPU route of spmv_dia_windowed) and of
-    spmv_dia_reference, and the JAX package's y."""
-    bf16, budget = SPLIT_BUDGETS[vdt]
-    mat, lay, x, y_jax = _split_case(vdt)
-    segments = kdia.dia_ring(lay, budget).segments
-    assert segments == (0, 9, 18)
-    y = kdia.spmv_dia_windowed_reference(lay, x, segments)
-    assert torch.equal(y, kdia.spmv_dia_windowed_reference(lay, x))
+def test_plain_windowed_version_on_a_stencil(vdt):
+    """The plain version through one window a tile (the CPU route of
+    spmv_dia_windowed) gives spmv_dia_reference's bits and the JAX
+    package's y."""
+    _, lay, x, y_jax = _stencil_case(vdt)
+    y = kdia.spmv_dia_windowed_reference(lay, x)
     assert torch.equal(y, kdia.spmv_dia_windowed(lay, x))
     assert torch.equal(y, kdia.spmv_dia_reference(lay, x))
     _close(y, y_jax)
+
+
+@pytest.mark.parametrize("vdt", sorted(SPLIT_BUDGETS))
+def test_a_budget_one_ring_misses_routes_resident(vdt, monkeypatch):
+    """Where the split budgets once cut three segments, dia_ring refuses
+    and dia_route sends the layout to spmv_dia (x past an L2 of 0)."""
+    _, budget = SPLIT_BUDGETS[vdt]
+    _, lay, _, _ = _stencil_case(vdt)
+    assert _ring_at(lay, LANES).smem > budget
+    with pytest.raises(ValueError, match="shared-memory budget"):
+        kdia.dia_ring(lay, budget)
+    monkeypatch.setattr(kdia, "dia_smem_budget", lambda device: budget)
+    monkeypatch.setattr(hw, "H100_L2_BYTES", 0)
+    route = kdia.dia_route(lay)
+    assert route.kernel == "resident" and route.ring is None

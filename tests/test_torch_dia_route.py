@@ -3,11 +3,10 @@ spmv_dia_windowed a layout takes, from its x, the ring that fits shared
 memory and its band's L2 reuse window, in this order:
 
 1. the padded x within half the L2 -> resident ("x fits");
-2. a ring of one segment fits -> windowed ("one ring");
+2. the ring fits -> windowed ("one ring");
 3. the reuse window (span rows x (D values + 4 B of y + 4 B of x))
    within half the L2 -> resident ("reuse window");
-4. otherwise resident ("past the window"), whether a ring cut into
-   segments fits or none does (never dia_ring's ValueError).
+4. otherwise resident ("past the window"; never dia_ring's ValueError).
 
 The grids the card runs are held at their real offsets, rows, D and
 value size with no values behind them (a meta tensor stands for vals),
@@ -45,6 +44,11 @@ def _shape(offsets, m, dtype=torch.float32):
                                  num_blocks=tiles * tile // LANES, m=m, n=m)
 
 
+def _ring_at(lay, rows):
+    """The ring and stages of `rows` a step for a layout's offsets."""
+    return kdia._ring_size(lay.offsets, lay.vals.element_size(), rows)
+
+
 def _hpcg(nx, nz=None):
     nz = nz or nx
     offs = {dz * nx * nx + dy * nx + dx
@@ -61,22 +65,22 @@ def _lap3d(n):
 
 
 def _wide_band():
-    """200 diagonals 10,000 rows apart on 50M rows: even 64 segments of
-    the offsets need rings and stages past any shared memory, and the
-    band's window (2M rows of 808 B) is far past the L2."""
+    """200 diagonals 10,000 rows apart on 50M rows: the ring and stages
+    are past any shared memory, and the band's window (2M rows of 808 B)
+    is far past the L2."""
     return _shape(range(-1_000_000, 1_000_000, 10_000), 50_000_000)
 
 
-@pytest.mark.parametrize("case,kernel,rule,segments", [
-    ("hpcg27_104", "resident", "x fits", None),
-    ("lap2d_1024", "resident", "x fits", None),
-    ("lap2d_4096", "windowed", "one ring", (0,)),
-    ("hpcg27_256", "resident", "reuse window", None),
-    ("lap3d_256", "resident", "reuse window", None),
-    ("hpcg27_512x512x64", "resident", "past the window", None),
-    ("wide_band", "resident", "past the window", None),
+@pytest.mark.parametrize("case,kernel,rule", [
+    ("hpcg27_104", "resident", "x fits"),
+    ("lap2d_1024", "resident", "x fits"),
+    ("lap2d_4096", "windowed", "one ring"),
+    ("hpcg27_256", "resident", "reuse window"),
+    ("lap3d_256", "resident", "reuse window"),
+    ("hpcg27_512x512x64", "resident", "past the window"),
+    ("wide_band", "resident", "past the window"),
 ])
-def test_route_of_the_cards_grids(case, kernel, rule, segments):
+def test_route_of_the_cards_grids(case, kernel, rule):
     layout = {
         "hpcg27_104": lambda: _hpcg(104),
         "lap2d_1024": lambda: _lap2d(1024),
@@ -89,7 +93,7 @@ def test_route_of_the_cards_grids(case, kernel, rule, segments):
     route = kdia.dia_route(layout)
     assert (route.kernel, route.rule) == (kernel, rule)
     assert route.budget_bytes == H100_BUDGET
-    assert (route.ring.segments if route.ring else None) == segments
+    assert (route.ring is not None) == (kernel == "windowed")
     if rule != "x fits":
         assert route.x_bytes > H100_BUDGET
 
@@ -103,10 +107,8 @@ def test_hpcg_256_reuse_window_is_58_percent_of_the_budget():
     assert route.window_bytes / route.budget_bytes == pytest.approx(
         0.5823, abs=1e-4)
     assert route.x_bytes == 4 * (515 + 131_072 + 516) * LANES
-    # One ring does not fit; the segmented one it no longer takes does.
-    assert kdia._ring_at(_hpcg(256), LANES).smem > hw.H100_SMEM_PER_BLOCK
-    assert kdia.dia_ring(_hpcg(256), hw.H100_SMEM_PER_BLOCK).segments == (
-        0, 9, 18)
+    assert _ring_at(_hpcg(256), LANES).smem > hw.H100_SMEM_PER_BLOCK
+    assert route.ring is None
 
 
 def test_hpcg_104_stays_resident_by_its_x():
@@ -118,23 +120,23 @@ def test_hpcg_104_stays_resident_by_its_x():
 
 
 def test_lap2d_4096_keeps_the_windowed_kernel_though_its_window_fits():
-    """The ring of one segment is tested before the reuse window: the
-    windowed kernel stages x once there, and ran faster (161 against 166
-    us on an H100)."""
+    """The ring is tested before the reuse window: the windowed kernel
+    stages x once there, and ran faster (161 against 166 us on an
+    H100)."""
     route = kdia.dia_route(_lap2d(4096))
     assert route.window_bytes <= route.budget_bytes
     assert route.kernel == "windowed" and route.ring.step_rows == 1024
     assert not kdia.dia_x_fits(_lap2d(4096))
 
 
-def test_27_point_512x512x64_is_resident_though_segments_fit():
-    """Its window (60.9 MB) is past the budget and a ring of three
-    segments fits, yet resident beat that ring 1.83x on an H100."""
+def test_27_point_512x512x64_has_no_ring_and_is_resident():
+    """Its window (60.9 MB) is past the budget and no ring fits shared
+    memory, so spmv_dia runs it."""
     route = kdia.dia_route(_hpcg(512, 64))
     assert route.window_bytes == 525_314 * 116
     assert route.window_bytes / route.budget_bytes > 2.3
-    assert kdia.dia_ring(_hpcg(512, 64), hw.H100_SMEM_PER_BLOCK).segments == (
-        0, 9, 18)
+    with pytest.raises(ValueError, match="shared-memory budget"):
+        kdia.dia_ring(_hpcg(512, 64), hw.H100_SMEM_PER_BLOCK)
     assert route.kernel == "resident" and route.ring is None
 
 
@@ -182,19 +184,15 @@ def test_the_route_sets_its_counters_once(case):
 def _small(case):
     """(matrix, L2 bytes, shared memory) that send a small layout down
     one rule each: hpcg27(16, nz=64)'s x is just past a budget its window
-    fits, and at 30,000 B no ring fits it; hpcg27(48, nz=4)'s one ring
-    needs more than its three segments, which fit."""
+    fits, and at 30,000 B no ring fits it; hpcg27(48, nz=4)'s ring misses
+    its shared memory by one byte at 128 rows."""
     if case in ("x fits", "one ring"):
         mat = laplacian_2d(64)
         return mat, (hw.H100_L2_BYTES if case == "x fits" else 0), (
             hw.H100_SMEM_PER_BLOCK)
-    if case == "segments fit":
+    if case == "ring a byte short":
         mat = hpcg27(48, nz=4)
-        lay = DiaSlabs.from_csr(mat)
-        one = kdia._ring_at(lay, LANES).smem
-        three = kdia._ring_at(lay, LANES, (0, 9, 18)).smem
-        assert three < one
-        return mat, 0, three
+        return mat, 0, _ring_at(DiaSlabs.from_csr(mat), LANES).smem - 1
     mat = hpcg27(16, nz=64)
     lay = DiaSlabs.from_csr(mat)
     x = kdia._padded_x_bytes(lay)
@@ -207,7 +205,7 @@ def _small(case):
     ("x fits", "x fits", kdia.spmv_dia),
     ("one ring", "one ring", kdia.spmv_dia_windowed),
     ("reuse window", "reuse window", kdia.spmv_dia),
-    ("segments fit", "past the window", kdia.spmv_dia),
+    ("ring a byte short", "past the window", kdia.spmv_dia),
     ("no ring", "past the window", kdia.spmv_dia),
 ])
 def test_build_layout_takes_the_kernel_the_route_names(

@@ -554,32 +554,23 @@ def test_dia_windowed_ring_wraps(cuda, vdt, monkeypatch):
 
 
 @pytest.mark.parametrize("vdt", [None, torch.bfloat16], ids=["f32", "bf16"])
-def test_dia_windowed_segments_keep_spmv_dias_bits(cuda, vdt, monkeypatch):
-    """A budget one ring does not fit at any step: HPCG's operator on a
-    48^3 grid has its diagonals cut into three segments, one a z-plane,
-    each with a ring of its own; y is still spmv_dia's bit for bit, it
-    matches the plain version through the same segments, and the
-    counters report the cut."""
+def test_dia_windowed_hpcg27_keeps_spmv_dias_bits(cuda, vdt):
+    """HPCG's operator on a 48^3 grid under the card's own budget: one
+    ring of 4,706 entries of halo (f32 steps of 512 rows, bf16 of 1,024);
+    y is spmv_dia's bit for bit, and the call's dia.x_staged_floats is
+    x_staged_floats' count."""
     from tpu_spmv_torch import obs
     from tpu_spmv_torch.kernels import dia as kdia
 
-    budget = 40_000 if vdt is None else 25_000
-    monkeypatch.setattr(kdia, "dia_smem_budget", lambda device: budget)
     mat = hpcg27(48)
     lay = DiaSlabs.from_csr(mat, val_dtype=vdt).to(cuda)
-    assert kdia._ring_at(lay, 128).smem > budget
-    ring = kdia.dia_ring(lay, budget)
-    assert ring.segments == (0, 9, 18) and ring.step_rows == 128
+    ring = kdia.dia_ring(lay, kdia.dia_smem_budget(cuda))
+    assert ring.step_rows == (512 if vdt is None else 1024)
     oracle = mat.rounded() if vdt else mat
     obs.reset()
-    _run(spmv_dia_windowed,
-         lambda lay, x: spmv_dia_windowed_reference(lay, x, ring.segments),
-         lay, mat, oracle, cuda, twin=spmv_dia, twin_equal=True)
-    got = obs.counters()
-    assert got["dia.ring_segments"] == 3
-    assert got["dia.step_rows"] == 128 and got["dia.ring_smem_bytes"] == (
-        ring.smem)
-    assert got["dia.x_staged_floats"] == kdia.x_staged_floats(
+    _run(spmv_dia_windowed, spmv_dia_windowed_reference, lay, mat, oracle,
+         cuda, twin=spmv_dia, twin_equal=True)
+    assert obs.counters()["dia.x_staged_floats"] == kdia.x_staged_floats(
         lay.offsets, ring, lay.m, lay.n, kdia.dia_windowed_ctas(lay, ring))
     obs.reset()
 

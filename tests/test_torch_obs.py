@@ -345,10 +345,10 @@ def test_counters_are_set_read_and_reset():
     name, never by importing the program."""
     import sys
 
-    obs.set_counters({"dia.ring_segments": 3, "dia.step_rows": 512})
-    obs.set_counters({"dia.step_rows": 256})
+    obs.set_counters({"dia.route_resident": 0, "dia.x_staged_floats": 512})
+    obs.set_counters({"dia.x_staged_floats": 256})
     read = getattr(sys.modules.get("tpu_spmv_torch.obs"), "counters", None)
-    assert read() == {"dia.ring_segments": 3, "dia.step_rows": 256}
+    assert read() == {"dia.route_resident": 0, "dia.x_staged_floats": 256}
     read()["dia.other"] = 1  # a copy
     assert "dia.other" not in obs.counters()
     obs.reset()

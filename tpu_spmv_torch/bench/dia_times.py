@@ -12,20 +12,19 @@ route kernels/dia.dia_route picks for each on an H100:
 - lap2d_4096: 16.8M rows, x 67 MB, past half the L2; windowed, one ring.
 - lap2d_1024: 1M rows; resident, x fits.
 - hpcg27_256 (not run by default, nor the two below): HPCG's 27-point
-  operator on NVIDIA's 256^3 grid, 16.8M rows and 449M nonzeros, whose
-  ring is cut into one segment a z-plane; resident, its reuse window
-  (15.3 MB) within the budget.
-- hpcg27_512x512x64: the same operator on 512 x 512 x 64, 16.8M rows;
-  resident, its reuse window (60.9 MB) past the budget, though a ring of
-  3 segments fits.
-- lap3d_256: the 7-point Laplacian on 256^3, 16.8M rows, a ring of 3
-  segments; resident, its reuse window (4.7 MB) within the budget.
+  operator on NVIDIA's 256^3 grid, 16.8M rows and 449M nonzeros; no ring
+  fits; resident, its reuse window (15.3 MB) within the budget.
+- hpcg27_512x512x64: the same operator on 512 x 512 x 64, 16.8M rows; no
+  ring fits; resident, its reuse window (60.9 MB) past the budget.
+- lap3d_256: the 7-point Laplacian on 256^3, 16.8M rows; no ring fits;
+  resident, its reuse window (4.7 MB) within the budget.
 
 On each case it prints the route where the tree has dia_route, and
-times (warm TimeMin, CUDA graph,
-bench/harness.bench_spmv, twice each) spmv_dia_windowed and spmv_dia on
-the same layout and x, one line each, with the windowed kernel's largest
-difference from spmv_dia and whether the two are bit-equal, after
+times (warm TimeMin, CUDA graph, bench/harness.bench_spmv, twice each)
+spmv_dia and then spmv_dia_windowed on the same layout and x, one line
+each, the windowed kernel's with its largest difference from spmv_dia
+and whether the two are bit-equal ("no ring fits" where its ring does
+not fit shared memory), after
 the card's nvidia-smi name and power limit and the rate of a 400 MB
 device-to-device copy (torch's copy_, best of 20: the rate a stream that
 reads and writes device memory reaches on this card, beside the data
@@ -34,7 +33,7 @@ the port has, so another tree's package can be timed by running this
 file with that tree first on PYTHONPATH.
 
 --step-rows also times spmv_dia_windowed with its step cut at each S in
-turn (kernels/dia.DIA_STEP_ROWS), where the tree has the ring.
+turn (kernels/dia.DIA_STEP_ROWS), where the ring fits.
 """
 
 from __future__ import annotations
@@ -88,6 +87,33 @@ def _copy_rate(dev, floats: int = 100_000_000) -> str:
             f"{moved / best / 1e12:.3f} TB/s read + write")
 
 
+def _windowed(tag: str, kdia, lay, x, nnz: int, step_rows) -> None:
+    """One line a step, at the step dia_ring picks and then at each S of
+    `step_rows`: spmv_dia_windowed's ring, warm time, largest difference
+    from spmv_dia and whether the two are bit-equal; "no ring fits"
+    where the ring does not fit."""
+    y_dia = kdia.spmv_dia(lay, x)
+    default = kdia.DIA_STEP_ROWS
+    try:
+        for rows in (default, *step_rows):
+            kdia.DIA_STEP_ROWS = rows
+            try:
+                ring = kdia.dia_ring(lay, kdia.dia_smem_budget(x.device))
+            except ValueError:
+                print(f"{tag} spmv_dia_windowed S<={rows}: no ring fits",
+                      flush=True)
+                continue
+            y_win = kdia.spmv_dia_windowed(lay, x)
+            print(f"{tag} spmv_dia_windowed S={ring.step_rows} "
+                  f"(W={ring.ring}, {ring.smem} bytes, "
+                  f"{kdia.dia_windowed_ctas(lay, ring)} CTAs): warm TimeMin "
+                  f"us {_time(kdia.spmv_dia_windowed, lay, x, nnz)} "
+                  f"(max|windowed-dia| {(y_win - y_dia).abs().max():.3g}, "
+                  f"bit-equal {torch.equal(y_win, y_dia)})", flush=True)
+    finally:
+        kdia.DIA_STEP_ROWS = default
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--tag", default="tree")
@@ -119,34 +145,10 @@ def main(argv=None) -> int:
                   f" budget {route.budget_bytes} B)", flush=True)
         x = torch.from_numpy(np.random.default_rng(0).standard_normal(
             mat.n).astype(np.float32)).to(dev)
-        y_win, y_dia = kdia.spmv_dia_windowed(lay, x), kdia.spmv_dia(lay, x)
-        diff = float((y_win - y_dia).abs().max())
-        same = bool(torch.equal(y_win, y_dia))
-        del y_win, y_dia
-        print(f"{args.tag} {case} spmv_dia_windowed: warm TimeMin us "
-              f"{_time(kdia.spmv_dia_windowed, lay, x, mat.nnz)} "
-              f"(max|windowed-dia| {diff:.3g}, bit-equal {same})",
-              flush=True)
-        ring = kdia.dia_ring(lay, kdia.dia_smem_budget(dev))
-        print(f"{args.tag} {case} ring: {ring.segments} "
-              f"S={ring.step_rows} W={ring.ring} {ring.smem} bytes "
-              f"{kdia.dia_windowed_ctas(lay, ring)} CTAs", flush=True)
-        print(f"{args.tag} {case} spmv_dia on the same layout: warm TimeMin "
-              f"us {_time(kdia.spmv_dia, lay, x, mat.nnz)}", flush=True)
-        if not hasattr(kdia, "DIA_STEP_ROWS"):
-            continue
-        default = kdia.DIA_STEP_ROWS
-        try:
-            for rows in args.step_rows:
-                kdia.DIA_STEP_ROWS = rows
-                ring = kdia.dia_ring(lay, kdia.dia_smem_budget(dev))
-                t = _time(kdia.spmv_dia_windowed, lay, x, mat.nnz)
-                print(f"{args.tag} {case} spmv_dia_windowed S={ring.step_rows}"
-                      f" (W={ring.ring}, {ring.smem} bytes, "
-                      f"{kdia.dia_windowed_ctas(lay, ring)} CTAs): warm "
-                      f"TimeMin us {t}", flush=True)
-        finally:
-            kdia.DIA_STEP_ROWS = default
+        print(f"{args.tag} {case} spmv_dia: warm TimeMin us "
+              f"{_time(kdia.spmv_dia, lay, x, mat.nnz)}", flush=True)
+        _windowed(f"{args.tag} {case}", kdia, lay, x, mat.nnz,
+                  args.step_rows)
         del lay
     return 0
 

@@ -71,14 +71,14 @@ _SIGNATURES = {
     "tsp_lower_solve_ranked": (
         _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _LL, _P,
     ),
-    # val_kind, vals, offs, D, rb, S, W, stage_bytes, first (host int[C +
-    # 1]), C, x, y, m, n, smem, stream
+    # val_kind, vals, offs, D, rb, S, W, stage_bytes, x, y, m, n, smem,
+    # stream
     "tsp_spmv_dia_windowed": (
-        _I, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _P, _LL, _LL, _I, _P,
+        _I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _LL, _LL, _I, _P,
     ),
-    # val_kind, D, rb, S, W, stage_bytes, first, C, m, smem -> CTAs (or
-    # minus the CUDA error)
-    "tsp_dia_windowed_ctas": (_I, _I, _I, _I, _I, _I, _P, _I, _LL, _I),
+    # val_kind, D, rb, S, W, stage_bytes, m, smem -> CTAs (or minus the
+    # CUDA error)
+    "tsp_dia_windowed_ctas": (_I, _I, _I, _I, _I, _I, _LL, _I),
     # -> static shared memory bytes of the DIA ring's kernel (or minus
     # the CUDA error)
     "tsp_dia_windowed_static_smem": (),

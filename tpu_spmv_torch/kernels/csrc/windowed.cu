@@ -17,31 +17,25 @@
 // multiple of 128 that divides the layout's tile, so a step's values are
 // D contiguous runs vals[t, k, r0:r0 + S/128, :]), and a persistent CTA
 // walks a contiguous range of steps, warp-specialised as the ring walk
-// below. The diagonals are cut into C segments, runs of consecutive
-// offsets (kernels/dia.ring_plan: one where it fits, else cut at the
-// largest gaps, so a 3-D stencil whose planes lie far apart takes one
-// segment a plane), and each segment has a ring of its own of W floats
-// (W >= span_c + K * S, span_c its highest offset less its lowest,
-// lo_c). One producer warp bulk-copies each step's D value runs into one
-// of K = 2 stages and slides x into every segment's ring: step t adds
-// the S entries of x past step t - 1's window of the segment (the first
-// step its whole window of S + span_c), so each segment reads x once per
-// CTA run plus one halo. Entry g of x lives in slot (g + xa - ubase_c)
-// mod W of segment c's ring, where xa aligns the slots to x's 16-byte
-// units; a copy that wraps the ring takes two bulk copies; the unaligned
-// ends of a range and entries outside [0, n) are written by the warp's
-// lanes (plain loads, or 0). Before it reuses a stage (and the ring
-// slots of the step that stage held) the producer waits on the stage's
-// empty mbarrier, so it runs at most K - 1 steps ahead of the consumers.
-// Eight consumer warps read values and x from shared memory only: row i
-// of a step reads diagonal k from its segment's ring at slot (pos0 + i +
-// off_k - lo_c + e_c) mod W, pos0 = t * S mod W and e_c = ubase_c's
-// distance below the CTA's first window, so consecutive threads read
-// consecutive banks; a thread sums four rows at once (four independent
-// chains of loads), each over the diagonals in ascending offset order
-// with explicit fused multiply-adds (csrc/dia.cu's order and
-// operations: spmv_dia_windowed gives spmv_dia's bits on one layout,
-// however its diagonals are cut), writes y coalesced, and each warp
+// below. One producer warp bulk-copies each step's D value runs into one
+// of K = 2 stages and slides x into a ring of W floats (W >= span + K *
+// S, span = off_max - off_min): step t adds the S entries of x past step
+// t - 1's window (the first step its whole window of S + span), so x is
+// read once per CTA run plus one halo. Entry g of x lives in ring slot
+// (g + xa - ubase) mod W, where xa aligns the slots to x's 16-byte units;
+// a copy that wraps the ring takes two bulk copies; the unaligned ends of
+// a range and entries outside [0, n) are written by the warp's lanes
+// (plain loads, or 0). Before it reuses a stage (and the ring slots of
+// the step that stage held) the producer waits on the stage's empty
+// mbarrier, so it runs at most K - 1 steps ahead of the consumers. Eight
+// consumer warps read values and x from shared memory only: row i of a
+// step reads diagonal k at ring slot (pos0 + i + off_k - off_min + e) mod
+// W, pos0 = t * S mod W and e = ubase's distance below the CTA's first
+// window, so consecutive threads read consecutive banks; a thread sums
+// four rows at once (four independent chains of loads), each over the
+// diagonals in ascending offset order with explicit fused multiply-adds
+// (csrc/dia.cu's order and operations: spmv_dia_windowed gives
+// spmv_dia's bits on one layout), writes y coalesced, and each warp
 // releases the step. bf16 values are copied as bytes and widened when
 // read.
 //
@@ -554,7 +548,6 @@ constexpr int kDiaConsumerWarps = kDiaConsumers / 32;
 constexpr int kDiaThreads = kDiaConsumers + 32;  // and one producer warp
 constexpr int kDiaStages = 2;  // K (kernels/dia.DIA_STAGES)
 constexpr int kDiaRowsAtOnce = 4;  // rows a consumer thread sums together
-constexpr int kDiaMaxSegments = 64;  // kernels/dia.DIA_MAX_SEGMENTS
 
 template <typename V>
 struct DiaArgs {
@@ -562,11 +555,9 @@ struct DiaArgs {
   const int* offs;  // D offsets, ascending
   int D, rb;
   int S;            // rows a step: a multiple of 128 dividing rb * 128
-  int W;            // floats of a segment's ring, a multiple of 4
+  int W;            // floats of the ring, a multiple of 4
   int stage_bytes;  // one stage: D runs of S values, 128-byte aligned
   int num_steps;    // ceil(m / S)
-  int C;            // segments
-  int first[kDiaMaxSegments + 1];  // each segment's first diagonal; D
   const float* x;
   float* y;
   long long m, n;
@@ -579,10 +570,9 @@ __device__ __forceinline__ long long floor4(long long v) { return v & ~3ll; }
 // K: full[k] = bars[k] (the producer's one arrival plus the stage's
 // bytes), empty[k] = bars[K + k] (one arrival per consumer warp).
 // The producer stages step t once step t - K is released, so it runs at
-// most K - 1 steps ahead and each segment's ring, W >= span_c + K * S
-// floats, holds the windows of every step in flight. Shared memory: C
-// rings, K stages, and for each diagonal its ring's first slot (c * W,
-// high 16 bits) and its slot past pos0 (off_k - lo_c + e_c, low 16).
+// most K - 1 steps ahead and the ring, W >= span + K * S floats, holds
+// the windows of every step in flight. Shared memory: the ring, K
+// stages, and for each diagonal its slot past pos0 (off_k - off_min + e).
 template <typename V>
 __global__ void __launch_bounds__(kDiaThreads)
     dia_ring_kernel(const DiaArgs<V> a) {
@@ -594,9 +584,8 @@ __global__ void __launch_bounds__(kDiaThreads)
   const int nt = i1 - i0;
   if (nt <= 0) return;
   float* ring = reinterpret_cast<float*>(smem);
-  unsigned char* stages = smem + align128((long long)a.C * a.W * 4);
-  unsigned* dk = reinterpret_cast<unsigned*>(stages +
-                                             K * (long long)a.stage_bytes);
+  unsigned char* stages = smem + align128((long long)a.W * 4);
+  int* dk = reinterpret_cast<int*>(stages + K * (long long)a.stage_bytes);
   const unsigned full0 = smem_u32(&bars[0]);  // full[k] at full0 + 8k
   const unsigned empty0 = smem_u32(&bars[K]);
   if (threadIdx.x == 0) {  // every launch: graphs replay it
@@ -608,18 +597,22 @@ __global__ void __launch_bounds__(kDiaThreads)
   }
   const long long S = a.S, W = a.W;
   // x + g is 16-byte aligned when g + xa is a multiple of 4; entry g
-  // lives in slot (g + xa - ubase_c) mod W of segment c's ring, ubase_c
-  // = floor4(i0 * S + lo_c + xa), a multiple of 4 at or below this
-  // CTA's first entry of the segment, so aligned entries take aligned
-  // slots; e_c = i0 * S + lo_c + xa - ubase_c.
+  // lives in ring slot (g + xa - ubase) mod W, ubase = floor4(i0 * S +
+  // off_min + xa), a multiple of 4 at or below this CTA's first entry,
+  // so aligned entries take aligned slots; e = i0 * S + off_min + xa -
+  // ubase.
   const long long xa = (long long)((reinterpret_cast<uintptr_t>(a.x) >> 2) & 3);
+  const int off_min = __ldg(a.offs);
+  const long long span = __ldg(a.offs + a.D - 1) - off_min;
+  const long long ubase = floor4((long long)i0 * S + off_min + xa);
+  const int e = (int)((long long)i0 * S + off_min + xa - ubase);
+  // The ring slot of entry g: g - ubase + xa lies in [0, 2^31) for every
+  // entry of this CTA's run (at most n + span).
+  const auto slot = [&](long long g) {
+    return (int)((unsigned)(g + xa - ubase) % (unsigned)a.W);
+  };
   for (int k = threadIdx.x; k < a.D; k += blockDim.x) {
-    int c = 0;
-    while (a.first[c + 1] <= k) ++c;
-    const long long lo = __ldg(a.offs + a.first[c]);
-    const unsigned e = (unsigned)(((long long)i0 * S + lo + xa) & 3);
-    dk[k] = ((unsigned)(c * a.W) << 16) |
-            ((unsigned)(__ldg(a.offs + k) - lo) + e);
+    dk[k] = __ldg(a.offs + k) - off_min + e;
   }
   __syncthreads();
   const long long rows_per_tile = (long long)a.rb * kLanes;
@@ -631,65 +624,52 @@ __global__ void __launch_bounds__(kDiaThreads)
     long long tile_row = (long long)i0 * S - tile * rows_per_tile;
     for (int t = 0; t < nt; ++t) {
       const long long r0 = (long long)(i0 + t) * S;
+      // Step t's window is [r0 + off_min, r0 + S + off_min + span); it
+      // adds what step t - 1's did not hold, the whole window at t = 0.
+      const long long lo = r0 + off_min + (t > 0 ? span : 0);
+      const long long hi = r0 + S + off_min + span;
       const int k = t % K, round = t / K;
       if (round > 0) mbar_wait(empty0 + 8 * k, (round - 1) & 1);
+      // The aligned part of [lo, hi) inside x, [ga, gb), by bulk copy.
+      const long long c0 = lo > 0 ? lo : 0;
+      const long long c1 = hi < a.n ? hi : a.n;
+      long long ga = hi, gb = hi;
+      if (c1 > c0) {
+        const long long ua = floor4(c0 + xa + 3), ub = floor4(c1 + xa);
+        if (ub > ua) {
+          ga = ua - xa;
+          gb = ub - xa;
+        }
+      }
       const unsigned full = full0 + 8 * k;
       V* st = reinterpret_cast<V*>(stages + k * (long long)a.stage_bytes);
       if (lane == 0) {
         const long long run = S * (long long)sizeof(V);
-        mbar_expect_tx(full, (unsigned)(a.D * run));
+        mbar_expect_tx(full, (unsigned)(a.D * run + (gb - ga) * 4));
         const V* src = a.vals + tile * a.D * rows_per_tile + tile_row;
         for (int d = 0; d < a.D; ++d) {
           bulk_copy(st + d * S, src + d * rows_per_tile, run, full);
         }
-      }
-      bool wrote = false;
-      for (int c = 0; c < a.C; ++c) {
-        const long long lo_c = __ldg(a.offs + a.first[c]);
-        const long long span = __ldg(a.offs + a.first[c + 1] - 1) - lo_c;
-        const long long ubase = floor4((long long)i0 * S + lo_c + xa);
-        float* rc = ring + (long long)c * W;
-        // The ring slot of entry g: g - ubase + xa lies in [0, 2^31) for
-        // every entry of this CTA's run of the segment (at most n +
-        // span).
-        const auto slot = [&](long long g) {
-          return (int)((unsigned)(g + xa - ubase) % (unsigned)a.W);
-        };
-        // Step t's window is [r0 + lo_c, r0 + S + lo_c + span); it adds
-        // what step t - 1's did not hold, the whole window at t = 0.
-        const long long lo = r0 + lo_c + (t > 0 ? span : 0);
-        const long long hi = r0 + S + lo_c + span;
-        // The aligned part of [lo, hi) inside x, [ga, gb), by bulk copy.
-        const long long c0 = lo > 0 ? lo : 0;
-        const long long c1 = hi < a.n ? hi : a.n;
-        long long ga = hi, gb = hi;
-        if (c1 > c0) {
-          const long long ua = floor4(c0 + xa + 3), ub = floor4(c1 + xa);
-          if (ub > ua) {
-            ga = ua - xa;
-            gb = ub - xa;
-          }
-        }
-        if (lane == 0 && gb > ga) {
-          mbar_expect_tx(full, (unsigned)((gb - ga) * 4));
+        if (gb > ga) {
           const long long p = slot(ga);
           const long long first = lmin(gb - ga, W - p);
-          bulk_copy(rc + p, a.x + ga, first * 4, full);
+          bulk_copy(ring + p, a.x + ga, first * 4, full);
           if (gb - ga > first) {
-            bulk_copy(rc, a.x + ga + first, (gb - ga - first) * 4, full);
+            bulk_copy(ring, a.x + ga + first, (gb - ga - first) * 4, full);
           }
         }
-        // The rest of [lo, hi), [lo, ga) and [gb, hi): plain loads
-        // inside x, 0 outside.
-        const auto fill = [&](long long g0, long long g1) {
-          for (long long g = g0 + lane; g < g1; g += 32) {
-            rc[slot(g)] = (g >= 0 && g < a.n) ? a.x[g] : 0.f;
-            wrote = true;
-          }
-        };
-        fill(lo, ga);
-        fill(gb, hi);
       }
+      // The rest of [lo, hi), [lo, ga) and [gb, hi): plain loads inside
+      // x, 0 outside.
+      bool wrote = false;
+      const auto fill = [&](long long g0, long long g1) {
+        for (long long g = g0 + lane; g < g1; g += 32) {
+          ring[slot(g)] = (g >= 0 && g < a.n) ? a.x[g] : 0.f;
+          wrote = true;
+        }
+      };
+      fill(lo, ga);
+      fill(gb, hi);
       if (wrote) fence_proxy_async();
       __syncwarp();
       if (lane == 0) mbar_arrive(full);
@@ -704,8 +684,7 @@ __global__ void __launch_bounds__(kDiaThreads)
 
   // Consumers: thread tid sums rows tid + j * 256 of a step, four at a
   // time, each over the diagonals in ascending order; pos0 = t * S mod W,
-  // to which each diagonal adds its slot past it (dk's low 16 bits) in
-  // its segment's ring (from dk's high 16 bits).
+  // to which each diagonal adds its slot past it (dk).
   const int tid = threadIdx.x;
   int pos0 = 0;
   for (int t = 0; t < nt; ++t) {
@@ -720,16 +699,14 @@ __global__ void __launch_bounds__(kDiaThreads)
 #pragma unroll
       for (int j = 0; j < kDiaRowsAtOnce; ++j) acc[j] = 0.f;
       for (int d = 0; d < a.D; ++d) {
-        const unsigned v = dk[d];
-        const float* rc = ring + (v >> 16);
-        const int base = pos0 + (int)(v & 0xffffu);
+        const int base = pos0 + dk[d];
         const V* sv = st + d * a.S;
 #pragma unroll
         for (int j = 0; j < kDiaRowsAtOnce; ++j) {
           const int i = i0r + j * kDiaConsumers;
           int q = base + i;
           if (q >= a.W) q -= a.W;
-          if (i < rows) acc[j] = __fmaf_rn(stage_val(sv + i), rc[q], acc[j]);
+          if (i < rows) acc[j] = __fmaf_rn(stage_val(sv + i), ring[q], acc[j]);
         }
       }
 #pragma unroll
@@ -772,45 +749,27 @@ int run_dia(const DiaArgs<V>& a, int smem, cudaStream_t s, int* grid) {
 }
 
 int dia_call(int val_kind, const void* vals, const void* offs, int D, int rb,
-             int S, int W, int stage_bytes, const int* first, int C,
-             const void* x, void* y, long long m, long long n, int smem,
-             cudaStream_t s, int* grid) {
+             int S, int W, int stage_bytes, const void* x, void* y,
+             long long m, long long n, int smem, cudaStream_t s, int* grid) {
   // The host sizes the ring (kernels/dia.ring_plan); smem must be the
-  // layout this kernel reads, with its own count of stages, each
-  // segment's ring and slot must fit dk's 16 bits, and the bulk copies
-  // need 16-byte aligned values.
+  // layout this kernel reads, with its own count of stages, and the
+  // bulk copies need 16-byte aligned values.
   if (D < 1 || rb < 1 || S < kLanes || S % kLanes || (rb * kLanes) % S ||
       W < kDiaStages * S || W % 4 || stage_bytes < 1 || m < 1 ||
-      C < 1 || C > kDiaMaxSegments || C > D || first == nullptr ||
-      (long long)C * W > 0xffff ||
-      smem != align128((long long)C * W * 4) +
+      smem != align128((long long)W * 4) +
                   kDiaStages * (long long)stage_bytes + 4ll * D ||
       reinterpret_cast<uintptr_t>(vals) % 16) {
     return (int)cudaErrorInvalidValue;
-  }
-  if (first[0] != 0 || first[C] != D) return (int)cudaErrorInvalidValue;
-  for (int c = 0; c < C; ++c) {
-    if (first[c + 1] <= first[c]) return (int)cudaErrorInvalidValue;
   }
   const long long steps = (m + S - 1) / S;
   if (steps > 0x7fffffff) return (int)cudaErrorInvalidValue;
 #define TSP_DIA(V)                                                        \
   {                                                                       \
-    DiaArgs<V> a{};                                                       \
-    a.vals = static_cast<const V*>(vals);                                 \
-    a.offs = static_cast<const int*>(offs);                               \
-    a.D = D;                                                              \
-    a.rb = rb;                                                            \
-    a.S = S;                                                              \
-    a.W = W;                                                              \
-    a.stage_bytes = stage_bytes;                                          \
-    a.num_steps = (int)steps;                                             \
-    a.C = C;                                                              \
-    for (int c = 0; c <= C; ++c) a.first[c] = first[c];                   \
-    a.x = static_cast<const float*>(x);                                   \
-    a.y = static_cast<float*>(y);                                         \
-    a.m = m;                                                              \
-    a.n = n;                                                              \
+    const DiaArgs<V> a{static_cast<const V*>(vals),                       \
+                       static_cast<const int*>(offs), D, rb, S, W,        \
+                       stage_bytes, (int)steps,                           \
+                       static_cast<const float*>(x), static_cast<float*>(y), \
+                       m, n};                                             \
     return run_dia(a, smem, s, grid);                                     \
   }
   if (val_kind == 0) TSP_DIA(float);
@@ -882,34 +841,29 @@ extern "C" int tsp_ranked_windowed_ctas(int val_kind, int lcol_kind,
 }
 
 // y = A @ x for a DIA layout (vals (T, D, rb, 128), D ascending offsets)
-// through the rings (see the header). val_kind: 0 float32, 1 bfloat16. S
-// rows a step (a multiple of 128 dividing rb * 128), W floats of each
-// segment's ring (a multiple of 4, at least its span + 2S), stage_bytes
-// one stage (D * S values, 128-byte aligned), first (host memory) the C
-// + 1 ascending first diagonals of the C segments, first[0] = 0 and
-// first[C] = D; smem = the C rings (128-byte aligned), two stages and 4
-// * D bytes of slots.
+// through the ring (see the header). val_kind: 0 float32, 1 bfloat16. S
+// rows a step (a multiple of 128 dividing rb * 128), W floats of ring (a
+// multiple of 4, at least span + 2S), stage_bytes one stage (D * S
+// values, 128-byte aligned); smem = the ring (128-byte aligned), two
+// stages and 4 * D bytes of slots.
 extern "C" int tsp_spmv_dia_windowed(int val_kind, const void* vals,
                                      const void* offs, int D, int rb, int S,
-                                     int W, int stage_bytes, const int* first,
-                                     int C, const void* x, void* y,
-                                     long long m, long long n, int smem,
-                                     void* stream) {
-  return dia_call(val_kind, vals, offs, D, rb, S, W, stage_bytes, first, C,
-                  x, y, m, n, smem, static_cast<cudaStream_t>(stream),
-                  nullptr);
+                                     int W, int stage_bytes, const void* x,
+                                     void* y, long long m, long long n,
+                                     int smem, void* stream) {
+  return dia_call(val_kind, vals, offs, D, rb, S, W, stage_bytes, x, y, m, n,
+                  smem, static_cast<cudaStream_t>(stream), nullptr);
 }
 
 // The CTAs a launch of tsp_spmv_dia_windowed runs for these sizes, or
 // minus the CUDA error that refuses it.
 extern "C" int tsp_dia_windowed_ctas(int val_kind, int D, int rb, int S,
-                                     int W, int stage_bytes,
-                                     const int* first, int C, long long m,
+                                     int W, int stage_bytes, long long m,
                                      int smem) {
   int grid = 0;
   const int rc = dia_call(val_kind, nullptr, nullptr, D, rb, S, W,
-                          stage_bytes, first, C, nullptr, nullptr, m, 0, smem,
-                          nullptr, &grid);
+                          stage_bytes, nullptr, nullptr, m, 0, smem, nullptr,
+                          &grid);
   return rc != 0 ? -rc : grid;
 }
 

@@ -3,18 +3,16 @@ their plain PyTorch versions.
 
 `spmv_dia(layout, x)` replaces `tpu_spmv/kernels/dia.py:spmv_dia` and
 `spmv_dia_windowed(layout, x)` its `spmv_dia_windowed`, which `dia_route`
-picks for some x past `dia_x_fits`: persistent CTAs walk steps of S
-rows, a producer warp bulk-copying each step's diagonal values into one
-of two stages and sliding x into a ring of W floats in shared memory for
-each segment of the diagonals (`dia_ring` cuts the segments and sizes
-both). On a CPU tensor each runs its plain version; on a CUDA tensor it
-launches its kernel or raises. `<wrapper>.launches` counts kernel
-launches.
+picks for an x past `dia_x_fits` whose one ring fits shared memory:
+persistent CTAs walk steps of S rows, a producer warp bulk-copying each
+step's diagonal values into one of two stages and sliding x into a ring
+of W floats in shared memory (`dia_ring` sizes both). On a CPU tensor
+each runs its plain version; on a CUDA tensor it launches its kernel or
+raises. `<wrapper>.launches` counts kernel launches.
 """
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 import functools
 import typing
@@ -38,10 +36,6 @@ DIA_STEP_ROWS = 1024
 # PERF.md). The launcher refuses a shared-memory size that does not hold
 # its own count of stages, so the two cannot drift apart unnoticed.
 DIA_STAGES = 2
-# The most segments a ring is cut into (csrc/windowed.cu's
-# kDiaMaxSegments): their first diagonals travel in the kernel's
-# parameters.
-DIA_MAX_SEGMENTS = 64
 # The share of the L2 that dia_x_fits holds the padded x to, and
 # dia_route the band's reuse window: half, the reference's rule.
 L2_BUDGET_FRAC = 0.5
@@ -111,45 +105,20 @@ def _round_up(v: int, m: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class DiaRing:
-    """Shared memory of one CTA of spmv_dia_windowed (csrc/windowed.cu):
-    the diagonals cut into C segments, runs of consecutive offsets, each
-    with a window of x of its own."""
+    """Shared memory of one CTA of spmv_dia_windowed (csrc/windowed.cu)."""
 
     step_rows: int  # S: rows a step, a multiple of 128 dividing the tile
-    ring: int  # W: floats of x a segment holds, >= its span + 2S, 32 | W
+    ring: int  # W: floats of x held, >= span + 2S, a multiple of 32
     stage_bytes: int  # one stage: the D runs of a step's S values
-    smem: int  # dynamic: C rings of W floats, two stages and the D offsets
-    segments: tuple = (0,)  # the first diagonal of each segment
+    smem: int  # dynamic: the ring, two stages and the D offsets
 
 
-def _ring_size(offsets, elem: int, rows: int, firsts=(0,)) -> DiaRing:
-    """The ring of `rows` a step with segments starting at the diagonals
-    `firsts`: every segment takes the widest one's W."""
-    ends = tuple(firsts[1:]) + (len(offsets),)
-    span = max(offsets[e - 1] - offsets[f] for f, e in zip(firsts, ends))
+def _ring_size(offsets, elem: int, rows: int) -> DiaRing:
+    span = max(offsets) - min(offsets)
     d = len(offsets)
     ring = _round_up(span + DIA_STAGES * rows, 32)
     stage = _round_up(d * rows * elem, 128)
-    return DiaRing(rows, ring, stage,
-                   4 * len(firsts) * ring + DIA_STAGES * stage + 4 * d,
-                   tuple(firsts))
-
-
-def _ring_at(layout: DiaSlabs, rows: int, firsts=(0,)) -> DiaRing:
-    return _ring_size(layout.offsets, layout.vals.element_size(), rows,
-                      firsts)
-
-
-def ring_splits(offsets) -> list:
-    """The segment cuts dia_ring tries, in order, each a tuple of first
-    diagonals: one segment, then cut at the largest gap between
-    consecutive offsets, then at the two largest (ties: the lower
-    diagonal first), and so on up to one segment an offset or
-    DIA_MAX_SEGMENTS."""
-    gaps = sorted(range(1, len(offsets)),
-                  key=lambda j: (offsets[j - 1] - offsets[j], j))
-    most = min(len(offsets), DIA_MAX_SEGMENTS)
-    return [(0,) + tuple(sorted(gaps[:c])) for c in range(most)]
+    return DiaRing(rows, ring, stage, 4 * ring + DIA_STAGES * stage + 4 * d)
 
 
 def dia_smem_budget(device) -> int:
@@ -174,30 +143,24 @@ def _static_smem() -> int:
 def ring_plan(offsets: tuple, rows_per_tile: int, elem: int, budget: int,
               most: int) -> DiaRing:
     """The ring of spmv_dia_windowed for ascending `offsets`, a tile of
-    `rows_per_tile` rows and `elem`-byte values: the fewest segments
-    (ring_splits' order), and at that cut the largest step S of at most
-    `most` rows that is a multiple of 128, divides the tile (so a step's
-    values are one contiguous run per diagonal), and whose C rings of W
-    floats (the widest segment's span + 2S, rounded up to 32 floats, so
-    every bulk copy into it stays 16-byte aligned), two stages of D * S
-    values and the D offsets fit `budget` bytes of dynamic shared memory.
-    One segment stages x once a CTA run; each more segment stages it once
-    more, so fewer segments come before a larger step. Raises ValueError
-    when no cut fits at 128 rows."""
+    `rows_per_tile` rows and `elem`-byte values: the largest step S of at
+    most `most` rows that is a multiple of 128, divides the tile (so a
+    step's values are one contiguous run per diagonal), and whose ring of
+    W = span + 2S floats (span = max offset - min offset; rounded up to 32
+    floats, so every bulk copy into it stays 16-byte aligned), two stages
+    of D * S values and the D offsets fit `budget` bytes of dynamic shared
+    memory. Raises ValueError when not even 128 rows fit."""
     top = min(most, rows_per_tile) // LANES * LANES
-    splits = ring_splits(offsets)
-    for firsts in splits:
-        for rows in range(top, 0, -LANES):
-            if rows_per_tile % rows:
-                continue
-            ring = _ring_size(offsets, elem, rows, firsts)
-            if ring.smem <= budget:
-                return ring
-    need = min(_ring_size(offsets, elem, LANES, f).smem for f in splits)
+    for rows in range(top, 0, -LANES):
+        if rows_per_tile % rows:
+            continue
+        ring = _ring_size(offsets, elem, rows)
+        if ring.smem <= budget:
+            return ring
+    need = _ring_size(offsets, elem, LANES).smem
     span = max(offsets) - min(offsets)
     raise ValueError(
         f"windowed DIA ring and stages are {need} bytes at 128 rows a step "
-        f"at the least, over every cut into segments up to one an offset "
         f"(halo {span} entries, {len(offsets)} diagonals), beyond the "
         f"{budget}-byte shared-memory budget: the diagonal offsets span "
         "too far; use a gather kernel (ranked) for this structure"
@@ -238,16 +201,16 @@ def dia_route(layout: DiaSlabs) -> DiaRoute:
     dia_x_fits):
 
     1. "x fits": the padded x within the budget -> resident;
-    2. "one ring": a ring of one segment fits shared memory
-       (dia_ring), so the windowed kernel stages x once -> windowed;
+    2. "one ring": the ring fits shared memory (dia_ring does not
+       raise), so the windowed kernel stages x once -> windowed;
     3. "reuse window": l2_window_bytes within the budget, so x survives
        in the L2 between its first and last read -> resident;
     4. "past the window": resident too, its x re-read from device memory
-       once for each far group of diagonals, as a ring cut into segments
-       stages it once a segment, and at a lower step rate. On an H100
-       resident beat the segmented ring 1.83x with the window at 232% of
-       the budget (27-point, 512 x 512 x 64) and 1.72x at 929% (1024 x
-       1024 x 16); where no cut fits at all, resident is the one route.
+       once for each far group of diagonals. A ring cut into one segment
+       for each such group, which stages x once a segment and steps at a
+       lower rate, lost to it on an H100: resident was 1.83x faster with
+       the window at 232% of the budget (27-point, 512 x 512 x 64) and
+       1.72x at 929% (1024 x 1024 x 16).
 
     Sets the counters (obs) dia.route_resident, dia.l2_window_bytes and
     dia.l2_budget_bytes once, here, not per call."""
@@ -266,8 +229,8 @@ def dia_route(layout: DiaSlabs) -> DiaRoute:
     try:
         ring = dia_ring(layout, dia_smem_budget(dev))
     except ValueError:
-        ring = None
-    if ring is not None and len(ring.segments) == 1:
+        pass
+    else:
         return route("windowed", "one ring", ring)
     if window <= budget:
         return route("resident", "reuse window")
@@ -278,34 +241,27 @@ def x_staged_floats(offsets, ring: DiaRing, m: int, n: int,
                     ctas: int) -> int:
     """Entries of x (inside [0, n)) that one call of spmv_dia_windowed
     copies into shared memory over all its CTAs: CTA b walks steps [i0,
-    i1) (an even share of the ceil(m / S) steps) and stages, for each
-    segment, x over [i0 S + lo, i1 S + hi), lo and hi the segment's
-    lowest and highest offsets."""
+    i1) (an even share of the ceil(m / S) steps) and stages x over
+    [i0 S + lo, i1 S + hi), lo and hi the lowest and highest offsets."""
     S = ring.step_rows
     steps = -(-m // S)
-    ends = ring.segments[1:] + (len(offsets),)
     total = 0
     for b in range(ctas):
         i0, i1 = b * steps // ctas, (b + 1) * steps // ctas
-        if i1 <= i0:
-            continue
-        for f, e in zip(ring.segments, ends):
-            lo = max(i0 * S + offsets[f], 0)
-            hi = min(i1 * S + offsets[e - 1], n)
+        if i1 > i0:
+            lo = max(i0 * S + offsets[0], 0)
+            hi = min(i1 * S + offsets[-1], n)
             total += max(hi - lo, 0)
     return total
 
 
-def spmv_dia_windowed_reference(layout: DiaSlabs, x: torch.Tensor,
-                                segments: tuple = (0,)) -> torch.Tensor:
-    """Plain version through windows of x, one for each segment of the
-    diagonals, given by its first diagonal (DiaRing.segments; by default
-    one segment, the whole band): for each tile and each segment, the
-    tile's rows + the segment's span entries of x from the tile's first
-    row plus the segment's lowest offset (zero outside [0, n)), row i of
-    the tile reading it at i + off - lowest; the diagonals added in
-    ascending offset order, as spmv_dia_reference adds them, so the
-    segments do not change the result."""
+def spmv_dia_windowed_reference(layout: DiaSlabs,
+                                x: torch.Tensor) -> torch.Tensor:
+    """Plain version through a window of x a tile: the tile's rows + the
+    band's span entries of x from the tile's first row plus the lowest
+    offset (zero outside [0, n)), row i of the tile reading it at i + off
+    - lowest; the diagonals added in ascending offset order, as
+    spmv_dia_reference adds them."""
     T, D, rb, _ = layout.vals.shape
     rows = rb * LANES
     offs = layout.offsets
@@ -313,16 +269,14 @@ def spmv_dia_windowed_reference(layout: DiaSlabs, x: torch.Tensor,
     xp = torch.zeros(below + T * rows + above, dtype=torch.float32,
                      device=x.device)
     xp[below : below + layout.n] = x
-    start = torch.arange(T, device=x.device) * rows + below
+    start = torch.arange(T, device=x.device) * rows + below + offs[0]
+    wins = xp[start[:, None]
+              + torch.arange(rows + offs[-1] - offs[0], device=x.device)]
     vals = layout.vals.reshape(T, D, rows).float()
     y = torch.zeros(T, rows, dtype=torch.float32, device=x.device)
-    for first, end in zip(segments, tuple(segments[1:]) + (D,)):
-        low, span = offs[first], offs[end - 1] - offs[first]
-        wins = xp[(start + low)[:, None]
-                  + torch.arange(rows + span, device=x.device)]
-        for k in range(first, end):
-            at = offs[k] - low
-            y += vals[:, k] * wins[:, at : at + rows]
+    for k, off in enumerate(offs):
+        at = off - offs[0]
+        y += vals[:, k] * wins[:, at : at + rows]
     return y.reshape(-1)[: layout.m]
 
 
@@ -362,12 +316,10 @@ def spmv_dia(layout: DiaSlabs, x: torch.Tensor) -> torch.Tensor:
 
 def _ring_args(shape, dtype, ring: DiaRing) -> tuple:
     """The C entries' sizes for vals of `shape` and `dtype`: val_kind, D,
-    rb, S, W, stage_bytes, the segments' first diagonals (a C array
-    ending in D) and C."""
+    rb, S, W and stage_bytes."""
     _, D, rb, _ = shape
-    firsts = (ctypes.c_int * (len(ring.segments) + 1))(*ring.segments, D)
     return (_VAL_KIND[dtype], D, rb, ring.step_rows, ring.ring,
-            ring.stage_bytes, firsts, len(ring.segments))
+            ring.stage_bytes)
 
 
 def _ctas(sizes: tuple, m: int, smem: int, device) -> int:
@@ -390,39 +342,33 @@ def dia_windowed_ctas(layout: DiaSlabs, ring: DiaRing) -> int:
 class _Launch(typing.NamedTuple):
     ring: DiaRing
     sizes: tuple  # _ring_args
-    counters: dict  # what obs.set_counters records of a call
+    staged: int  # x_staged_floats: a call's counter dia.x_staged_floats
 
 
 @functools.lru_cache(maxsize=64)
 @obs.span("build.dia_ring")
 def _launch_plan(offsets: tuple, shape: tuple, dtype, m: int, n: int,
                  budget: int, most: int, device: torch.device) -> _Launch:
-    """The ring (ring_plan), the C entry's sizes and the counters of a
-    call, planned once per layout shape, budget, step limit and card, in
-    the phase span build.dia_ring."""
+    """The ring (ring_plan), the C entry's sizes and the entries of x a
+    call stages, planned once per layout shape, budget, step limit and
+    card, in the phase span build.dia_ring."""
     if list(offsets) != sorted(offsets):
         raise ValueError("spmv_dia_windowed: offsets must be ascending")
     elem = torch.empty((), dtype=dtype).element_size()
     ring = ring_plan(offsets, shape[2] * LANES, elem, budget, most)
     sizes = _ring_args(shape, dtype, ring)
     ctas = _ctas(sizes, m, ring.smem, device)
-    return _Launch(ring, sizes, {
-        "dia.ring_segments": len(ring.segments),
-        "dia.ring_smem_bytes": ring.smem,
-        "dia.step_rows": ring.step_rows,
-        "dia.x_staged_floats": x_staged_floats(offsets, ring, m, n, ctas),
-    })
+    return _Launch(ring, sizes, x_staged_floats(offsets, ring, m, n, ctas))
 
 
 @obs.entry
 def spmv_dia_windowed(layout: DiaSlabs, x: torch.Tensor) -> torch.Tensor:
-    """y = A @ x through rings of x in shared memory filled a step ahead,
-    one a segment of the diagonals (dia_ring; planned once per layout
-    shape and card); same layout and bits as spmv_dia. Raises ValueError
-    when vals is not 16-byte aligned or no ring fits the card's shared
-    memory (dia_smem_budget). Each call sets the counters (obs)
-    dia.ring_segments, dia.ring_smem_bytes, dia.step_rows and
-    dia.x_staged_floats (x_staged_floats)."""
+    """y = A @ x through a ring of x in shared memory filled a step ahead
+    (dia_ring; planned once per layout shape and card); same layout and
+    bits as spmv_dia. Raises ValueError when vals is not 16-byte aligned
+    or the ring does not fit the card's shared memory (dia_smem_budget).
+    Each call sets the counter (obs) dia.x_staged_floats
+    (x_staged_floats)."""
     if x.device.type == "cpu":
         return spmv_dia_windowed_reference(layout, x)
     _check_dia(layout, x, "spmv_dia_windowed")
@@ -445,7 +391,7 @@ def spmv_dia_windowed(layout: DiaSlabs, x: torch.Tensor) -> torch.Tensor:
     )
     _build.check(rc, "spmv_dia_windowed")
     spmv_dia_windowed.launches += 1
-    obs.set_counters(plan.counters)
+    obs.set_counters({"dia.x_staged_floats": plan.staged})
     return y
 
 

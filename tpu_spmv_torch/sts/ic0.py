@@ -233,27 +233,15 @@ def capture_pcg_step(layout, precond: IC0Preconditioner, state):
     of CUDA tensors (x, r, p, rz), e.g. from pcg_ic0_init) in place at
     every replay. One iteration runs eagerly on a side stream first (on
     copies, so state is untouched) to warm the kernels and set up cuBLAS
-    before capture. The kernel library is loaded first, as its own phase
-    (build.kernels); the rest is the phase build.capture."""
+    before capture (dist/solvers._capture). The kernel library is loaded
+    first, as its own phase (build.kernels); the rest is the phase
+    build.capture."""
+    from tpu_spmv_torch.dist.solvers import _capture
     from tpu_spmv_torch.kernels import _build
 
     _build.library()
     with obs.span("build.capture"):
-        return _capture_pcg(layout, precond, state)
-
-
-def _capture_pcg(layout, precond: IC0Preconditioner, state):
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        pcg_ic0_step(layout, precond, tuple(t.clone() for t in state))
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        new = pcg_ic0_step(layout, precond, state)
-        for old, upd in zip(state, new):
-            old.copy_(upd)
-    return graph
+        return _capture(lambda st: pcg_ic0_step(layout, precond, st), state)
 
 
 def _joined(xs, mesh) -> torch.Tensor:

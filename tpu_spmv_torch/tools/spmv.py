@@ -160,9 +160,9 @@ def dia_route_message(route) -> str:
         ring = route.ring
         return head + (
             f"using the HBM-windowed DIA kernel: steps of {ring.step_rows} "
-            f"rows, one segment of the diagonals, a ring of {ring.ring} "
-            f"floats of x, {ring.smem} bytes of shared memory a CTA")
-    window = (f"no ring of one segment fits shared memory; the band's L2 "
+            f"rows, a ring of {ring.ring} floats of x, {ring.smem} bytes of "
+            "shared memory a CTA")
+    window = (f"no ring fits shared memory; the band's L2 "
               f"reuse window is {route.window_bytes} B against the "
               f"{route.budget_bytes} B budget")
     if route.rule == "reuse window":
