@@ -139,8 +139,17 @@ residency gate):
      (eager us a call or an iteration, printed per process); each
      process's rows are held to the oracle and to the one-process D = 4
      call's bits; its launches (spmv_ranked, spmv_sell, spmm_ranked and
-     lower_solve_blocks, each at least once) join the kernels line
+     lower_solve_blocks, each at least once; over NCCL also the fused CG
+     kernels, in every process) join the kernels line
      (`python chip_smoke.py --multiproc-only` runs this phase alone);
+  5d. runs the fused CG iteration (kernels/cg.py) on HPCG's 104^3
+     operator (hpcg_104.cg's matrix) and lap3d_101 at D = 1 and 4 shards
+     on the card, from one seeded state: spmv_ranked_dot against the
+     plain walk (PLAIN_TOL) and a float64 p.Ap, then one fused cg_step
+     against cg_step(plain=True): x, r and p within L2_TOL (RelL2), rz
+     within PLAIN_TOL, padding rows 0, each kernel launched once a shard;
+     on HPCG at D = 1 each kernel's warm time from a CUDA graph beside
+     the composed step's operations it takes the place of and its bound;
   6. drives each main path with every launch counter zeroed just before
      and read just after: the SpMV/SpMM CLIs (tools.spmv, tools.spmm on
      lap2d_1024 and banded_1m, and on the windowed routes: tools.spmv on
@@ -207,6 +216,8 @@ PCG_TOL = 1e-3
 # 1,600), the level of IC(0)-PCG's floor, so the bound is 1e-3.
 DIST_ITERS = 400
 DIST_TOL = 1e-3
+# The fused CG iteration's kernels (kernels/cg.py), by wrapper name.
+FUSED_CG_KERNELS = ("spmv_ranked_dot", "cg_update", "cg_direction")
 # The multiproc phase's wall limit: a process that hangs in a collective
 # (or fails while the others wait in one) ends the phase here.
 MULTIPROC_WALL_S = 300
@@ -1496,6 +1507,170 @@ def _dist_cg(iters):
     return run
 
 
+def _cg_fused_phases(stats):
+    """Step 5d: the fused CG iteration (kernels/cg.py) on HPCG's 104^3
+    operator (bench/solve_times.hpcg27) and lap3d_101, both in natural
+    order, at D = 1 and 4 shards on the card, from one seeded state (x, r
+    and p standard normal from X_SEED, rz = r.r). Appends each kernel's
+    max |kernel - plain| to stats; on HPCG at D = 1 the row also holds
+    the warm times (_cg_kernel_times)."""
+    import numpy as np
+    import torch
+
+    from tpu_spmv_torch.bench.solve_times import hpcg27
+    from tpu_spmv_torch.dist import sharding as dsh
+    from tpu_spmv_torch.dist import solvers
+    from tpu_spmv_torch.kernels import cg as cgk
+    from tpu_spmv_torch.tools.spmv import load_input
+
+    dev = torch.device("cuda")
+    kernels = (cgk.spmv_ranked_dot, cgk.cg_update, cgk.cg_direction)
+    for name, make in (("hpcg_104", lambda: hpcg27(104)),
+                       ("lap3d_101",
+                        lambda: load_input("synthetic:lap3d_101"))):
+        mat = make()
+        for D in (1, 4):
+            t0 = time.perf_counter()
+            label = f"{name} fused cg_step D={D}"
+            mesh = dsh.make_row_mesh([dev] * D)
+            lay = dsh.ShardedRanked.build(mat, D).device_put(mesh)
+            rng = np.random.default_rng(X_SEED)
+            x, r, p = (dsh.shard_vector(rng.standard_normal(mat.m).astype(
+                np.float32), mesh, lay.padded_m) for _ in range(3))
+            state = (x, r, p, sum(torch.dot(t, t) for t in r))
+
+            def clone(st):
+                return tuple([t.clone() for t in v] if isinstance(v, list)
+                             else v.clone() for v in st)
+
+            def host(v):
+                return dsh.gather_vector(v).astype(np.float64)
+
+            # K1 alone: A p and p.Ap against the plain walk and float64.
+            held, dots = solvers.fused_scratch(lay, mesh)
+            ap = dsh.sharded_call(lay, p, mesh, lambda d, sh, win: (
+                cgk.spmv_ranked_dot(sh, win, p[d], held[d],
+                                    dots[0, d:d + 1])))
+            ap_plain = host(dsh.spmv_sharded(lay, p, mesh, plain=True))
+            err = {"spmv_ranked_dot": float(np.abs(host(ap)
+                                                   - ap_plain).max())}
+            pap, pap_ref = float(dots[0].sum()), float(host(p) @ ap_plain)
+            if not err["spmv_ranked_dot"] <= PLAIN_TOL * max(
+                    1.0, float(np.abs(ap_plain).max())):
+                raise SmokeFailure(f"{label}: spmv_ranked_dot differs from "
+                                   f"plain by {err['spmv_ranked_dot']:.3g}")
+            if not abs(pap - pap_ref) <= PLAIN_TOL * abs(pap_ref):
+                raise SmokeFailure(f"{label}: p.Ap {pap!r}, float64 "
+                                   f"{pap_ref!r}")
+            # One step each way from the same state.
+            for k in kernels:
+                k.launches = 0
+            got = solvers.cg_step(lay, mesh, clone(state))
+            torch.cuda.synchronize()
+            launched = [k.launches for k in kernels]
+            want = solvers.cg_step(lay, mesh, clone(state), plain=True)
+            if launched != [D] * 3:
+                raise SmokeFailure(f"{label}: launches {launched}, not "
+                                   f"{D} each")
+            rel = {}
+            for v, g, w in zip("xrp", got[:3], want[:3]):
+                g, w = host(g), host(w)
+                if np.any(g[mat.m:] != 0.0):
+                    raise SmokeFailure(f"{label}: {v} has padding rows "
+                                       "not 0")
+                rel[v] = float(np.linalg.norm(g - w) / np.linalg.norm(w))
+                if not rel[v] <= L2_TOL:
+                    raise SmokeFailure(f"{label}: {v} RelL2 {rel[v]:.3g} "
+                                       "against plain")
+                kernel = "cg_direction" if v == "p" else "cg_update"
+                err[kernel] = max(err.get(kernel, 0.0),
+                                  float(np.abs(g - w).max()))
+            rz, rz_plain = float(got[3]), float(want[3])
+            rel["rz"] = abs(rz - rz_plain) / abs(rz_plain)
+            if not rel["rz"] <= PLAIN_TOL:
+                raise SmokeFailure(f"{label}: rz {rz!r} against plain "
+                                   f"{rz_plain!r}")
+            print(f"[{label}] rows/shard {lay.rows_per_shard}, halo "
+                  f"{lay.halo}: launches {launched} (spmv_ranked_dot, "
+                  f"cg_update, cg_direction) | max|Ap - plain| "
+                  f"{err['spmv_ranked_dot']:.3g}, p.Ap rel "
+                  f"{abs(pap - pap_ref) / abs(pap_ref):.3g} against "
+                  f"float64 | RelL2 against cg_step(plain=True): x "
+                  f"{rel['x']:.3g}, r {rel['r']:.3g}, p {rel['p']:.3g}; rz "
+                  f"rel {rel['rz']:.3g} | padding rows 0 | phase wall "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+            times = {}
+            if name == "hpcg_104" and D == 1:
+                times = _cg_kernel_times(lay, mesh, state, ap[0],
+                                         (held, dots))
+            for k in kernels:
+                stats.setdefault(k.__name__, []).append(dict(
+                    label=label, err=err[k.__name__],
+                    **times.get(k.__name__, {})))
+            del lay, ap, got, want, state
+
+
+def _cg_kernel_times(lay, mesh, state, ap, scratch):
+    """Each fused CG kernel on one shard (D = 1), warm TimeMin from a CUDA
+    graph, beside the composed step's operations it takes the place of
+    (spmv_ranked and a cuBLAS dot; alpha, two addcmuls and r.r; beta, p's
+    addcmul and the copy back of x, r, p and rz that a captured composed
+    step ends with) and its bound (K1 as spmv_sharded's; K2 reads p, Ap,
+    x, r and writes x, r; K3 reads r, p and writes p). Timed on copies of
+    the state, which the replays move. {kernel: the stats fields}."""
+    import torch
+
+    from tpu_spmv_torch.bench.harness import bench_spmv
+    from tpu_spmv_torch.dist import solvers
+    from tpu_spmv_torch.kernels import cg as cgk
+    from tpu_spmv_torch.kernels import sell
+
+    sh, m = lay.shards[0], lay.rows_per_shard
+    held, dots = scratch
+    x, r, p = (v[0].clone() for v in state[:3])
+    win = p[: sh.n]  # the one shard's x: p's first n rows
+    rz = state[3].clone()
+    pap, rr = dots[0, :1], dots[1, :1]
+
+    def k2_composed():
+        alpha = rz / torch.clamp_min(solvers._dot([p], [ap], mesh), 1e-30)
+        solvers._axpy([x], alpha, [p])
+        r2 = solvers._axpy([r], alpha, [ap], -1.0)
+        return solvers._dot(r2, r2, mesh)
+
+    def k3_composed():
+        beta = rr / torch.clamp_min(rz, 1e-30)
+        p2 = solvers._axpy([r], beta, [p])
+        for old in (x, r, p):
+            old.copy_(p2[0])
+        rz.copy_(rr[0])
+
+    pairs = {
+        "spmv_ranked_dot": (
+            lambda: cgk.spmv_ranked_dot(sh, win, p, held[0], pap),
+            lambda: torch.dot(p, sell.spmv_ranked(sh, win)),
+            _dist_bound(lay, 1)),
+        "cg_update": (
+            lambda: cgk.cg_update(pap, rz, p, ap, x, r, held[0], rr),
+            k2_composed, _bound(6 * 4 * m, 6 * m)),
+        "cg_direction": (
+            lambda: cgk.cg_direction(rr, rz, r, p, held[0]),
+            k3_composed, _bound(3 * 4 * m, 2 * m)),
+    }
+    out = {}
+    for name, (fused, composed, (bound_ms, bound_by)) in pairs.items():
+        t = [bench_spmv(lambda _l, _x, f=f: f(), sh, win,
+                        nnz=sh.nnz).time_min
+             * 1e3 for f in (fused, composed)]
+        print(f"    {name} warm TimeMin us (CUDA graph): {t[0] * 1e3:.2f} | "
+              f"the composed step's operations it replaces "
+              f"{t[1] * 1e3:.2f} | bound {bound_ms * 1e3:.2f} us "
+              f"({bound_by}), {t[0] / bound_ms:.2f}x", flush=True)
+        out[name] = dict(ms=t[0], plain_ms=t[1], bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=None)
+    return out
+
+
 def _dist_calls(keep):
     """_drive steps: one call of each sharded entry point on the dist
     phase's D = 4 layouts (ShardedSell, ShardedRanked resident SpMM, the
@@ -1751,6 +1926,15 @@ def _dist_sts_phases(stats, link_us, trace_single):
         _dist_precond(name, cls, mat, mesh, lay, trace_single)
 
 
+def _multiproc_nccl() -> bool:
+    """Whether the multiproc phase runs 4 processes over NCCL (a card
+    each), whose cg_solve takes the fused CG kernels; else 2 over gloo,
+    which takes the composed step."""
+    import torch
+
+    return torch.cuda.device_count() >= 4
+
+
 def _multiproc_phase(stats):
     """The distributed layer across processes (bench/multiproc.py, suite
     "full"): 2 processes x 2 shards on the one card (gloo, host-staged;
@@ -1763,8 +1947,10 @@ def _multiproc_phase(stats):
     (PLAIN_TOL) and times it (eager us a call or an iteration; with NCCL
     also from a CUDA graph); here each process's rows are held to the
     oracle and to the same calls in one process over [cuda:0] * 4, bit
-    for bit (built while the processes run). Returns the processes'
-    kernel launches over their paths, summed."""
+    for bit (built while the processes run; its cg_solve takes the
+    group's step: over gloo the composed one, over NCCL the fused
+    kernels). Returns the processes' kernel launches over their paths,
+    summed."""
     import tempfile
     from concurrent.futures import ThreadPoolExecutor
 
@@ -1774,9 +1960,9 @@ def _multiproc_phase(stats):
     from tpu_spmv_torch.bench import multiproc
     from tpu_spmv_torch.bench.harness import validate
     from tpu_spmv_torch.dist import sharding as dsh
+    from tpu_spmv_torch.dist import solvers
 
-    n = 4 if torch.cuda.device_count() >= 4 else 2
-    want = "nccl" if n == 4 else "gloo"
+    n, want = (4, "nccl") if _multiproc_nccl() else (2, "gloo")
     argv = ["--suite", "full", "--device", "cuda", "--check", "--time",
             "--cg-iters", str(DIST_ITERS), "--pcg-iters", str(PCG_ITERS)]
     t0 = time.perf_counter()
@@ -1799,8 +1985,16 @@ def _multiproc_phase(stats):
           + ", ".join(f"{f['paths_s']:.1f}" for f, _ in loaded) + " s",
           flush=True)
     mesh = dsh.make_row_mesh([torch.device("cuda")] * 4)
-    one, _ = multiproc.run_paths(built, mesh, cg_iters=DIST_ITERS,
-                                 pcg_iters=PCG_ITERS)
+    # The one-process run takes the group's CG step: over gloo the
+    # composed one (one process on one card would take the fused one).
+    fused = solvers.fused
+    if want == "gloo":
+        solvers.fused = lambda *args, **kw: False
+    try:
+        one, _ = multiproc.run_paths(built, mesh, cg_iters=DIST_ITERS,
+                                     pcg_iters=PCG_ITERS)
+    finally:
+        solvers.fused = fused
 
     def whole(name):  # every process's rows, joined
         got = {d: y for _, rows in loaded for d, y in rows[name].items()}
@@ -1823,6 +2017,10 @@ def _multiproc_phase(stats):
                                "the kernel library itself")
         for k, v in facts["launches"].items():
             launches[k] = launches.get(k, 0) + v
+        idle = [k for k in FUSED_CG_KERNELS if facts["launches"][k] < 1]
+        if want == "nccl" and idle:
+            raise SmokeFailure(f"multiproc: process {facts['rank']}'s "
+                               f"cg_solve never launched {idle}")
     for name in ("spmv", "overlap", "spmm", "cg", "sts", "ic0", "ic0_bj"):
         oracle = ""
         for facts, rows in loaded:
@@ -2197,13 +2395,16 @@ def _drive(steps):
     """Zero every launch counter, run the steps, return the counts. A
     step is a (CLI module, argv) pair, whose main must return 0, or a
     callable that raises SmokeFailure."""
-    from tpu_spmv_torch.kernels import dia, packed, sell, spmm, striped, sts
+    from tpu_spmv_torch.kernels import (
+        cg, dia, packed, sell, spmm, striped, sts,
+    )
 
     wrappers = (dia.spmv_dia, dia.spmv_dia_windowed, sell.spmv_ranked,
                 sell.spmv_ranked_windowed, sell.spmv_sell, packed.spmv_packed,
                 spmm.spmm_ranked, spmm.spmm_ranked_windowed, spmm.spmm_packed,
                 sts.lower_solve_ranked, sts.lower_solve_blocks,
-                striped.spmv_striped)
+                striped.spmv_striped, cg.spmv_ranked_dot, cg.cg_update,
+                cg.cg_direction)
     for w in wrappers:
         w.launches = 0
     for step in steps:
@@ -2537,8 +2738,9 @@ def _main_path(bin_blocks, tune, dist, multiproc):
     # The striped route: tools.spmv --kernel auto on scattered_16m.
     counts["spmv_ranked"] += planner["auto"]["spmv_ranked"]
     counts["spmv_striped"] = planner["auto"]["spmv_striped"]
+    # tools.solve CG and cg_solve D=4 run the fused CG iteration.
     dist_kernels = ("spmv_ranked", "spmv_sell", "spmm_ranked",
-                    "spmm_ranked_windowed")
+                    "spmm_ranked_windowed", *FUSED_CG_KERNELS)
     for k in dist_kernels:
         counts[k] += dist_path[k]
     dist_sts_kernels = ("spmv_sell", "lower_solve_blocks", "spmv_ranked")
@@ -2546,6 +2748,8 @@ def _main_path(bin_blocks, tune, dist, multiproc):
         counts[k] += dist_sts_path[k]
     multiproc_kernels = ("spmv_ranked", "spmv_sell", "spmm_ranked",
                          "lower_solve_blocks")
+    if _multiproc_nccl():
+        multiproc_kernels += FUSED_CG_KERNELS
     for k in multiproc_kernels:
         counts[k] += multiproc.get(k, 0)
     print(f"launches: SpMV/SpMM CLIs {spmv_path} | solve CLIs {sts_path} | "
@@ -2611,6 +2815,15 @@ _KERNELS = {
     "spmm_ranked_windowed": ("tpu_spmv_torch/kernels/csrc/windowed.cu",
                              "tpu_spmv/kernels/spmm.py:391",
                              "lap2d_1024 rcm spmm_ranked_windowed B=5"),
+    "spmv_ranked_dot": ("tpu_spmv_torch/kernels/csrc/sell.cu",
+                        "tpu_spmv/dist/solvers.py:36",
+                        "hpcg_104 fused cg_step D=1"),
+    "cg_update": ("tpu_spmv_torch/kernels/csrc/cg.cu",
+                  "tpu_spmv/dist/solvers.py:38",
+                  "hpcg_104 fused cg_step D=1"),
+    "cg_direction": ("tpu_spmv_torch/kernels/csrc/cg.cu",
+                     "tpu_spmv/dist/solvers.py:42",
+                     "hpcg_104 fused cg_step D=1"),
 }
 
 
@@ -2712,6 +2925,10 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         multiproc = _multiproc_phase(stats)
         print(f"multiproc phase: wall {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        t0 = time.perf_counter()
+        _cg_fused_phases(stats)
+        print(f"fused cg phases: wall {time.perf_counter() - t0:.1f} s",
               flush=True)
         t0 = time.perf_counter()
         counts = _main_path(bin_blocks, tune, dist, multiproc)

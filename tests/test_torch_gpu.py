@@ -1238,6 +1238,80 @@ def test_sharded_cg_graph_on_one_card(cuda):
     assert np.linalg.norm(mat.matvec(xp) - 1.0) / np.sqrt(mat.m) < 1e-4
 
 
+# The fused CG iteration (kernels/cg.py: the ranked walk with its p.Ap
+# epilogue, then the updates with r.r, then p and rz, in place) against
+# the composed step through the plain versions (cg_step(plain=True)),
+# from one seeded state. Both are f32 and sum the dots in other orders:
+# x, r and p agree to 1e-6 (RelL2), rz to 1e-5. The fused sums are
+# deterministic (one partial a CTA, added in order), so two runs from
+# one state give the same bits.
+
+def _seeded_cg_state(dsh, mesh, lay, m, seed):
+    rng = np.random.default_rng(seed)
+    x, r, p = (dsh.shard_vector(rng.standard_normal(m).astype(np.float32),
+                                mesh, lay.padded_m) for _ in range(3))
+    rz = sum(torch.dot(t, t) for t in r)
+    return x, r, p, rz
+
+
+def _cloned(state):
+    return tuple([t.clone() for t in v] if isinstance(v, list)
+                 else v.clone() for v in state)
+
+
+@pytest.mark.parametrize("D", [1, 4])
+@pytest.mark.parametrize("case", ["banded", "split chunk"])
+def test_fused_cg_step_against_the_composed_step(cuda, D, case):
+    from tpu_spmv_torch.dist import solvers
+    from tpu_spmv_torch.kernels import cg as cgk
+
+    mat = (random_banded(8000, 50, 8, seed=1) if case == "banded"
+           else _long_row())
+    dsh, mesh, lay = _dist_case(cuda, mat, D)
+    splits = sum(s.split_seg.shape[1] for s in lay.shards)
+    assert (splits > 0) == (case == "split chunk")
+    assert solvers.fused(lay, mesh) and not solvers.fused(lay, mesh, True)
+    state = _seeded_cg_state(dsh, mesh, lay, mat.m, seed=7)
+    before = (cgk.spmv_ranked_dot.launches, cgk.cg_update.launches,
+              cgk.cg_direction.launches)
+    got = solvers.cg_step(lay, mesh, _cloned(state))
+    assert (cgk.spmv_ranked_dot.launches, cgk.cg_update.launches,
+            cgk.cg_direction.launches) == tuple(b + D for b in before)
+    want = solvers.cg_step(lay, mesh, _cloned(state), plain=True)
+    torch.cuda.synchronize()
+    for name, g, w in zip("xrp", got[:3], want[:3]):
+        g, w = dsh.gather_vector(g), dsh.gather_vector(w)
+        assert _rel(g, w) <= 1e-6, name
+        assert np.all(g[mat.m:] == 0.0), name
+    rz, rz_want = float(got[3]), float(want[3])
+    assert abs(rz - rz_want) <= 1e-5 * abs(rz_want)
+    again = solvers.cg_step(lay, mesh, _cloned(state))
+    for g, a in zip(got, again):
+        pairs = zip(g, a) if isinstance(g, list) else [(g, a)]
+        assert all(torch.equal(u, v) for u, v in pairs)
+
+
+def test_fused_cg_solve_converges_to_the_float64_solution(cuda):
+    """cg_solve on the fused kernels (a captured iteration, D = 1 and 4)
+    reaches the float64 solution of an SPD system to 1e-5 (RelL2)."""
+    import scipy.sparse.linalg as sla
+
+    from tpu_spmv_torch import obs
+    from tpu_spmv_torch.dist import solvers
+
+    mat = random_banded(8000, 50, 8, seed=1)
+    exact = sla.spsolve(mat.to_scipy().astype(np.float64).tocsc(),
+                        np.ones(mat.m))
+    for D in (1, 4):
+        dsh, mesh, lay = _dist_case(cuda, mat, D)
+        b = dsh.shard_vector(np.ones(mat.m, np.float32), mesh, lay.padded_m)
+        x, rz = solvers.cg_solve(lay, b, mesh, iters=120)
+        assert obs.counters()["cg.fused_shards"] == D
+        x = dsh.gather_vector(x)
+        assert np.all(x[mat.m:] == 0.0) and np.isfinite(float(rz))
+        assert _rel(x[: mat.m], exact) <= 1e-5
+
+
 # The sharded triangular solve and the distributed IC(0) preconditioners
 # (dist/sts.py, sts/ic0.py): D shards on the one card, kernels against
 # plain versions and the f64 oracle (RelL2 <= 1e-5).
@@ -1343,20 +1417,24 @@ def test_sharded_preconditioners_on_one_card(cuda, kind):
     assert np.linalg.norm(mat.matvec(xg) - 1.0) / np.sqrt(mat.m) < 1e-3
 
 
-def test_two_processes_share_the_card(cuda, tmp_path):
+def test_two_processes_share_the_card(cuda, tmp_path, monkeypatch):
     """Two processes of a group on the one card (gloo, host-staged), two
     shards each on the (hosts=2, rows=2) mesh: every path of the suite
     "small" (SpMV with the halo and gathered, SpMM, the overlap, CG, the
     sharded solve, both IC(0)-PCGs) gives the one-process D = 4 call's
     bits, the kernels ran in both processes and found the library built
-    here, and each path matches its plain version."""
+    here, and each path matches its plain version. A gloo group's CG
+    takes the composed step, so the one-process call takes it too (on
+    its own it would take the fused kernels, dist/solvers.fused)."""
     from tpu_spmv_torch.bench import multiproc
     from tpu_spmv_torch.dist import sharding as dsh
+    from tpu_spmv_torch.dist import solvers
 
     res = multiproc.spawn(2, ["--suite", "small", "--device", "cuda",
                               "--check"], str(tmp_path), 300)
     for r, (code, log) in enumerate(res):
         assert code == 0 and f"OK process {r}" in log, (r, code, log)
+    monkeypatch.setattr(solvers, "fused", lambda *args, **kw: False)
     one, _ = multiproc.run_paths(multiproc.build("small"),
                                  dsh.make_row_mesh([cuda] * 4))
     for facts, rows in multiproc.load(str(tmp_path), 2):

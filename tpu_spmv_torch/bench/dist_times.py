@@ -12,9 +12,10 @@ One card (the default): D shards on it, D = 1 and 4.
     (b) as make_row_mesh places them, shard 0 on the caller's stream,
     (c) all on the caller's stream, one after the other.
   * CG and Jacobi-PCG on lap3d_101 (b = ones): us per iteration of a
-    captured iteration replayed `--iters` times, with the vector updates
-    as dist/solvers has them (one torch.addcmul each) and split into a
-    multiply and an add (as a first version had them), and the RMS
+    captured iteration replayed `--iters` times, as capture_step takes
+    it (CG: the fused kernels, kernels/cg.py; Jacobi-PCG: one
+    torch.addcmul an update) and with the updates split into a multiply
+    and an add (as a first version had them), and the RMS
     residual at 100, 200, 400, ... iterations.
 
   * The sharded triangular solve (dist/sts.py) on lap2d_1024 LS at D = 1,
@@ -134,10 +135,10 @@ def _cg(dev, iters: int) -> bool:
         jac = dsh.shard_vector(
             solvers.jacobi_inv_diag(mat.diagonal(), lay.padded_m), mesh)
         for inv in (None, jac):
-            for updates in ("addcmul", "multiply + add"):
+            for updates in ("capture_step", "multiply + add"):
                 state = (solvers.cg_init(b, mesh) if inv is None
                          else solvers.pcg_init(b, mesh, inv))
-                if updates == "addcmul":
+                if updates == "capture_step":
                     graph = solvers.capture_step(lay, mesh, state, inv)
                 else:
                     graph = solvers.capture(

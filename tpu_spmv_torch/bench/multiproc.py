@@ -332,10 +332,11 @@ def run_paths(built: Built, mesh, axis="rows", check: bool = False,
 
 
 def _counters() -> list:
-    from tpu_spmv_torch.kernels import sell, spmm, sts
+    from tpu_spmv_torch.kernels import cg, sell, spmm, sts
 
     return [sell.spmv_ranked, sell.spmv_sell, spmm.spmm_ranked,
-            spmm.spmm_ranked_windowed, sts.lower_solve_blocks]
+            spmm.spmm_ranked_windowed, sts.lower_solve_blocks,
+            cg.spmv_ranked_dot, cg.cg_update, cg.cg_direction]
 
 
 def main(argv=None) -> int:

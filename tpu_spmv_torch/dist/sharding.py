@@ -818,18 +818,26 @@ def spmv_sharded(layout, xs, mesh: RowMesh, axis="rows",
     (spmv_ranked per shard), placed on `mesh` (device_put). Each shard's
     window of x is exchanged, then its kernel runs on its stream.
     plain=True runs the kernels' plain versions."""
-    _check_mesh(layout, mesh, axis)
-    _check_vector(layout, xs, mesh)
     if isinstance(layout, ShardedRanked):
         kernel = sell.spmv_ranked_reference if plain else sell.spmv_ranked
     else:
         kernel = sell.spmv_sell_reference if plain else sell.spmv_sell
+    return sharded_call(layout, xs, mesh, lambda d, lay, x: kernel(lay, x),
+                        axis)
+
+
+def sharded_call(layout, xs, mesh: RowMesh, kernel, axis="rows") -> list:
+    """spmv_sharded's exchange and streams around kernel(d, shard d's
+    layout, shard d's window of x) -> y_d, on each of this process's
+    shards (the fused CG iteration's walk, dist/solvers, passes its own)."""
+    _check_mesh(layout, mesh, axis)
+    _check_vector(layout, xs, mesh)
     remote = _remote(layout, xs, mesh)
     ys = [None] * layout.n_devices
     with _forked(mesh, mesh.streams):
         for d in mesh.local:
             with _on(mesh.streams[d]):
-                ys[d] = kernel(layout.shards[d],
+                ys[d] = kernel(d, layout.shards[d],
                                _exchange_x(layout, xs, d, remote))
     return ys
 

@@ -12,6 +12,16 @@ replayed, the counterpart of the reference's jitted loop. The state is
 the reference's tuple (x, r, p, rz), with the same `max(., 1e-30)`
 guards. On the CPU, and under a gloo process group (whose collectives
 are host calls), the loop runs eagerly.
+
+On the card a CG iteration over a ShardedRanked layout is three
+hand-written kernels a shard (kernels/cg.py, `fused`): the ranked walk
+with a p.Ap epilogue, the updates of x and r with r.r, and the new p
+with rz; they advance the state in place, so a captured iteration
+copies nothing back. Across processes the shards' partial dots are
+all-gathered between them, as `_dot` gathers them. Elsewhere (the CPU,
+ShardedSell, OverlapRanked, a gloo group, plain=True) the step is the
+composed one below, torch's vector operations around the sharded SpMV:
+the fused kernels' plain version.
 """
 
 from __future__ import annotations
@@ -22,16 +32,18 @@ import torch
 from tpu_spmv_torch import obs
 from tpu_spmv_torch.dist import group
 from tpu_spmv_torch.dist.sharding import (
-    OverlapRanked, RowMesh, each, spmv_overlap, spmv_sharded,
+    OverlapRanked, RowMesh, ShardedRanked, each, sharded_call, spmv_overlap,
+    spmv_sharded,
 )
 from tpu_spmv_torch.kernels import _build
+from tpu_spmv_torch.kernels import cg as cg_kernels
 
 
-def _spmv_any(layout, v, mesh: RowMesh, axis="rows"):
+def _spmv_any(layout, v, mesh: RowMesh, axis="rows", plain=False):
     """spmv_overlap for an OverlapRanked layout, else spmv_sharded."""
     if isinstance(layout, OverlapRanked):
-        return spmv_overlap(layout, v, mesh, axis)
-    return spmv_sharded(layout, v, mesh, axis)
+        return spmv_overlap(layout, v, mesh, axis, plain)
+    return spmv_sharded(layout, v, mesh, axis, plain)
 
 
 def _dot(a, b, mesh: RowMesh) -> torch.Tensor:
@@ -58,11 +70,28 @@ def _axpy(y, s: torch.Tensor, x, sign: float = 1.0) -> list:
         yi, s.to(yi.device, non_blocking=True), xi, value=sign), y, x)
 
 
-def cg_step(layout, mesh: RowMesh, state, axis="rows"):
+def fused(layout, mesh: RowMesh, plain: bool = False) -> bool:
+    """Whether cg_step runs the fused kernels (kernels/cg.py): a
+    ShardedRanked layout, not plain, and this process's shards on one
+    CUDA card with no gloo group (graph_default's mesh)."""
+    return (not plain and isinstance(layout, ShardedRanked)
+            and graph_default(mesh))
+
+
+def cg_step(layout, mesh: RowMesh, state, axis="rows", plain=False,
+            scratch=None):
     """One CG iteration on the sharded state (x, r, p, rz). layout:
-    ShardedSell, ShardedRanked or OverlapRanked."""
+    ShardedSell, ShardedRanked or OverlapRanked. Where `fused` holds, the
+    fused kernels advance the state in place and return it, on `scratch`
+    (fused_scratch; made for this call if None); elsewhere the composed
+    step returns a new state (through the SpMV kernels' plain versions
+    with plain=True)."""
+    if fused(layout, mesh, plain):
+        if scratch is None:
+            scratch = fused_scratch(layout, mesh)
+        return _fused_step(layout, mesh, state, axis, scratch)
     x, r, p, rz = state
-    Ap = _spmv_any(layout, p, mesh, axis)
+    Ap = _spmv_any(layout, p, mesh, axis, plain)
     alpha = rz / torch.clamp_min(_dot(p, Ap, mesh), 1e-30)
     x = _axpy(x, alpha, p)
     r = _axpy(r, alpha, Ap, -1.0)
@@ -70,6 +99,48 @@ def cg_step(layout, mesh: RowMesh, state, axis="rows"):
     beta = rz_new / torch.clamp_min(rz, 1e-30)
     p = _axpy(r, beta, p)
     return (x, r, p, rz_new)
+
+
+def fused_scratch(layout: ShardedRanked, mesh: RowMesh):
+    """The fused step's device scratch: each local shard's CGScratch
+    (its done counters 0) and the (2, D) slots of the shards' p.Ap and
+    r.r on this process's card. A captured iteration reads the same
+    memory at every replay, so whoever captures one makes its own."""
+    return ([None if mesh.devices[d] is None
+             else cg_kernels.CGScratch(layout.shards[d], mesh.devices[d])
+             for d in range(mesh.size)],
+            torch.zeros(2, mesh.size, dtype=torch.float32, device=mesh.home))
+
+
+def _all_partials(row: torch.Tensor, mesh: RowMesh) -> torch.Tensor:
+    """The D shards' partials of one dot in shard order: `row` (D slots)
+    in one process; across processes each one's own slots, all-gathered
+    over the group (in rank order, shards hosts-major: shard order)."""
+    if mesh.world == 1:
+        return row
+    return group.all_gather_rows(mesh, row[mesh.local[0]:mesh.local[-1] + 1])
+
+
+def _fused_step(layout: ShardedRanked, mesh: RowMesh, state, axis,
+                scratch):
+    """cg_step's three kernels a shard, in place, on `scratch`
+    (fused_scratch): K1 on the shards' streams (spmv_sharded's exchange),
+    then K2 and K3 of every shard on the caller's stream, each after the
+    dot its alpha or beta needs."""
+    x, r, p, rz = state
+    held, dots = scratch
+    Ap = sharded_call(layout, p, mesh, lambda d, lay, win: (
+        cg_kernels.spmv_ranked_dot(lay, win, p[d], held[d],
+                                   dots[0, d:d + 1])), axis)
+    pap = _all_partials(dots[0], mesh)
+    for d in mesh.local:
+        cg_kernels.cg_update(pap, rz, p[d], Ap[d], x[d], r[d], held[d],
+                             dots[1, d:d + 1])
+    rr = _all_partials(dots[1], mesh)
+    for d in mesh.local:
+        cg_kernels.cg_direction(rr, rz, r[d], p[d],
+                                held[d] if d == mesh.local[-1] else None)
+    return state
 
 
 def pcg_step(layout, mesh: RowMesh, inv_diag, state, axis="rows"):
@@ -101,8 +172,16 @@ def pcg_init(b, mesh: RowMesh, inv_diag):
 
 
 def _step_fn(layout, mesh, inv_diag, axis):
+    """The iteration as a function of the state, and the counters of
+    the shards it fuses: `cg.fused_shards` (this process's shards on the
+    fused kernels, which the function's own scratch serves; 0 for the
+    composed step and for Jacobi-PCG) of `cg.local_shards`."""
+    on = inv_diag is None and fused(layout, mesh)
+    obs.set_counters({"cg.fused_shards": len(mesh.local) if on else 0,
+                      "cg.local_shards": len(mesh.local)})
     if inv_diag is None:
-        return lambda s: cg_step(layout, mesh, s, axis)
+        scratch = fused_scratch(layout, mesh) if on else None
+        return lambda s: cg_step(layout, mesh, s, axis, scratch=scratch)
     return lambda s: pcg_step(layout, mesh, inv_diag, s, axis)
 
 
@@ -149,11 +228,12 @@ def _capture(step, state):
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         new = step(state)
-        for old, upd in zip(state, new):
-            if isinstance(old, list):
-                each(torch.Tensor.copy_, old, upd)
-            else:
-                old.copy_(upd)
+        if new is not state:  # a step in place (the fused one) copies none
+            for old, upd in zip(state, new):
+                if isinstance(old, list):
+                    each(torch.Tensor.copy_, old, upd)
+                else:
+                    old.copy_(upd)
     return graph
 
 
@@ -209,6 +289,7 @@ def jacobi_inv_diag(diag, padded_m: int):
 
 
 __all__ = [
-    "capture", "capture_step", "cg_init", "cg_solve", "cg_step",
-    "graph_default", "jacobi_inv_diag", "pcg_init", "pcg_solve", "pcg_step",
+    "capture", "capture_step", "cg_init", "cg_solve", "cg_step", "fused",
+    "fused_scratch", "graph_default", "jacobi_inv_diag", "pcg_init",
+    "pcg_solve", "pcg_step",
 ]

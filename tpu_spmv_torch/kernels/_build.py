@@ -53,6 +53,16 @@ _SIGNATURES = {
         _I, _I, _P, _P, _P, _P, _P, _P, _I, _U, _P, _P, _I, _P, _I, _P, _P,
         _P, _LL, _LL, _I, _P,
     ),
+    # tsp_spmv_ranked's arguments through n, then p, partials, count,
+    # out, stream
+    "tsp_spmv_ranked_dot": (
+        _I, _I, _P, _P, _P, _P, _P, _P, _I, _U, _P, _P, _I, _P, _I, _P, _P,
+        _P, _LL, _LL, _P, _P, _P, _P, _P,
+    ),
+    # pap, D, rz, p, ap, x, r, n, partials, cap, count, rr_out, stream
+    "tsp_cg_update": (_P, _I, _P, _P, _P, _P, _P, _LL, _P, _I, _P, _P, _P),
+    # rr, D, rz, r, p, n, count (None: rz left), stream
+    "tsp_cg_direction": (_P, _I, _P, _P, _P, _LL, _P, _P),
     # vals, cols, seg_ptr, seg_chunk, num_segments, split_seg,
     # num_split, x, y, part, m, n, stream
     "tsp_spmv_sell": (_P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _LL, _LL, _P),

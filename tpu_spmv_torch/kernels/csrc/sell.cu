@@ -63,11 +63,22 @@
 //   banded_1m) is the layout's and bounds sell above cuSPARSE's time.
 // wgmma has no dense product to serve here. x is gathered from L2, not
 // staged: the TMA ring of csrc/windowed.cu serves an x past the L2.
+//
+// The p.Ap epilogue (the ranked entry tsp_spmv_ranked_dot, K1 of the
+// fused CG iteration, csrc/cg.cu): the walk's epilogue policy E is
+// NoDot on every other entry, under which both kernels compile to the
+// walk above, and RowDot there: each thread adds p[row] * y[row] for the
+// row it writes (row < m; a split chunk's segments add nothing, its
+// fix-up adds its rows), and the CTAs' sums go through grid_sum.cuh
+// into one float, the fix-up's CTAs counting after the walk's. It costs
+// one read of the walked rows of p, in L2 behind the gathers of x = p.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "grid_sum.cuh"
 
 namespace {
 
@@ -144,17 +155,40 @@ struct Sell {
   __device__ __forceinline__ int base(int, int) const { return 0; }
 };
 
-// One block per segment (see the header). A split chunk's segment
-// writes row p of part, p = seg_chunk & ~kSplitBit.
-template <typename D>
-__global__ void __launch_bounds__(kLanes, 8)
-    segment_kernel(D d, const int* __restrict__ seg_ptr,
-                   const int* __restrict__ seg_chunk,
-                   const float* __restrict__ x, float* __restrict__ y,
-                   float* __restrict__ part, long long m, long long n,
-                   int accumulate) {
-  __shared__ __align__(16) int bases[kMaxSegSubtiles * kSublanes];
-  const int seg = blockIdx.x;
+// The walk's epilogue: nothing more (every entry but the dot's).
+struct NoDot {
+  static constexpr bool kOn = false;
+};
+
+// p . y over the rows a call writes, into *out: CTA b of the walk takes
+// slot b of partials, CTA b of the fix-up slot slot0 + b (slot0 = the
+// walk's CTAs); total = both launches' CTAs (grid_sum.cuh). segments:
+// the walk's segments, which its persistent CTAs share out.
+struct RowDot {
+  static constexpr bool kOn = true;
+  const float* p;
+  float* partials;
+  unsigned* count;
+  float* out;
+  int segments;
+  int slot0;
+  int total;
+
+  __device__ __forceinline__ void add(float term) const {
+    grid_sum<kLanes>(block_sum<kLanes>(term), slot0 + blockIdx.x, total,
+                     partials, count, out);
+  }
+};
+
+// One segment of the walk (see the header): its rows into y, or, for a
+// split chunk's segment, row p of part, p = seg_chunk & ~kSplitBit.
+// Returns p[row] * y[row] under RowDot, else 0.
+template <typename D, typename E>
+__device__ __forceinline__ float walk_segment(
+    const D& d, int seg, const int* __restrict__ seg_ptr,
+    const int* __restrict__ seg_chunk, const float* __restrict__ x,
+    float* __restrict__ y, float* __restrict__ part, long long m,
+    long long n, int accumulate, const E& e, int* bases) {
   const int lane = threadIdx.x;
   const int s0 = __ldg(seg_ptr + seg);
   const int s1 = __ldg(seg_ptr + seg + 1);
@@ -192,21 +226,54 @@ __global__ void __launch_bounds__(kLanes, 8)
     acc += p;
     cur = nxt;
   }
+  float term = 0.f;
   if (tag & kSplitBit) {
     part[(long long)(tag & ~kSplitBit) * kLanes + lane] = acc;
   } else {
     const long long row = (long long)tag * kLanes + lane;
-    if (row < m) y[row] = accumulate ? y[row] + acc : acc;
+    if (row < m) {
+      y[row] = accumulate ? y[row] + acc : acc;
+      if constexpr (E::kOn) term = __ldg(e.p + row) * acc;
+    }
+  }
+  return term;
+}
+
+// One block per segment (see the header). Under RowDot the blocks are
+// persistent, as many as fit on the card at once: block b walks
+// segments b, b + gridDim.x, ... and counts itself done once, where a
+// block a segment paid grid_sum's fence and count 8,792 times a call on
+// HPCG's 104^3 grid (+9.7 us on a 63.8 us walk, on an H100).
+template <typename D, typename E>
+__global__ void __launch_bounds__(kLanes, 8)
+    segment_kernel(D d, const int* __restrict__ seg_ptr,
+                   const int* __restrict__ seg_chunk,
+                   const float* __restrict__ x, float* __restrict__ y,
+                   float* __restrict__ part, long long m, long long n,
+                   int accumulate, E e) {
+  __shared__ __align__(16) int bases[kMaxSegSubtiles * kSublanes];
+  if constexpr (!E::kOn) {
+    walk_segment(d, blockIdx.x, seg_ptr, seg_chunk, x, y, part, m, n,
+                 accumulate, e, bases);
+  } else {
+    float term = 0.f;
+    for (int seg = blockIdx.x; seg < e.segments; seg += gridDim.x) {
+      term += walk_segment(d, seg, seg_ptr, seg_chunk, x, y, part, m, n,
+                           accumulate, e, bases);
+      __syncthreads();  // the next segment's bases overwrite these
+    }
+    e.add(term);
   }
 }
 
 // y rows of every split chunk: its partial rows added in segment order.
 // One block of 128 threads per split chunk; split_seg is (3, K): the
 // chunk, its first partial row and one past its last.
+template <typename E>
 __global__ void __launch_bounds__(kLanes)
     split_fixup_kernel(const int* __restrict__ split_seg, int num_split,
                        const float* __restrict__ part, float* __restrict__ y,
-                       long long m, int accumulate) {
+                       long long m, int accumulate, E e) {
   const int lane = threadIdx.x;
   const int c = __ldg(split_seg + blockIdx.x);
   const int p0 = __ldg(split_seg + num_split + blockIdx.x);
@@ -214,7 +281,12 @@ __global__ void __launch_bounds__(kLanes)
   float acc = 0.f;
   for (int p = p0; p < p1; ++p) acc += part[(long long)p * kLanes + lane];
   const long long row = (long long)c * kLanes + lane;
-  if (row < m) y[row] = accumulate ? y[row] + acc : acc;
+  float term = 0.f;
+  if (row < m) {
+    y[row] = accumulate ? y[row] + acc : acc;
+    if constexpr (E::kOn) term = __ldg(e.p + row) * acc;
+  }
+  if constexpr (E::kOn) e.add(term);
 }
 
 struct Segments {
@@ -225,34 +297,65 @@ struct Segments {
   int num_split;
 };
 
-template <typename D>
+// Blocks of the walk: one a segment, or under RowDot as many as fit on
+// the card at once (the occupancy of this instance, read once a device),
+// at most one a segment.
+template <typename D, typename E>
+unsigned walk_ctas(const Segments& g) {
+  if constexpr (!E::kOn) {
+    return (unsigned)g.num_segments;
+  } else {
+    static int fit[64];
+    int dev = 0;
+    cudaGetDevice(&dev);
+    int& ctas = fit[dev & 63];
+    if (ctas == 0) {
+      int per_sm = 0, sms = 0;
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, segment_kernel<D, E>, kLanes, 0);
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+      ctas = per_sm * sms > 0 ? per_sm * sms : 1;
+    }
+    return (unsigned)(ctas < g.num_segments ? ctas : g.num_segments);
+  }
+}
+
+template <typename D, typename E = NoDot>
 int launch_walk(const D& d, const Segments& g, const void* x, void* y,
                 void* part, long long m, long long n, int accumulate,
-                cudaStream_t s) {
-  segment_kernel<D><<<(unsigned)g.num_segments, kLanes, 0, s>>>(
+                cudaStream_t s, E e = E{}) {
+  const unsigned ctas = walk_ctas<D, E>(g);
+  if constexpr (E::kOn) {
+    e.segments = g.num_segments;
+    e.slot0 = 0;
+    e.total = (int)ctas + g.num_split;
+  }
+  segment_kernel<D, E><<<ctas, kLanes, 0, s>>>(
       d, g.seg_ptr, g.seg_chunk, static_cast<const float*>(x),
-      static_cast<float*>(y), static_cast<float*>(part), m, n, accumulate);
+      static_cast<float*>(y), static_cast<float*>(part), m, n, accumulate, e);
   const cudaError_t rc = cudaGetLastError();
   if (rc != cudaSuccess || g.num_split == 0) return (int)rc;
-  split_fixup_kernel<<<(unsigned)g.num_split, kLanes, 0, s>>>(
+  if constexpr (E::kOn) e.slot0 = (int)ctas;
+  split_fixup_kernel<E><<<(unsigned)g.num_split, kLanes, 0, s>>>(
       g.split_seg, g.num_split, static_cast<const float*>(part),
-      static_cast<float*>(y), m, accumulate);
+      static_cast<float*>(y), m, accumulate, e);
   return (int)cudaGetLastError();
 }
 
-template <typename V, typename L>
+template <typename V, typename L, typename E = NoDot>
 int launch_ranked(const void* vals, const void* lcols, const void* sub_b0,
                   const void* sub_dlo, const void* sub_dhi,
                   const void* grp_b0, int G, unsigned gmap,
                   const Segments& g, const void* x, void* y, void* part,
-                  long long m, long long n, int accumulate, cudaStream_t s) {
+                  long long m, long long n, int accumulate, cudaStream_t s,
+                  E e = E{}) {
   const Ranked<V, L> d{static_cast<const V*>(vals),
                        static_cast<const L*>(lcols),
                        static_cast<const int*>(sub_b0),
                        static_cast<const unsigned*>(sub_dlo),
                        static_cast<const unsigned*>(sub_dhi),
                        static_cast<const int*>(grp_b0), G, gmap};
-  return launch_walk(d, g, x, y, part, m, n, accumulate, s);
+  return launch_walk(d, g, x, y, part, m, n, accumulate, s, e);
 }
 
 }  // namespace
@@ -277,6 +380,40 @@ extern "C" int tsp_spmv_ranked(int val_kind, int lcol_kind, const void* vals,
 #define TSP_RANKED(V, L)                                                    \
   return launch_ranked<V, L>(vals, lcols, sub_b0, sub_dlo, sub_dhi, grp_b0, \
                              G, gmap, g, x, y, part, m, n, accumulate, s)
+  if (val_kind == 0 && lcol_kind == 0) TSP_RANKED(float, uint8_t);
+  if (val_kind == 0 && lcol_kind == 1) TSP_RANKED(float, int16_t);
+  if (val_kind == 0 && lcol_kind == 2) TSP_RANKED(float, int32_t);
+  if (val_kind == 1 && lcol_kind == 0) TSP_RANKED(__nv_bfloat16, uint8_t);
+  if (val_kind == 1 && lcol_kind == 1) TSP_RANKED(__nv_bfloat16, int16_t);
+  if (val_kind == 1 && lcol_kind == 2) TSP_RANKED(__nv_bfloat16, int32_t);
+#undef TSP_RANKED
+  return (int)cudaErrorInvalidValue;
+}
+
+// tsp_spmv_ranked (accumulate 0) that also sums p[row] * y[row] over the
+// rows it writes into *out (RowDot): p holds m floats, partials one
+// float per CTA of both launches (at most num_segments + num_split),
+// count an unsigned that is 0 before the call and is 0 again after it.
+extern "C" int tsp_spmv_ranked_dot(int val_kind, int lcol_kind,
+                                   const void* vals, const void* lcols,
+                                   const void* sub_b0, const void* sub_dlo,
+                                   const void* sub_dhi, const void* grp_b0,
+                                   int G, unsigned gmap, const void* seg_ptr,
+                                   const void* seg_chunk, int num_segments,
+                                   const void* split_seg, int num_split,
+                                   const void* x, void* y, void* part,
+                                   long long m, long long n, const void* p,
+                                   void* partials, void* count, void* out,
+                                   void* stream) {
+  const Segments g{static_cast<const int*>(seg_ptr),
+                   static_cast<const int*>(seg_chunk), num_segments,
+                   static_cast<const int*>(split_seg), num_split};
+  const RowDot e{static_cast<const float*>(p), static_cast<float*>(partials),
+                 static_cast<unsigned*>(count), static_cast<float*>(out)};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define TSP_RANKED(V, L)                                                    \
+  return launch_ranked<V, L>(vals, lcols, sub_b0, sub_dlo, sub_dhi, grp_b0, \
+                             G, gmap, g, x, y, part, m, n, 0, s, e)
   if (val_kind == 0 && lcol_kind == 0) TSP_RANKED(float, uint8_t);
   if (val_kind == 0 && lcol_kind == 1) TSP_RANKED(float, int16_t);
   if (val_kind == 0 && lcol_kind == 2) TSP_RANKED(float, int32_t);

@@ -261,6 +261,49 @@ def _scratch(need: int, x: torch.Tensor,
     return torch.empty(need, dtype=torch.float32, device=x.device)
 
 
+def ranked_walk_args(layout: RankedSlabs, x: torch.Tensor, what: str,
+                     out: torch.Tensor | None = None,
+                     part: torch.Tensor | None = None) -> tuple:
+    """The checks of a ranked walk on the card, then (y, args): y (`out`
+    when given, else new) and the C arguments of tsp_spmv_ranked (and of
+    tsp_spmv_ranked_dot) from val_kind through n; args is None when the
+    layout has no rows (nothing to launch)."""
+    obs.step("entry.check")
+    _build.check_operands(layout, x, what)
+    if out is not None and (
+            out.dtype != torch.float32 or out.shape != (layout.m,)
+            or out.device != x.device or not out.is_contiguous()):
+        raise ValueError(f"{what}: out must be a contiguous float32 "
+                         f"({layout.m},) on {x.device}")
+    _check_slabs(layout, what)
+    if layout.vals.dtype not in _VAL_KIND:
+        raise ValueError(f"{what}: unsupported vals dtype {layout.vals.dtype}")
+    if layout.lcols.dtype not in _LCOL_KIND:
+        raise ValueError(
+            f"{what}: unsupported lcols dtype {layout.lcols.dtype}"
+        )
+    G = layout.num_groups
+    if G and layout.grp_b0.numel() != layout.num_subtiles * G:
+        raise ValueError(f"{what}: grp_b0 must hold G bases per sub-tile")
+    seg_ptr, seg_chunk, nseg, split_seg, nsplit, need = _segment_args(
+        layout, x, what, part=part)
+    obs.step("entry.alloc")
+    part = _scratch(need, x, part)
+    y = torch.empty(layout.m, dtype=torch.float32,
+                    device=x.device) if out is None else out
+    if layout.m == 0:
+        return y, None
+    return y, (
+        _VAL_KIND[layout.vals.dtype], _LCOL_KIND[layout.lcols.dtype],
+        layout.vals.data_ptr(), layout.lcols.data_ptr(),
+        layout.sub_b0.data_ptr(), layout.sub_dlo.data_ptr(),
+        layout.sub_dhi.data_ptr(), layout.grp_b0.data_ptr(), G,
+        layout.group_code & 0xFFFFFFFF, seg_ptr, seg_chunk, nseg, split_seg,
+        nsplit, x.data_ptr(), y.data_ptr(), part.data_ptr(), layout.m,
+        layout.n,
+    )
+
+
 @obs.entry
 def spmv_ranked(layout: RankedSlabs, x: torch.Tensor,
                 out: torch.Tensor | None = None,
@@ -272,41 +315,12 @@ def spmv_ranked(layout: RankedSlabs, x: torch.Tensor,
     if x.device.type == "cpu":
         y = spmv_ranked_reference(layout, x)
         return y if out is None else out.add_(y)
-    obs.step("entry.check")
-    _build.check_operands(layout, x, "spmv_ranked")
-    if out is not None and (
-            out.dtype != torch.float32 or out.shape != (layout.m,)
-            or out.device != x.device or not out.is_contiguous()):
-        raise ValueError(f"spmv_ranked: out must be a contiguous float32 "
-                         f"({layout.m},) on {x.device}")
-    _check_slabs(layout, "spmv_ranked")
-    if layout.vals.dtype not in _VAL_KIND:
-        raise ValueError(f"spmv_ranked: unsupported vals dtype {layout.vals.dtype}")
-    if layout.lcols.dtype not in _LCOL_KIND:
-        raise ValueError(
-            f"spmv_ranked: unsupported lcols dtype {layout.lcols.dtype}"
-        )
-    G = layout.num_groups
-    if G and layout.grp_b0.numel() != layout.num_subtiles * G:
-        raise ValueError("spmv_ranked: grp_b0 must hold G bases per sub-tile")
-    seg_ptr, seg_chunk, nseg, split_seg, nsplit, need = _segment_args(
-        layout, x, "spmv_ranked", part=part)
-    obs.step("entry.alloc")
-    part = _scratch(need, x, part)
-    y = torch.empty(layout.m, dtype=torch.float32,
-                    device=x.device) if out is None else out
-    if layout.m == 0:
+    y, args = ranked_walk_args(layout, x, "spmv_ranked", out, part)
+    if args is None:
         return y
     obs.step("entry.launch")
     rc = _build.library().tsp_spmv_ranked(
-        _VAL_KIND[layout.vals.dtype], _LCOL_KIND[layout.lcols.dtype],
-        layout.vals.data_ptr(), layout.lcols.data_ptr(),
-        layout.sub_b0.data_ptr(), layout.sub_dlo.data_ptr(),
-        layout.sub_dhi.data_ptr(), layout.grp_b0.data_ptr(), G,
-        layout.group_code & 0xFFFFFFFF, seg_ptr, seg_chunk, nseg, split_seg,
-        nsplit, x.data_ptr(), y.data_ptr(), part.data_ptr(), layout.m,
-        layout.n, int(out is not None), _build.stream_of(x),
-    )
+        *args, int(out is not None), _build.stream_of(x))
     _build.check(rc, "spmv_ranked")
     spmv_ranked.launches += 1
     return y
